@@ -1,0 +1,119 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
+(one ``nvcc`` process per source, all started together) and linked into
+one shared library with a plain C interface, which is loaded with
+``ctypes``.  The library lands in ``build/repro_torch/`` at the root of
+the checkout, named by a digest of the sources, so an edited source
+(or header) rebuilds and an unchanged one loads at once.  Only sources in the
+repository are built; nothing is fetched.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes.  Each returns a cudaError_t as int.
+_SIGNATURES = {
+    # q, k, v, out, B, S, T, H, KH, D, scale, causal, window, q_offset,
+    # dtype, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _I, _I, _I, _P],
+    # q, k_pool, v_pool, page_table, kv_len, out, B, KH, G, D, P, page,
+    # max_pages, scale, dtype, stream
+    "repro_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _F, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on ``PATH``, else the CUDA toolkit's default
+    location.  Raises when there is none (a CPU-only machine)."""
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "the CUDA kernels need nvcc to build, and none was found (not on "
+            "PATH, not at /usr/local/cuda/bin/nvcc); on a CPU tensor the "
+            "kernel wrappers take their plain PyTorch versions instead")
+    return nvcc
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and shared headers
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels into the build directory (no-op when a library
+    of the same sources exists) and return the library's path."""
+    lib_path = BUILD_DIR / f"librepro_kernels_{_digest()}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            if verbose and out:
+                print(out)
+            if proc.returncode != 0:
+                failed.append(f"{src.name}:\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib_path)  # atomic: readers never see a partial file
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch: cudaError_t {err}")

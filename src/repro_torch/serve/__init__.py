@@ -1,0 +1,6 @@
+"""Serving in PyTorch: the continuous-batching engine (fused and paged)
+over the port's model API.  ``smoke_serve`` is the one-call harness."""
+from repro_torch.serve.engine import (Completion, PagePool, Request,
+                                      ServeEngine, smoke_serve)
+
+__all__ = ["Completion", "PagePool", "Request", "ServeEngine", "smoke_serve"]
