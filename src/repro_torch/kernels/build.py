@@ -37,6 +37,10 @@ _SIGNATURES = {
     # max_pages, scale, dtype, stream
     "repro_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _F, _I, _P],
+    # q, k_pool, v_pool, page_table, base_len, out, B, T, KH, G, D, P,
+    # page, max_pages, scale, dtype, stream
+    "repro_paged_attention_mq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

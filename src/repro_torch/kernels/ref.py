@@ -77,3 +77,46 @@ def paged_attention(
     k = k_pool[:, pt].permute(1, 2, 3, 0, 4).reshape(B, max_pages * page, KH, D)
     v = v_pool[:, pt].permute(1, 2, 3, 0, 4).reshape(B, max_pages * page, KH, D)
     return attention(q, k, v, causal=False, window=0, kv_len=kv_len)
+
+
+def decode_attention_mq(
+    q: torch.Tensor,         # (B, T, H, D) — T = k+1 draft positions
+    k: torch.Tensor,         # (B, S_max, KH, D) cache (draft rows written)
+    v: torch.Tensor,
+    base_len: torch.Tensor,  # (B,) kv length visible to query row 0
+) -> torch.Tensor:
+    """Multi-query decode attention for speculative verify: query row
+    ``t`` sits at absolute position ``base_len[b] - 1 + t`` and sees the
+    cache positions ``< base_len[b] + t`` — a causal limit per row.  Row
+    0 is single-token decode attention with ``kv_len = base_len``."""
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qf = q.float().reshape(B, S, KH, G, D) * (D ** -0.5)
+    scores = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
+    kpos = torch.arange(T, device=q.device)
+    limit = base_len.to(q.device)[:, None] + torch.arange(S, device=q.device)
+    mask = kpos[None, None, :] < limit[:, :, None]  # (B, S, T)
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def paged_attention_mq(
+    q: torch.Tensor,           # (B, T, H, D) — T = k+1 draft positions
+    k_pool: torch.Tensor,      # (KH, P, page, D) global page pool
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # (B, max_pages) int32; -1 = unmapped
+    base_len: torch.Tensor,    # (B,) kv length visible to query row 0
+) -> torch.Tensor:
+    """Paged verify attention: the dense gather of
+    :func:`paged_attention` with the per-row causal limits of
+    :func:`decode_attention_mq`."""
+    B = q.shape[0]
+    KH, _, page, D = k_pool.shape
+    max_pages = page_table.shape[1]
+    pt = page_table.long().clamp(min=0)
+    k = k_pool[:, pt].permute(1, 2, 3, 0, 4).reshape(B, max_pages * page, KH, D)
+    v = v_pool[:, pt].permute(1, 2, 3, 0, 4).reshape(B, max_pages * page, KH, D)
+    return decode_attention_mq(q, k, v, base_len)

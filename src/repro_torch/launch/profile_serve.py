@@ -11,7 +11,10 @@ and traced), the device's busy time per step (the sum of the kernels'
 device times — one stream, so they do not overlap), the device's idle
 share of the untraced step, and the kernels that take the most device
 time.
-``--trace`` also writes the Chrome trace.
+``--spec-k K`` profiles speculative rounds (n-gram proposer, one verify
+pass of ``K + 1`` rows each) in place of decode steps, and also prints
+the tokens each round committed.  ``--trace`` also writes the Chrome
+trace.
 """
 from __future__ import annotations
 
@@ -47,6 +50,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="profile speculative rounds with this many drafts")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
     args = ap.parse_args()
@@ -56,22 +61,26 @@ def main() -> None:
     if model.device.type != "cuda":
         raise SystemExit("profiling needs the card: --device cuda")
     params = model.serving_params(model.init(args.seed))
-    max_new = args.warmup + 2 * args.steps + 2
+    # every slot stays live through the measured steps (no EOS, a budget
+    # of one full round per step)
+    max_new = (args.warmup + 2 * args.steps + 2) * (args.spec_k + 1)
     eng = ServeEngine(model, params, max_batch=args.max_batch,
-                      max_seq=args.prompt_len + max_new, eos_id=-1,
-                      engine=args.engine, seed=args.seed)
+                      max_seq=args.prompt_len + max_new + args.spec_k,
+                      eos_id=-1, engine=args.engine, seed=args.seed,
+                      spec_k=args.spec_k)
+    step = eng.step_spec if args.spec_k else eng.step
     rng = np.random.default_rng(args.seed)
     for i in range(args.max_batch):
         eng.submit(Request(uid=i, prompt=rng.integers(
             1, cfg.vocab_size, args.prompt_len), max_new_tokens=max_new))
     for _ in range(args.warmup):  # admission + warm decode steps
-        eng.step()
+        step()
     torch.cuda.synchronize()
 
     def timed_steps() -> float:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            eng.step()  # ends with the (B,) token transfer: synchronised
+            step()  # ends with the token transfer: synchronised
         return (time.perf_counter() - t0) / args.steps
 
     plain_wall = timed_steps()  # without the profiler's own overhead
@@ -82,7 +91,11 @@ def main() -> None:
     busy = sum(_device_us(e) for e in events) / 1e3 / args.steps  # ms/step
     print(f"device={torch.cuda.get_device_name(0)} arch={cfg.name} "
           f"engine={args.engine} batch={args.max_batch} "
-          f"kv_len~{args.prompt_len + args.warmup}")
+          f"kv_len~{args.prompt_len + args.warmup} spec_k={args.spec_k}")
+    if args.spec_k:
+        stats = eng.kv_stats()
+        print(f"spec_tokens_per_round={stats['spec_tokens_per_round']:.3f} "
+              f"spec_accept_rate={stats['spec_accept_rate']:.4f}")
     print(f"host_ms_per_step={plain_wall * 1e3:.3f} (traced: "
           f"{wall * 1e3:.3f}) device_busy_ms_per_step={busy:.3f} "
           f"device_idle_share={max(0.0, 1 - busy / (plain_wall * 1e3)):.3f}")

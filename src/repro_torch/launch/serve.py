@@ -9,13 +9,20 @@
     # paged KV cache: pool pages + prefix sharing
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged
 
+    # lossless speculative decoding: n-gram drafts, one verify pass
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged --spec-k 4
+
+    # ... or draft with a smaller same-vocab model
+    PYTHONPATH=src python -m repro_torch.launch.serve --spec-k 4 \
+        --draft qwen1.5-4b
+
     # on the CPU (the plain versions of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 Like the reference entry point it serves the reduced config of ``--arch``
-with random weights from ``--seed``.  ``--engine legacy``, ``--spec-k``
-and ``--draft`` are accepted for the reference's command lines and raise
-``NotImplementedError`` until those paths are ported.
+with random weights from ``--seed`` (the draft's from ``--seed + 1``).
+``--engine legacy`` is accepted for the reference's command lines and
+raises ``NotImplementedError`` until that engine is ported.
 """
 from __future__ import annotations
 
@@ -47,12 +54,12 @@ def main() -> None:
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page (engine=paged; power of two)")
     ap.add_argument("--spec-k", type=int, default=0,
-                    help="speculative drafts per verify round (0 = off; "
-                         "not ported yet)")
+                    help="speculative drafts per verify round (0 = off)")
     ap.add_argument("--ngram-n", type=int, default=3,
                     help="n-gram order for the prompt-lookup proposer")
     ap.add_argument("--draft", default="",
-                    help="draft model arch name (not ported yet)")
+                    help="draft model arch name (same vocab); empty = "
+                         "n-gram proposer")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a GPU")
     args = ap.parse_args()
@@ -60,13 +67,16 @@ def main() -> None:
     cfg = reduced(get_config(args.arch))
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
-    draft = build_model(reduced(get_config(args.draft)), args.device) \
-        if args.draft else None
+    draft = dparams = None
+    if args.draft:
+        draft = build_model(reduced(get_config(args.draft)), args.device)
+        dparams = draft.init(args.seed + 1)
     engine = ServeEngine(model, params, max_batch=args.max_batch,
                          max_seq=args.prompt_len + args.max_new + 8,
                          engine=args.engine, decode_chunk=args.chunk,
                          page_size=args.page_size, spec_k=args.spec_k,
-                         draft=draft, seed=args.seed)
+                         spec_ngram_n=args.ngram_n, draft=draft,
+                         draft_params=dparams, seed=args.seed)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         engine.submit(Request(
@@ -87,6 +97,12 @@ def main() -> None:
         print(f"  pages={engine.pool.capacity} page_size={args.page_size} "
               f"prefix_hit_rate={engine.pool.hit_rate:.3f} "
               f"({engine.pool.prefix_hits}/{engine.pool.prefix_lookups})")
+    if args.spec_k > 0:
+        stats = engine.kv_stats()
+        print(f"  spec_k={args.spec_k} "
+              f"proposer={'draft:' + args.draft if args.draft else 'ngram'} "
+              f"accept_rate={stats['spec_accept_rate']:.3f} "
+              f"tokens_per_round={stats['spec_tokens_per_round']:.2f}")
     for c in done[:3]:
         print(f"  uid={c.uid} reason={c.finished_reason} tokens={c.tokens[:8]}...")
 

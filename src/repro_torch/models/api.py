@@ -90,10 +90,19 @@ class Model:
                 and self.cfg.family not in ("ssm", "hybrid")
                 and self.cfg.num_experts == 0)
 
+    def verify_step(self, params, cache, tokens: torch.Tensor):
+        """Speculative verify: score ``tokens`` ``(B, k+1)`` — the last
+        committed token plus k drafts — in one pass, returning
+        ``(logits (B, k+1, V), cache with pos + k + 1)``; the engine
+        rewinds ``pos`` after acceptance (see
+        :func:`repro_torch.models.lm.verify_step`)."""
+        return lm.verify_step(params, self.cfg, cache, tokens)
+
     def supports_speculative(self) -> bool:
-        """The decode cache is position-addressable, so speculative
-        decoding would be exact; the port does not run it yet (ROADMAP
-        queue 1, item 8)."""
+        """Whether draft/verify speculative decoding is exact for this
+        model: the decode cache must be position-addressable (dense or
+        paged attention K/V) so rejected drafts roll back by a ``pos``
+        rewind.  Recurrent state cannot rewind."""
         return (not self.cfg.is_encoder_decoder
                 and self.cfg.family not in ("ssm", "hybrid"))
 

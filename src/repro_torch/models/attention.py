@@ -53,15 +53,20 @@ def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
     The new token's K/V is written at ``pos`` in place (the reference
     returns updated copies; the port updates the cache it was given),
     then the read is the plain dense decode attention masked by
-    ``kv_len = pos + 1``."""
+    ``kv_len = pos + 1``.  A parked slot's ``pos`` keeps advancing while
+    other slots decode and can pass the cache's end, where the
+    reference's scatter drops the write; here it is clamped into the
+    slot's own last row, which only a parked slot can reach and the next
+    admission rewrites."""
     B = x.shape[0]
     q, k, v = qkv(p, x, cfg, prefix)  # (B, 1, *, Dh)
     cos, sin = rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, pos.long()] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, pos.long()] = v[:, 0].to(cache_v.dtype)
+    idx = pos.long().clamp(max=cache_k.shape[1] - 1)
+    cache_k[bidx, idx] = k[:, 0].to(cache_k.dtype)
+    cache_v[bidx, idx] = v[:, 0].to(cache_v.dtype)
     out = ops.decode_attention(q, cache_k, cache_v, kv_len=pos + 1)
     return out_proj(p, out, prefix)
 
@@ -99,4 +104,63 @@ def attend_decode_paged(p: Dict[str, torch.Tensor], x: torch.Tensor,
     v_pool[:, pid, off] = v[:, 0].to(v_pool.dtype).transpose(0, 1)
     out = ops.paged_decode_attention(q, k_pool, v_pool, page_table,
                                      kv_len=(pos + 1).to(torch.int32))
+    return out_proj(p, out, prefix)
+
+
+def attend_verify(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                  cache_k: torch.Tensor, cache_v: torch.Tensor,
+                  pos: torch.Tensor, cfg: ModelConfig,
+                  prefix: str = "attn") -> torch.Tensor:
+    """Speculative-verify attention against a dense cache: the ``T = k+1``
+    rows of ``x (B, T, D)`` sit at ``pos .. pos + T - 1`` (RoPE per row at
+    those positions), their K/V is written there in place, and row ``t``
+    sees the positions ``< pos + t + 1``.  The write index is clamped to
+    ``S_max - 1``, as in the reference: a parked slot whose frozen ``pos``
+    sits near the cache's end writes into its own dead last row."""
+    B, T = x.shape[:2]
+    q, k, v = qkv(p, x, cfg, prefix)  # (B, T, *, Dh)
+    positions = pos[:, None] + torch.arange(T, device=x.device)  # (B, T)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    bidx = torch.arange(B, device=x.device)[:, None]
+    idx = positions.long().clamp(0, cache_k.shape[1] - 1)
+    cache_k[bidx, idx] = k.to(cache_k.dtype)
+    cache_v[bidx, idx] = v.to(cache_v.dtype)
+    out = ops.decode_attention_mq(q, cache_k, cache_v, base_len=pos + 1)
+    return out_proj(p, out, prefix)
+
+
+def attend_verify_paged(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                        k_pool: torch.Tensor, v_pool: torch.Tensor,
+                        page_table: torch.Tensor, pos: torch.Tensor,
+                        cfg: ModelConfig, prefix: str = "attn") -> torch.Tensor:
+    """Speculative-verify attention against this layer's paged pool
+    ``(KH, P, page, Dh)``: the multi-row sibling of
+    :func:`attend_decode_paged`.  Position ``pos + t`` is written in place
+    into physical page ``page_table[b, (pos + t) // page]`` with the
+    reference's clamps — the table slot to ``[0, max_pages - 1]``, a -1
+    entry to the null page 0 — so parked slots' writes are absorbed as
+    their decode writes are.  The read goes through
+    :func:`repro_torch.kernels.ops.paged_decode_attention_mq` with
+    ``base_len = pos + 1``."""
+    B, T = x.shape[:2]
+    page = k_pool.shape[2]
+    max_pages = page_table.shape[1]
+    q, k, v = qkv(p, x, cfg, prefix)  # (B, T, *, Dh)
+    positions = pos[:, None] + torch.arange(T, device=x.device)  # (B, T)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    positions = positions.long()
+    bidx = torch.arange(B, device=x.device)[:, None]
+    slot = torch.clamp(positions // page, 0, max_pages - 1)
+    pid = page_table[bidx, slot].long().clamp(min=0)  # -1 -> null page 0
+    off = positions % page
+    # (B, T, KH, Dh) -> (KH, B, T, Dh) written at [:, pid, off]
+    k_pool[:, pid, off] = k.to(k_pool.dtype).permute(2, 0, 1, 3)
+    v_pool[:, pid, off] = v.to(v_pool.dtype).permute(2, 0, 1, 3)
+    out = ops.paged_decode_attention_mq(q, k_pool, v_pool, page_table,
+                                        base_len=(pos + 1).to(torch.int32))
     return out_proj(p, out, prefix)

@@ -2,8 +2,8 @@
 
 Counterpart of the reference package's ``models/lm.py`` for
 ``family="dense"``: init, embedding and tied/untied head, the gated MLP,
-the dense and paged decode caches, ragged prefill, and the dense and
-paged decode steps.  The reference's ``scan`` over stacked layers is a
+the dense and paged decode caches, ragged prefill, and the decode and
+speculative verify steps on both caches.  The reference's ``scan`` over stacked layers is a
 Python loop here.  Other families raise ``NotImplementedError``.
 
 Parameters keep the reference's tree and shapes: ``embed``,
@@ -21,6 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.attention import (attend_decode, attend_decode_paged,
+                                          attend_verify, attend_verify_paged,
                                           out_proj, qkv)
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        init_param, rope_angles)
@@ -221,3 +222,32 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
         x = _mlp_residual(p, x + attn, cfg)
     logits = lm_logits(params, cfg, x)[:, 0]
     return logits, dict(cache, pos=pos + 1)
+
+
+def verify_step(params: Params, cfg: ModelConfig, cache: Params,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """Speculative verify: tokens ``(B, T)`` — the last committed token
+    plus ``k = T - 1`` drafts — scored in one pass.  Returns
+    ``(logits (B, T, V), cache with pos + T)``, where ``logits[:, i]`` is
+    the target distribution for the token after ``tokens[:, i]``.
+
+    All T K/V rows are written into the given cache in place (dense or
+    paged, by the ``k_pool`` key); the engine rewinds ``pos`` after
+    acceptance, and rejected rows stay above ``pos``, hidden by the
+    per-row limits until real tokens overwrite them."""
+    require_dense(cfg)
+    pos = cache["pos"]
+    T = tokens.shape[1]
+    x = embed_tokens(params, cfg, tokens)
+    paged = "k_pool" in cache
+    for i, p in enumerate(layers(cfg, params["blocks"])):
+        h = apply_norm(p, "norm1", x, cfg.norm)
+        if paged:
+            attn = attend_verify_paged(p, h, cache["k_pool"][i],
+                                       cache["v_pool"][i],
+                                       cache["page_table"], pos, cfg)
+        else:
+            attn = attend_verify(p, h, cache["k"][i], cache["v"][i], pos, cfg)
+        x = _mlp_residual(p, x + attn, cfg)
+    logits = lm_logits(params, cfg, x)
+    return logits, dict(cache, pos=pos + T)

@@ -12,8 +12,10 @@ triple ``(seed, slot, position)``.  A slot's stream is therefore a pure
 function of the engine seed, the slot and the token position —
 independent of its neighbours and reproducible run to run — which is
 the property the reference gets from ``fold_in(fold_in(key, slot),
-pos)``.  PyTorch cannot reproduce ``fold_in``'s bits, so temperature
-draws differ from the reference's; only their distribution agrees.
+pos)``.  Speculative decoding adds a tag per purpose: a stream keyed by
+``(seed, slot, position, tag)``, as the reference's ``spec_keys`` are.
+PyTorch cannot reproduce ``fold_in``'s bits, so temperature draws
+differ from the reference's; only their distribution agrees.
 """
 from __future__ import annotations
 
@@ -22,21 +24,50 @@ import hashlib
 import torch
 
 
-def slot_seed(seed: int, slot: int, pos: int) -> int:
-    """A 63-bit generator seed for one (engine seed, slot, position)."""
-    h = hashlib.blake2b(f"{seed}/{slot}/{pos}".encode(), digest_size=8)
+def slot_seed(seed: int, slot: int, pos: int, tag=None) -> int:
+    """A 63-bit generator seed for one (engine seed, slot, position).  A
+    ``tag`` keys a separate stream for one purpose at the same position
+    (the speculative draws of :mod:`repro_torch.models.speculate`); with
+    no tag the key is the plain sampler's."""
+    key = f"{seed}/{slot}/{pos}" if tag is None else f"{seed}/{slot}/{pos}/{tag}"
+    h = hashlib.blake2b(key.encode(), digest_size=8)
     return int.from_bytes(h.digest(), "little") & ((1 << 63) - 1)
 
 
+def _generator(device, seed: int, slot: int, pos: int, tag) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(slot_seed(seed, slot, pos, tag))
+    return gen
+
+
+def gumbel_argmax(logits: torch.Tensor, *, seed: int, slot: int, pos: int,
+                  tag=None) -> torch.Tensor:
+    """One draw from ``softmax(logits)`` for a ``(V,)`` row by the
+    Gumbel-max trick, with the noise of stream ``(seed, slot, pos, tag)``;
+    returns a 0-d int64 tensor on the row's device."""
+    gen = _generator(logits.device, seed, slot, pos, tag)
+    u = torch.rand(logits.shape[-1], generator=gen,
+                   device=logits.device).clamp_(min=1e-20)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits + gumbel)
+
+
+def uniform(*, seed: int, slot: int, pos: int, tag, device) -> torch.Tensor:
+    """One uniform draw in ``[0, 1)`` from stream ``(seed, slot, pos,
+    tag)``: a 0-d float32 tensor on ``device``."""
+    gen = _generator(device, seed, slot, pos, tag)
+    return torch.rand((), generator=gen, device=device)
+
+
 def sample_tokens(logits: torch.Tensor, temperatures, *, seed: int, slots,
-                  pos, greedy_only: bool = False) -> torch.Tensor:
+                  pos, greedy_only: bool = False, tag=None) -> torch.Tensor:
     """Sample one token per row of ``logits`` (B, V) -> (B,) int32.
 
     ``temperatures``, ``slots`` and ``pos`` hold B values each (tensors or
-    sequences); ``slots``/``pos`` key each row's random stream and are
-    read on the host only when some row samples.  ``greedy_only`` skips
-    the draw when the caller knows every row is greedy; the result is the
-    same either way."""
+    sequences); ``slots``/``pos`` (and ``tag``) key each row's random
+    stream and are read on the host only when some row samples.
+    ``greedy_only`` skips the draw when the caller knows every row is
+    greedy; the result is the same either way."""
     logits32 = logits.float()
     greedy = torch.argmax(logits32, dim=-1).to(torch.int32)
     if greedy_only:
@@ -49,10 +80,6 @@ def sample_tokens(logits: torch.Tensor, temperatures, *, seed: int, slots,
     pos = torch.as_tensor(pos).tolist()
     out = greedy.clone()
     for b in hot:
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(slot_seed(seed, slots[b], pos[b]))
-        u = torch.rand(logits32.shape[-1], generator=gen,
-                       device=logits.device).clamp_(min=1e-20)
-        gumbel = -torch.log(-torch.log(u))
-        out[b] = torch.argmax(logits32[b] / float(temps[b]) + gumbel)
+        out[b] = gumbel_argmax(logits32[b] / float(temps[b]), seed=seed,
+                               slot=slots[b], pos=pos[b], tag=tag)
     return out

@@ -18,14 +18,20 @@ Counterpart of the reference package's ``serve/engine.py`` for
     reserved at admission for the request's whole budget, full prompt
     pages are shared across requests by a chain hash of the prefix they
     cover, and pool page 0 is the null page where retired slots' writes
-    land.
+    land;
+  * ``spec_k > 0`` decodes speculatively on either engine: each round
+    drafts ``spec_k`` tokens per slot (n-gram prompt lookup, or a draft
+    model with the same vocabulary and its own dense cache), verifies
+    them in one target pass and keeps the longest prefix the target
+    agrees with (:mod:`repro_torch.models.speculate`); ``decode_chunk``
+    rounds run per host transfer.
 
-Greedy tokens agree with the reference engine's on the same weights.
-Temperature draws are keyed by ``(seed, slot, position)`` but are not
-the reference's bits (see :mod:`repro_torch.models.sampling`).
+Greedy tokens agree with the reference engine's on the same weights,
+with and without speculation.  Temperature draws are keyed by
+``(seed, slot, position)`` (plus a tag per speculative purpose) but are
+not the reference's bits (see :mod:`repro_torch.models.sampling`).
 
-``engine="legacy"``, speculative decoding (``spec_k > 0``) and draft
-models are not ported yet and raise ``NotImplementedError``.
+``engine="legacy"`` is not ported yet and raises ``NotImplementedError``.
 
 The engine runs on its model's device (``build_model`` defaults to the
 card).  K/V caches are updated in place.
@@ -41,12 +47,11 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models import sampling
+from repro_torch.models import sampling, speculate
 from repro_torch.models.api import Model
 
 _MIN_SEQ_BUCKET = 8
-_LATER = ("is not ported to PyTorch yet (ROADMAP queue 1: item 6 for the "
-          "legacy engine, item 8 for speculative decoding)")
+_LATER = "is not ported to PyTorch yet (ROADMAP queue 1, item 6)"
 
 
 @dataclasses.dataclass
@@ -163,16 +168,46 @@ class ServeEngine:
                  max_seq: int = 256, eos_id: int = 2, seed: int = 0,
                  engine: str = "fused", decode_chunk: int = 1,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 spec_k: int = 0, draft: Optional[Model] = None):
+                 spec_k: int = 0, spec_ngram_n: int = 3,
+                 draft: Optional[Model] = None, draft_params=None):
         if engine == "legacy":
             raise NotImplementedError(f"engine='legacy' {_LATER}")
         if engine not in ("fused", "paged"):
             raise ValueError(f"engine must be 'fused' or 'paged', "
                              f"got {engine!r}")
-        if spec_k or draft is not None:
-            raise NotImplementedError(f"speculative decoding {_LATER}")
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_k == 0 and draft is not None:
+            raise ValueError("a draft model requires spec_k >= 1")
+        if spec_k > 0:
+            if not model.supports_speculative():
+                raise ValueError(
+                    f"speculative decoding unsupported for family "
+                    f"{model.cfg.family!r}: the decode cache cannot roll "
+                    f"back rejected drafts")
+            if spec_ngram_n < 1:
+                raise ValueError(f"spec_ngram_n must be >= 1, "
+                                 f"got {spec_ngram_n}")
+            if draft is not None:
+                if draft_params is None:
+                    raise ValueError("a draft model requires draft_params")
+                if draft.cfg.vocab_size != model.cfg.vocab_size:
+                    raise ValueError(
+                        f"draft vocab ({draft.cfg.vocab_size}) must match "
+                        f"target vocab ({model.cfg.vocab_size}): drafts are "
+                        f"target token ids")
+                if not draft.supports_speculative():
+                    raise ValueError(
+                        f"draft family {draft.cfg.family!r} cannot draft: "
+                        f"its cache cannot roll back rejected drafts")
+                if (model.supports_padded_prefill()
+                        and not draft.supports_padded_prefill()):
+                    raise ValueError(
+                        "draft model must support padded prefill when the "
+                        "target does: both prefill the same admission "
+                        "groups")
         self.model = model
         self.device = model.device
         self.params = model.serving_params(params)
@@ -223,6 +258,29 @@ class ServeEngine:
         self.d2h_elems = 0
         self.chunk_steps_total = 0
         self.chunk_steps_used = 0
+        # speculative decoding counters (spec_k > 0)
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_tokens = 0
+
+        self.spec_k = spec_k
+        self.spec_ngram_n = spec_ngram_n
+        self.draft = draft
+        if spec_k > 0:
+            # history buffer (the n-gram proposer's source and the record
+            # of committed tokens): every reachable position of a slot
+            cap = (self._max_pages * page_size if engine == "paged"
+                   else max_seq)
+            self._hist_cap = cap
+            self.hist = torch.zeros((max_batch, cap), dtype=torch.int32,
+                                    device=self.device)
+            self._hist_dirty: List[int] = []
+            if draft is not None:
+                # the draft serves from its own dense cache sized to the
+                # target's reachable positions, admitted with the target
+                self.draft_params = draft.serving_params(draft_params)
+                self._draft_cache = draft.init_cache(max_batch, cap)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -234,24 +292,28 @@ class ServeEngine:
         if req.max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
-        # the last decode writes K/V at position plen + max_new_tokens - 2
+        # the last decode writes K/V at position plen + max_new_tokens - 2;
+        # a verify pass entered one token before the budget writes spec_k
+        # draft rows past it
+        spec = f" + spec_k ({self.spec_k})" if self.spec_k else ""
         if self.engine == "paged":
-            need = -(-(plen + req.max_new_tokens - 1) // self.page_size)
+            need = -(-(plen + req.max_new_tokens - 1 + self.spec_k)
+                     // self.page_size)
             limit = min(self.pool.capacity, self._max_pages)
             if need > limit:
                 raise ValueError(
                     f"prompt ({plen}) + max_new_tokens "
-                    f"({req.max_new_tokens}) needs {need} KV pages but "
+                    f"({req.max_new_tokens}){spec} needs {need} KV pages but "
                     f"engine='paged' can map at most {limit} pages per "
                     f"request ({self.pool.capacity} allocatable pages of "
                     f"page_size={self.page_size} in the pool, "
                     f"{self._max_pages} page-table entries per slot): "
                     f"the request could never be admitted")
-        elif plen + req.max_new_tokens - 1 > self.max_seq:
+        elif plen + req.max_new_tokens - 1 + self.spec_k > self.max_seq:
             raise ValueError(
                 f"prompt ({plen}) + max_new_tokens ({req.max_new_tokens}) "
-                f"- 1 exceeds max_seq={self.max_seq}: the decode would "
-                f"overflow the KV cache")
+                f"- 1{spec} exceeds max_seq={self.max_seq}: the decode "
+                f"would overflow the KV cache")
         self.queue.append(req)
 
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
@@ -356,9 +418,25 @@ class ServeEngine:
         self.cache["k"][:, idx] = cache1["k"][:, :n]
         self.cache["v"][:, idx] = cache1["v"][:, :n]
         self.cache["pos"][idx] = cache1["pos"][:n]
+        self._admit_draft(tokens, lens, slots, n)
         first = first.cpu().numpy()
         for i, (slot, req) in enumerate(members):
             self._place(slot, req, int(first[i]))
+
+    def _admit_draft(self, tokens, lens, slots, n: int) -> None:
+        """Prefill the draft model's cache for a freshly admitted group
+        (same rows, same slots).  The target's prefill decides the first
+        token, so the draft's logits are dropped; its cache position
+        lands at ``lens``, in lockstep with the target."""
+        if self.draft is None:
+            return
+        _, dc = self.draft.prefill(self.draft_params, self._tensor(tokens),
+                                   max_seq=self._hist_cap,
+                                   lens=self._tensor(lens))
+        idx = self._tensor(slots[:n]).long()
+        for name in ("k", "v"):
+            self._draft_cache[name][:, idx] = dc[name][:, :n]
+        self._draft_cache["pos"][idx] = dc["pos"][:n]
 
     # ---- paged admission ---------------------------------------------
     def _plan_pages(self, req: Request):
@@ -369,7 +447,10 @@ class ServeEngine:
         copied from the prefill (shared hits need none) — or None with
         every reservation rolled back when the pool can't fit it."""
         plen = len(req.prompt)
-        n_total = -(-(plen + req.max_new_tokens - 1) // self.page_size)
+        # + spec_k: room for the draft rows a final verify pass writes past
+        # the budget (the over-reserved tail frees at retirement)
+        n_total = -(-(plen + req.max_new_tokens - 1 + self.spec_k)
+                    // self.page_size)
         n_prompt = -(-plen // self.page_size)
         n_full = plen // self.page_size  # only fully covered pages share
         prompt = np.asarray(req.prompt, np.int32)
@@ -451,6 +532,7 @@ class ServeEngine:
                 self.cache[pool][:, :, dp] = blocks.permute(0, 3, 1, 2, 4)
         idx = self._tensor(slots[:n]).long()
         self.cache["pos"][idx] = self._tensor(lens[:n])
+        self._admit_draft(tokens, lens, slots, n)
         first = first.cpu().numpy()
         for i, (slot, req, _, _) in enumerate(members):
             self._place(slot, req, int(first[i]))
@@ -463,6 +545,25 @@ class ServeEngine:
             self.cache["page_table"].copy_(torch.from_numpy(self._ptable))
             self._ptable_dirty = False
 
+    def _sync_hist(self) -> None:
+        """Upload the history rows of freshly admitted slots (prompt and
+        the admission-sampled token).  The rounds keep continuing slots'
+        rows current on the device, so only admissions transfer."""
+        if self.spec_k == 0 or not self._hist_dirty:
+            return
+        idx = sorted(set(self._hist_dirty))
+        self._hist_dirty = []
+        rows = np.zeros((len(idx), self._hist_cap), np.int32)
+        for r, slot in enumerate(idx):
+            req = self.req[slot]
+            if req is None:  # admitted and retired at once: the row is dead
+                continue
+            seq = np.concatenate([np.asarray(req.prompt, np.int64),
+                                  np.asarray(self.emitted[slot], np.int64)])
+            seq = seq[:self._hist_cap]
+            rows[r, :len(seq)] = seq
+        self.hist[self._tensor(np.asarray(idx)).long()] = self._tensor(rows)
+
     def _place(self, slot: int, req: Request, first: int) -> None:
         """Occupy a slot with a freshly prefilled request and apply the
         retire rules to its admission-sampled token — a prefill EOS (or a
@@ -472,6 +573,8 @@ class ServeEngine:
         self.emitted[slot] = [first]
         self.last_token[slot] = first
         self.temps[slot] = req.temperature
+        if self.spec_k > 0:
+            self._hist_dirty.append(slot)
         if first == self.eos_id:
             self._retire(slot, "eos")
         elif req.max_new_tokens <= 1:
@@ -569,10 +672,149 @@ class ServeEngine:
         self._consume(self._to_host(self._decode_chunk(budgets, counts)))
         return self.decode_chunk
 
+    # ---- speculative decode ------------------------------------------
+    def _draft_propose(self, last: torch.Tensor, pos: torch.Tensor,
+                       greedy_only: bool):
+        """``spec_k`` draft-model decode steps from ``last``: the drafts
+        ``(B, k)`` (greedy rows take the argmax, temperature rows draw
+        from the stream tagged ``TAG_DRAFT`` at the draft's position) and
+        the draft's softmax ``(B, k, V)`` at each step, which the
+        rejection test needs (None when every row is greedy)."""
+        safe = self._tensor(np.where(self.temps > 0, self.temps,
+                                     1.0).astype(np.float32))
+        dc, cur = self._draft_cache, last
+        toks, probs = [], []
+        for j in range(self.spec_k):
+            lg, dc = self.draft.decode_step(self.draft_params, dc,
+                                            cur[:, None])
+            cur = sampling.sample_tokens(
+                lg, self.temps, seed=self.seed, slots=range(self.max_batch),
+                pos=pos + 1 + j, greedy_only=greedy_only,
+                tag=speculate.TAG_DRAFT)
+            toks.append(cur)
+            if not greedy_only:
+                probs.append(torch.softmax(lg.float() / safe[:, None], -1))
+        self._draft_cache = dc
+        return (torch.stack(toks, dim=1),
+                torch.stack(probs, dim=1) if probs else None)
+
+    def _spec_chunk(self, budgets: np.ndarray,
+                    counts: np.ndarray) -> torch.Tensor:
+        """``max(1, decode_chunk)`` draft/verify rounds on the device, each
+        committing 1..k+1 tokens per slot from one target pass.
+
+        Per round and slot: propose ``k`` drafts, verify all ``k + 1``
+        positions at once, keep the longest prefix the target agrees with
+        (:func:`repro_torch.models.speculate.accept_and_emit`), cut the run
+        at the first EOS and at the token budget as the decode chunk's
+        mask does, and rewind the cache's ``pos`` to the last committed
+        token — rejected rows need no K/V surgery, the per-row limits hide
+        everything above ``pos``.  Returns ``(rounds, B, k + 3)`` int32:
+        per round the ``k + 1`` candidate tokens, then ``m`` (tokens
+        committed) and ``accepted`` (drafts that survived) — the chunk's
+        one transfer."""
+        K = self.spec_k
+        last = self._tensor(self.last_token)
+        act = self._tensor(self.active)
+        cnt = self._tensor(counts)
+        bud = self._tensor(budgets)
+        greedy_only = self._all_greedy()
+        jcol = torch.arange(K + 1, device=self.device)[None]
+        rows = []
+        for _ in range(max(1, self.decode_chunk)):
+            pos = self.cache["pos"]  # plen + cnt - 1 for live slots
+            if self.draft is None:
+                drafts = speculate.ngram_propose(self.hist, pos + 1, k=K,
+                                                 n=self.spec_ngram_n)
+                q_probs = None
+            else:
+                drafts, q_probs = self._draft_propose(last, pos, greedy_only)
+            vt = torch.cat([last[:, None], drafts], dim=1)
+            logits, cache = self.model.verify_step(self.params, self.cache, vt)
+            emitted, m, accepted = speculate.accept_and_emit(
+                logits, drafts, q_probs, self.temps, seed=self.seed,
+                slots=range(self.max_batch), pos0=pos + 1,
+                bonus=self.draft is None, greedy_only=greedy_only)
+            # tokens after the first EOS or past the budget are dead
+            is_eos = (jcol < m[:, None]) & (emitted == self.eos_id)
+            eos_idx = torch.where(is_eos, jcol, K + 2).min(dim=1).values
+            m_eff = torch.minimum(torch.minimum(m, eos_idx + 1),
+                                  torch.clamp(bud - cnt, min=0))
+            m_eff = torch.where(act, m_eff, 0).to(torch.int32)
+            new_pos = pos + m_eff  # rollback: rejected rows stay above pos
+            self.cache = dict(cache, pos=new_pos)
+            if self.draft is not None:
+                # the draft cache holds [last, d_1 .. d_{k-1}] at pos ..
+                # pos + k - 1; every committed token up to the new last
+                # matches it, so syncing pos is the whole rollback
+                self._draft_cache = dict(self._draft_cache, pos=new_pos)
+            cnt2 = cnt + m_eff
+            lidx = torch.clamp(m_eff - 1, 0, K).long()
+            last = torch.where(act & (m_eff > 0),
+                               torch.gather(emitted, 1, lidx[:, None])[:, 0],
+                               last)
+            fin = act & ((eos_idx + 1 <= m_eff) | (cnt2 >= bud))
+            speculate.update_history(self.hist, pos, emitted, m_eff, act)
+            rows.append(torch.cat([emitted, m_eff[:, None],
+                                   accepted[:, None]], dim=1))
+            act = act & ~fin
+            cnt = cnt2
+        return torch.stack(rows)
+
+    def _consume_spec(self, rows: np.ndarray) -> None:
+        """Apply speculative rounds — ``rows`` is ``(R, B, k + 3)`` — with
+        the retire rules the device mask uses, so host and device stay in
+        lockstep."""
+        mcol, acol = self.spec_k + 1, self.spec_k + 2
+        self.chunk_steps_total += len(rows)
+        for row in rows:
+            if not self.active.any():
+                break  # the rest of the chunk is dead work
+            self.chunk_steps_used += 1
+            for slot in range(self.max_batch):
+                if not self.active[slot]:
+                    continue
+                req = self.req[slot]
+                m = int(row[slot, mcol])
+                self.spec_rounds += 1
+                self.spec_proposed += self.spec_k
+                self.spec_accepted += int(row[slot, acol])
+                self.spec_tokens += m
+                for j in range(m):
+                    tok = int(row[slot, j])
+                    self.emitted[slot].append(tok)
+                    self.last_token[slot] = tok
+                    if tok == self.eos_id:
+                        self._retire(slot, "eos")
+                        break
+                    if len(self.emitted[slot]) >= req.max_new_tokens:
+                        self._retire(slot, "length")
+                        break
+
+    def step_spec(self) -> int:
+        """One speculative iteration: admit, then run ``decode_chunk``
+        draft/verify rounds — up to ``decode_chunk * (spec_k + 1)`` tokens
+        per slot for one host transfer.  Returns the rounds run (0 when
+        idle)."""
+        self._admit()
+        self._sync_ptable()
+        self._sync_hist()
+        if not self.active.any():
+            return 0
+        budgets = np.asarray(
+            [r.max_new_tokens if r is not None else 0 for r in self.req],
+            np.int32)
+        counts = np.asarray([len(e) for e in self.emitted], np.int32)
+        self._consume_spec(self._to_host(self._spec_chunk(budgets, counts)))
+        return max(1, self.decode_chunk)
+
     def run(self, max_steps: int = 10_000) -> List[Completion]:
         steps = 0
         while (self.queue or self.active.any()) and steps < max_steps:
-            steps += self.step_chunk() or 1
+            if self.spec_k > 0:
+                steps += self.step_spec() or 1
+            else:
+                steps += self.step_chunk() or 1
         return self.done
 
     # ------------------------------------------------------------------
@@ -599,6 +841,17 @@ class ServeEngine:
             "chunk_utilization": (self.chunk_steps_used
                                   / max(1, self.chunk_steps_total)),
         }
+        if self.spec_k > 0:
+            stats.update(
+                spec_rounds=self.spec_rounds,
+                spec_tokens=self.spec_tokens,
+                spec_accepted=self.spec_accepted,
+                spec_proposed=self.spec_proposed,
+                spec_accept_rate=(self.spec_accepted
+                                  / max(1, self.spec_proposed)),
+                spec_tokens_per_round=(self.spec_tokens
+                                       / max(1, self.spec_rounds)),
+            )
         if self.engine == "paged":
             in_use = self.pool.pages_in_use * self.page_size * per_tok
             stats.update(
@@ -625,16 +878,21 @@ def smoke_serve(model: Model, params, *, num_requests: int, vocab_size: int,
                 max_batch: int = 8, max_seq: int = 96, prompt_len: int = 8,
                 max_new_tokens: int = 8, seed: int = 0, engine: str = "fused",
                 decode_chunk: int = 1, temperature: float = 0.0,
-                page_size: int = 16, num_pages: Optional[int] = None
+                page_size: int = 16, num_pages: Optional[int] = None,
+                spec_k: int = 0, spec_ngram_n: int = 3,
+                draft: Optional[Model] = None, draft_params=None
                 ) -> Tuple[List[Completion], Dict[str, float]]:
     """Drive one engine through a synthetic request burst and report
     throughput stats.  Returns (completions, stats): request and token
     counts, wall time and tokens/s (the clock stops after the last
-    token reached the host), plus the page pool's counters when
+    token reached the host), the acceptance rate and tokens per round
+    when ``spec_k > 0``, plus the page pool's counters when
     ``engine='paged'``.  Runs on the model's device."""
     eng = ServeEngine(model, params, max_batch=max_batch, max_seq=max_seq,
                       seed=seed, engine=engine, decode_chunk=decode_chunk,
-                      page_size=page_size, num_pages=num_pages)
+                      page_size=page_size, num_pages=num_pages,
+                      spec_k=spec_k, spec_ngram_n=spec_ngram_n,
+                      draft=draft, draft_params=draft_params)
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
     for i in range(num_requests):
@@ -651,6 +909,12 @@ def smoke_serve(model: Model, params, *, num_requests: int, vocab_size: int,
              "d2h_transfers": eng.d2h_transfers,
              "chunk_utilization": (eng.chunk_steps_used
                                    / max(1, eng.chunk_steps_total))}
+    if spec_k > 0:
+        stats["spec_k"] = spec_k
+        stats["spec_accept_rate"] = (eng.spec_accepted
+                                     / max(1, eng.spec_proposed))
+        stats["spec_tokens_per_round"] = (eng.spec_tokens
+                                          / max(1, eng.spec_rounds))
     if engine == "paged":
         stats["prefix_hit_rate"] = eng.pool.hit_rate
         stats["prefix_hits"] = eng.pool.prefix_hits

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.kernels import build, flash_attention, paged_attention
+from repro_torch.kernels import (build, flash_attention, paged_attention,
+                                 paged_attention_mq)
 from repro_torch.models import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -60,7 +61,8 @@ def test_entry_points_default_to_the_card():
 def test_cuda_entries_never_return_the_plain_version():
     """The CUDA entry points refuse CPU tensors instead of computing the
     plain result, and the build refuses to run without nvcc."""
-    before = (flash_attention.launches, paged_attention.launches)
+    counters = (flash_attention, paged_attention, paged_attention_mq)
+    before = [m.launches for m in counters]
     q = torch.zeros(1, 4, 2, 64)
     k = torch.zeros(1, 4, 2, 64)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
@@ -70,7 +72,9 @@ def test_cuda_entries_never_return_the_plain_version():
     lens = torch.ones(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         paged_attention.paged_attention_cuda(q[:, :1], pool, pool, table, lens)
-    assert (flash_attention.launches, paged_attention.launches) == before
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        paged_attention_mq.paged_attention_mq_cuda(q, pool, pool, table, lens)
+    assert [m.launches for m in counters] == before
     try:
         build.find_nvcc()
     except RuntimeError as e:

@@ -4,8 +4,8 @@ The reduced qwen2-1.5b (float32) is initialised by the reference, its
 zero QKV biases and unit norm gains are replaced by random values (at
 init they would hide a wrong bias or gain mapping), and the same numpy
 weights are bridged into the port.  Prefill logits (with and without
-ragged ``lens``) and decode-step logits on a dense and on a paged cache
-must agree at atol 1e-4 in float32 — both packages compute in float32
+ragged ``lens``), decode-step logits and speculative verify-step logits
+on a dense and on a paged cache must agree at atol 1e-4 in float32 — both packages compute in float32
 and differ only in summation order, accumulated over two layers and a
 vocabulary projection — and at 2e-2 in bfloat16 (bfloat16 activations
 are rounded at other points by the two frameworks)."""
@@ -44,6 +44,7 @@ class JaxModel:
         model = jbuild_model(cfg)
         self.prefill = jax.jit(model.prefill, static_argnames=("max_seq",))
         self.decode_step = jax.jit(model.decode_step)
+        self.verify_step = jax.jit(model.verify_step)
 
 
 def jax_params_randomized(cfg, seed: int = 0):
@@ -145,6 +146,63 @@ def test_decode_paged_cache_logits_match(f32):
         tl, tc = model.decode_step(tparams, tc, torch.from_numpy(nxt))
         np.testing.assert_allclose(_np(tl), _np(jl), atol=ATOL["float32"],
                                    rtol=0, err_msg=f"step {step}")
+    np.testing.assert_allclose(_np(tc["k_pool"]), _np(jc["k_pool"]), atol=1e-4)
+    np.testing.assert_allclose(_np(tc["v_pool"]), _np(jc["v_pool"]), atol=1e-4)
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+def test_verify_dense_cache_logits_match(f32):
+    """Verify steps of T = 5 rows after a ragged prefill: logits, the
+    written cache and pos agree; a second step starts from a rewound pos
+    with rejected rows left above it, as the engine leaves them."""
+    jmodel, jparams, model, tparams, _ = f32
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(1, 256, (3, 10)).astype(np.int32)
+    lens = np.asarray([10, 6, 3], np.int32)
+    _, jc = jmodel.prefill(jparams, jnp.asarray(tokens), max_seq=16,
+                           lens=jnp.asarray(lens))
+    _, tc = model.prefill(tparams, torch.from_numpy(tokens), max_seq=16,
+                          lens=torch.from_numpy(lens))
+    for step, rewind in enumerate(([2, 4, 1], None)):
+        vt = rng.integers(1, 256, (3, 5)).astype(np.int32)
+        jl, jc = jmodel.verify_step(jparams, jc, jnp.asarray(vt))
+        tl, tc = model.verify_step(tparams, tc, torch.from_numpy(vt))
+        assert tl.shape == (3, 5, 256)
+        np.testing.assert_allclose(_np(tl), _np(jl), atol=ATOL["float32"],
+                                   rtol=0, err_msg=f"step {step}")
+        np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+        if rewind is not None:
+            new_pos = np.asarray(jc["pos"]) - 5 + np.asarray(rewind, np.int32)
+            jc = dict(jc, pos=jnp.asarray(new_pos))
+            tc = dict(tc, pos=torch.from_numpy(new_pos))
+    np.testing.assert_allclose(_np(tc["k"]), _np(jc["k"]), atol=1e-4)
+    np.testing.assert_allclose(_np(tc["v"]), _np(jc["v"]), atol=1e-4)
+
+
+def test_verify_paged_cache_logits_match(f32):
+    """The paged sibling: random pools, dead -1 entries, a row whose
+    drafts cross a page edge, and a parked row (all -1) whose drafts run
+    past the table's end: its writes clamp into the null page 0."""
+    jmodel, jparams, model, tparams, _ = f32
+    rng = np.random.default_rng(8)
+    cfg = model.cfg
+    B, page, max_pages, num_pages = 3, 8, 4, 10
+    shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, page, cfg.head_dim)
+    kp = rng.normal(size=shape).astype(np.float32)
+    vp = rng.normal(size=shape).astype(np.float32)
+    table = np.full((B, max_pages), -1, np.int32)
+    table[0, :4] = [4, 2, 7, 5]
+    table[1, :3] = [1, 9, 3]
+    pos = np.asarray([13, 6, 30], np.int32)
+    jc = {"k_pool": jnp.asarray(kp), "v_pool": jnp.asarray(vp),
+          "page_table": jnp.asarray(table), "pos": jnp.asarray(pos)}
+    tc = {"k_pool": torch.from_numpy(kp.copy()),
+          "v_pool": torch.from_numpy(vp.copy()),
+          "page_table": torch.from_numpy(table), "pos": torch.from_numpy(pos)}
+    vt = rng.integers(1, 256, (B, 4)).astype(np.int32)
+    jl, jc = jmodel.verify_step(jparams, jc, jnp.asarray(vt))
+    tl, tc = model.verify_step(tparams, tc, torch.from_numpy(vt))
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=ATOL["float32"], rtol=0)
     np.testing.assert_allclose(_np(tc["k_pool"]), _np(jc["k_pool"]), atol=1e-4)
     np.testing.assert_allclose(_np(tc["v_pool"]), _np(jc["v_pool"]), atol=1e-4)
     np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))

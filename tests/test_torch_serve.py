@@ -143,8 +143,10 @@ def test_unported_paths_raise(setup):
     _, _, model, tparams = setup
     with pytest.raises(NotImplementedError, match="legacy"):
         ServeEngine(model, tparams, engine="legacy")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ServeEngine(model, tparams, spec_k=2)
+    # speculative decoding is ported: the engine builds on both engines
+    for engine in ("fused", "paged"):
+        eng = ServeEngine(model, tparams, spec_k=2, engine=engine)
+        assert eng.spec_k == 2 and eng.hist.shape == (8, 256)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("qwen3-moe")
     eng = ServeEngine(model, tparams, max_batch=2, max_seq=16, engine="paged",
