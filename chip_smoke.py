@@ -1,7 +1,8 @@
 """Chip smoke of the PyTorch port: build the CUDA kernels, hold each one
-against its plain PyTorch version on the card, and serve full-width
+against its plain PyTorch version on the card, serve full-width
 qwen2-1.5b through the paged engine (main path), the fused engine and
-the paged engine's speculative path.
+the paged engine's speculative path, and train it at full width through
+the train step (K1 forward, K1-bwd backward).
 
     python3 chip_smoke.py
 
@@ -24,7 +25,19 @@ them, and on any mismatch.  Phases, one or more lines each:
      beside the same workload without speculation; greedy identity with
      and without speculation on one admission group in float32 (and the
      agreeing share in bf16); one verify step's logits, kernel path vs
-     plain path; a burst through a 2-layer draft model.
+     plain path; a burst through a 2-layer draft model;
+  9. K1's forward with its LSE and K1-bwd (the attention backward)
+     against their plain versions at the training shape and three more
+     cases, with a check that K1-bwd is deterministic bit for bit;
+ 10. training main path: qwen2-1.5b at full width and full depth, seq
+     4096, through ``make_train_step`` (launch counters reset just before
+     four steps, read just after), then one profiled step's device-time
+     split;
+ 11. one step's loss and gradient norm at full width, kernel path vs
+     plain path;
+ 12. resume is exact: 4 steps unbroken against 2 steps, a save and
+     restore through the port's Checkpointer, and 2 more (deterministic
+     algorithms on), bit for bit.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -38,6 +51,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -45,16 +59,26 @@ import numpy as np
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 sys.path.insert(0, SRC)
+# deterministic cuBLAS for phase 12: read when cuBLAS first initialises,
+# so set before any CUDA call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
+from repro_torch.data import make_stream  # noqa: E402
 from repro_torch.kernels import build, flash_attention, ops  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd  # noqa: E402
 from repro_torch.kernels import paged_attention, paged_attention_mq  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, smoke_serve  # noqa: E402
+from repro_torch.train import (OptimizerConfig, Plan,  # noqa: E402
+                               init_train_state, make_train_step)
+from repro_torch.train.optimizer import global_norm  # noqa: E402
+from repro_torch.tree import flatten, leaves  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 BF16_FLOPS = 989e12         # H100 SXM, dense tensor cores
@@ -71,6 +95,13 @@ MAX_SEQ = PROMPT_LEN + MAX_NEW  # the last decode writes at 94
 # the speculative path: a verify pass entered one token before the budget
 # writes SPEC_K rows past it, 64 + 32 - 1 + 4 = 99 positions (7 pages)
 SPEC_K, SPEC_CHUNK, SPEC_MAX_SEQ = 4, 2, 112
+# training: the train_4k shape's length, its global batch of 256 cut to 2
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_MICROBATCH = 4096, 2, 4, 1
+# K1-bwd's float32 gradients: the reference's own tolerance for its flash
+# VJP against plain autodiff (sums over whole sequences in other orders)
+GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# kernel path vs plain path, one step at full width (bf16 compute)
+LOSS_REL_BOUND, GNORM_REL_BOUND = 1e-2, 5e-2
 
 
 def log(msg: str) -> None:
@@ -113,9 +144,9 @@ def bound_ms(nbytes: float, flops: float, peak: float):
                                        else "operations")
 
 
-def max_err(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+def max_err(got: torch.Tensor, want: torch.Tensor, dtype, tol=None) -> float:
     err = (got.float() - want.float()).abs()
-    tol = TOL[dtype] * (1 + want.float().abs())
+    tol = (TOL[dtype] if tol is None else tol) * (1 + want.float().abs())
     bad = int((err > tol).sum())
     assert bad == 0, f"{bad} elements beyond tolerance, max err {err.max()}"
     return float(err.max())
@@ -588,6 +619,279 @@ def phase_serve_spec(model, params, cfg) -> int:
     return launches["paged_attention_mq"]
 
 
+# ---------------------------------------------------------------------------
+def time_events_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of ``fn`` between CUDA events, median of
+    ``reps`` (for calls a CUDA graph cannot capture, like an autograd
+    backward; at milliseconds per call the launch overhead is noise)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _live_mask(S, T, window, q_offset, dev):
+    qpos = q_offset + torch.arange(S, device=dev)
+    kpos = torch.arange(T, device=dev)
+    live = qpos[:, None] >= kpos[None, :]
+    if window:
+        live &= qpos[:, None] - kpos[None, :] < window
+    return live
+
+
+def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen):
+    dev = torch.device("cuda")
+    q, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, T, KH, D), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    mask = dict(causal=True, window=window, q_offset=q_offset)
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, with_lse=True,
+                                                    **mask)
+    want_out, want_lse = ref.attention_fwd(q, k, v, **mask)
+    torch.cuda.synchronize()
+    err_fwd = max(max_err(out, want_out, dtype), max_err(lse, want_lse, dtype))
+    got = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                       **mask)
+    want = ref.attention_bwd(q, k, v, out, lse, do, **mask)
+    torch.cuda.synchronize()
+    err = max(max_err(g, w, dtype, GRAD_TOL[dtype]) for g, w in zip(got, want))
+    del want
+    again = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                         **mask)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "K1-bwd is not deterministic"
+    fwd_ms = time_ms(lambda: flash_attention.flash_attention_cuda(
+        q, k, v, with_lse=True, **mask), reps=5, inner=3)
+    ms = time_ms(lambda: flash_attention_bwd.flash_attention_bwd_cuda(
+        q, k, v, out, lse, do, **mask), reps=5, inner=3)
+    plain_ms = time_ms(lambda: ref.attention_bwd(q, k, v, out, lse, do,
+                                                 **mask), reps=3, inner=1)
+    fplain_ms = time_ms(lambda: ref.attention_fwd(q, k, v, **mask), reps=3,
+                        inner=1)
+    # the yardstick: SDPA's backward through autograd, its forward done
+    # beforehand (never used by the port), in its (B, H, S, D) layout
+    live = _live_mask(S, T, window, q_offset, dev)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    if S == T and not window and not q_offset:
+        sdpa = dict(is_causal=True)
+    else:
+        sdpa = dict(attn_mask=live)
+    lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt.detach(), kt.detach(), vt.detach(), enable_gqa=True, **sdpa),
+        reps=5, inner=3)
+    o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa)
+    dot = do.transpose(1, 2)
+    lib_ms = time_events_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True))
+    del o
+    pairs = int(live.sum())
+    size = torch.finfo(dtype).bits // 8
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    # backward: q, out, dO, k, v and lse read once, dq, dk, dv written
+    # once; five products of 2 D flops per live (row, key) pair
+    nbytes = size * (4 * B * S * H * D + 4 * B * T * KH * D) + 4 * B * S * H
+    bms, by = bound_ms(nbytes, 10.0 * B * H * D * pairs, peak)
+    # forward with the LSE: q, k, v read, out and lse written
+    fbytes = size * (2 * B * S * H * D + 2 * B * T * KH * D) + 4 * B * S * H
+    fbms, fby = bound_ms(fbytes, 4.0 * B * H * D * pairs, peak)
+    log(f"[9 K1+lse] {name} {str(dtype)[6:]} B={B} S={S} T={T} H={H} KH={KH} "
+        f"D={D} window={window} q_offset={q_offset}: max_abs_err="
+        f"{err_fwd:.3g} (tol {TOL[dtype]:g} abs+rel, out and lse) ms="
+        f"{fwd_ms:.4f} plain_ms={fplain_ms:.4f} library_ms={lib_fwd_ms:.4f} "
+        f"bound_ms={fbms:.5f} ({fby})")
+    log(f"[9 K1-bwd] {name} {str(dtype)[6:]}: max_abs_err={err:.3g} (tol "
+        f"{GRAD_TOL[dtype]:g} abs+rel, dq dk dv) deterministic=True "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+        f"bound_ms={bms:.5f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def phase_k1_train(gen) -> dict:
+    main = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, S, T, window, q_offset in (
+                ("train-shape", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 0, 0),
+                ("ragged", 1, 1000, 1000, 0, 0),
+                ("window", 1, 1024, 1024, 64, 0),
+                ("offset", 1, 512, 1536, 0, 1024)):
+            r = _k1_train_case(name, dtype, B, S, T, 12, 2, 128, window,
+                               q_offset, gen)
+            if name == "train-shape" and dtype == torch.bfloat16:
+                main = r
+            torch.cuda.empty_cache()
+    return main
+
+
+def _device_split(prof):
+    """Device ms of one profiled step by kind of kernel, and by kernel
+    name (the names cut to 60 characters)."""
+    kinds = {"K1 forward": ("flash_fwd_kernel",),
+             "K1-bwd": ("dkdv_kernel", "dq_kernel", "delta_kernel"),
+             "GEMMs": ("gemm", "xmma", "cutlass", "cublas", "nvjet",
+                       "sm90_")}
+    split = {k: 0.0 for k in kinds}
+    split["rest"] = 0.0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kind = next((k for k, keys in kinds.items()
+                     if any(key in name for key in keys)), "rest")
+        ms = e.time_range.elapsed_us() / 1e3
+        split[kind] += ms
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
+    return split, by_name
+
+
+def phase_train(cfg):
+    """The training main path: full width, full depth, seq 4096."""
+    model = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    plan = Plan(remat="none", microbatch=TRAIN_MICROBATCH)
+    t0 = time.perf_counter()
+    state = init_train_state(model, 0, opt, plan)
+    torch.cuda.synchronize()
+    step = make_train_step(model, opt, plan)
+    stream = make_stream(cfg, ShapeConfig("train_4k-cut", TRAIN_SEQ,
+                                          TRAIN_BATCH, "train"))
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    log(f"[10 train] {cfg.name} full width, {cfg.num_layers} layers, "
+        f"{cfg.param_count() / 1e9:.3f} B params (float32 master, AdamW "
+        f"float32 moments, {cfg.dtype} compute), seq {TRAIN_SEQ}, batch "
+        f"{TRAIN_BATCH} (train_4k's 256 cut to {TRAIN_BATCH}), microbatch "
+        f"{TRAIN_MICROBATCH}, remat {plan.remat}; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        losses.append(float(metrics["loss"]))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    want = cfg.num_layers * TRAIN_STEPS * TRAIN_MICROBATCH
+    assert launches == {"flash_attention": want,
+                        "flash_attention_bwd": want}, (launches, want)
+    assert all(np.isfinite(losses)), losses
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(walls[1:])
+    log(f"[10 train] losses={[round(x, 4) for x in losses]} step_wall_s="
+        f"{[round(x, 3) for x in walls]} (the first includes set-up) "
+        f"steady_step_s={steady:.3f} tok_per_s="
+        f"{TRAIN_BATCH * TRAIN_SEQ / steady:.1f} max_memory_allocated_GB="
+        f"{peak / 1e9:.2f} launches={launches} (want {want} each)")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[TRAIN_STEPS])
+        float(metrics["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    split, by_name = _device_split(prof)
+    busy = sum(split.values())
+    assert busy > 0, "the profiler saw no device time"
+    log(f"[10 train profile] one step: wall_ms={wall:.1f} device_busy_ms="
+        f"{busy:.1f} idle_share={max(0.0, 1 - busy / wall):.3f} " + " ".join(
+            f"{k.replace(' ', '_')}_ms={v:.1f} ({v / busy:.1%})"
+            for k, v in split.items()))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[10 train profile]   {ms:9.1f} ms  {name}")
+    return model, state, launches
+
+
+def phase_train_plain(model, state, cfg) -> None:
+    """One step's loss and gradient norm at full width, kernel path vs
+    plain path (batch 1, seq 1024)."""
+    stream = make_stream(cfg, ShapeConfig("t", 1024, 1, "train"))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in stream.batch_at(0).items()}
+    params = state["params"]
+
+    def loss_and_norm():
+        flat = [p.requires_grad_() for p in leaves(params)]
+        loss, _ = model.loss(params, batch, remat="none")
+        grads = torch.autograd.grad(loss, flat)
+        norm = global_norm(dict(enumerate(grads)))
+        return float(loss.detach()), float(norm)
+
+    kern = loss_and_norm()
+    n0 = (flash_attention.launches, flash_attention_bwd.launches)
+    with mock.patch.object(ops, "flash_attention", ref.attention):
+        plain = loss_and_norm()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == n0
+    rel_loss = abs(kern[0] - plain[0]) / abs(plain[0])
+    rel_norm = abs(kern[1] - plain[1]) / abs(plain[1])
+    log(f"[11 train kernel vs plain] loss {kern[0]:.6f} vs {plain[0]:.6f} "
+        f"(rel {rel_loss:.3g}, bound {LOSS_REL_BOUND}); grad_norm "
+        f"{kern[1]:.6f} vs {plain[1]:.6f} (rel {rel_norm:.3g}, bound "
+        f"{GNORM_REL_BOUND})")
+    assert rel_loss <= LOSS_REL_BOUND and rel_norm <= GNORM_REL_BOUND
+
+
+def phase_resume(cfg) -> None:
+    """4 steps unbroken against 2 + save/restore + 2, bit for bit."""
+    cfg2 = dataclasses.replace(cfg, num_layers=2, name=cfg.name + "-2layer")
+    model = build_model(cfg2)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    plan = Plan(remat="none")
+    step = make_train_step(model, opt, plan)
+    stream = make_stream(cfg2, ShapeConfig("t", 1024, 2, "train"))
+
+    def run(state, steps):
+        out = []
+        for i in steps:
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in stream.batch_at(i).items()}
+            state, metrics = step(state, batch)
+            out.append(float(metrics["loss"]))
+        return state, out
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, losses_a = run(init_train_state(model, 0, opt, plan), range(4))
+        b, losses_b = run(init_train_state(model, 0, opt, plan), range(2))
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            ck = Checkpointer(d, keep=1)
+            ck.save(1, b)
+            del b
+            fresh = init_train_state(model, 1, opt, plan)  # another seed
+            b, saved = ck.restore(fresh)
+            del fresh
+            io_s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(d) for f in fs)
+        b, more = run(b, range(saved + 1, 4))
+        losses_b += more
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(x, y) for (_, x), (_, y)
+               in zip(flatten(a), flatten(b)))
+    log(f"[12 resume] {cfg2.name} seq 1024 batch 2 (depth cut to 2 layers): "
+        f"unbroken {losses_a} resumed {losses_b}; checkpoint "
+        f"{nbytes / 1e9:.2f} GB saved and restored in {io_s:.1f} s; "
+        f"losses identical={losses_a == losses_b} state identical={same}")
+    assert losses_a == losses_b and same, "resume is not exact"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -613,6 +917,15 @@ def main() -> int:
     launches = phase_serve_paged(model, params, cfg)
     phase_serve_fused(model, params, cfg)
     k3_launches = phase_serve_spec(model, params, cfg)
+    del model, params
+    torch.cuda.empty_cache()
+
+    k1_bwd = phase_k1_train(gen)
+    model, state, train_launches = phase_train(cfg)
+    phase_train_plain(model, state, cfg)
+    del model, state
+    torch.cuda.empty_cache()
+    phase_resume(cfg)
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -627,6 +940,10 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/paged_attention_mq.cu",
              replaces="src/repro/kernels/paged_attention.py:170",
              launches=k3_launches, **k3),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_xla.py:99",
+             launches=train_launches["flash_attention_bwd"], **k1_bwd),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

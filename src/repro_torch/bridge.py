@@ -3,8 +3,10 @@
 :func:`from_jax_params` takes the tree that the reference's
 ``Model.init`` returns, already turned into numpy arrays by the caller
 (``jax.tree.map(np.asarray, params)``), and maps it by name onto the
-port's parameters.  It takes numpy only, so the port never imports JAX;
-only the parity tests hold both packages.
+port's parameters; :func:`from_jax_train_state` does the same for the
+reference's whole train state (parameters, AdamW moments and counts).
+Both take numpy only, so the port never imports JAX; only the parity
+tests hold both packages.
 """
 from __future__ import annotations
 
@@ -23,6 +25,18 @@ BLOCK_KEYS = ("norm1_g", "norm2_g", "norm1_b", "norm2_b",
 TOP_KEYS = ("embed", "lm_head", "final_g", "final_b")
 
 
+def _tensor(name: str, x) -> torch.Tensor:
+    """A numpy array as a tensor; bfloat16 arrays (numpy's ml_dtypes
+    extension type) by their 16-bit view."""
+    if not isinstance(x, np.ndarray):
+        raise TypeError(f"{name}: expected a numpy array, got "
+                        f"{type(x).__name__}")
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(x.view(np.int16), copy=True)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(x, copy=True))
+
+
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
                     device, dtype: Optional[torch.dtype] = None
                     ) -> Dict[str, Any]:
@@ -35,10 +49,7 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
     require_dense(cfg)
 
     def conv(name, x):
-        if not isinstance(x, np.ndarray):
-            raise TypeError(f"{name}: expected a numpy array, got "
-                            f"{type(x).__name__}")
-        t = torch.from_numpy(np.array(x, copy=True)).to(device)
+        t = _tensor(name, x).to(device)
         return t if dtype is None else t.to(dtype)
 
     extra = set(tree) - set(TOP_KEYS) - {"blocks"}
@@ -74,3 +85,27 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
     return out
+
+
+def from_jax_train_state(tree: Dict[str, Any], cfg: ModelConfig,
+                         device) -> Dict[str, Any]:
+    """Map a numpy copy of the reference's train state
+    ``{"params", "opt": {"m", "v", "count"}, "step"}`` (what its
+    ``init_train_state`` builds and its train step returns) onto the
+    port's: parameters and both moments by :func:`from_jax_params`, each
+    array keeping its dtype (float32 or bfloat16 moments), the counts as
+    int32 scalars."""
+    extra = set(tree) - {"params", "opt", "step"}
+    if extra:
+        raise KeyError(f"unexpected train-state entries: {sorted(extra)} "
+                       f"(gradient compression is not ported)")
+    opt = tree["opt"]
+    return {
+        "params": from_jax_params(tree["params"], cfg, device),
+        "opt": {"m": from_jax_params(opt["m"], cfg, device),
+                "v": from_jax_params(opt["v"], cfg, device),
+                "count": _tensor("opt/count", np.asarray(opt["count"])).to(
+                    device, torch.int32)},
+        "step": _tensor("step", np.asarray(tree["step"])).to(device,
+                                                             torch.int32),
+    }

@@ -9,7 +9,7 @@ item that brings them.
 from __future__ import annotations
 
 from repro_torch.configs import glm4_9b, internlm2_20b, qwen15_4b, qwen2_15b
-from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.base import ModelConfig, ShapeConfig, reduced
 
 ARCHS = {
     "qwen2-1.5b": qwen2_15b.CONFIG,
@@ -54,4 +54,4 @@ def get_config(arch: str) -> ModelConfig:
     return ARCHS[key]
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "reduced"]
+__all__ = ["ARCHS", "ModelConfig", "ShapeConfig", "get_config", "reduced"]

@@ -1,9 +1,9 @@
 """Model configuration for the PyTorch port.
 
-A copy of the reference package's ``ModelConfig`` and ``reduced``: the
-port imports nothing of the JAX package, so the fields, their defaults
-and the reduction rule are kept here verbatim (a config built by either
-package describes the same model).
+A copy of the reference package's ``ModelConfig``, ``ShapeConfig`` and
+``reduced``: the port imports nothing of the JAX package, so the fields,
+their defaults and the reduction rule are kept here verbatim (a config
+built by either package describes the same model).
 """
 from __future__ import annotations
 
@@ -83,6 +83,22 @@ class ModelConfig:
         head = 0 if self.tie_embeddings else v * d
         final = d * (2 if self.norm == "layernorm" else 1)
         return v * d + head + self.num_layers * (attn + mlp + norms) + final
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: sequence length, global batch and kind."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
 
 
 def reduced(model: ModelConfig, **overrides) -> ModelConfig:

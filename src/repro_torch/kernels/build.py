@@ -29,10 +29,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes.  Each returns a cudaError_t as int.
 _SIGNATURES = {
-    # q, k, v, out, B, S, T, H, KH, D, scale, causal, window, q_offset,
-    # dtype, stream
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                              _I, _I, _I, _I, _P],
+    # q, k, v, out, lse (nullable), B, S, T, H, KH, D, scale, causal,
+    # window, q_offset, dtype, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _F, _I, _I, _I, _I, _P],
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, T, H, KH, D, scale,
+    # causal, window, q_offset, dtype, stream
+    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4
+                                 + [_P],
+    # D -> bytes of shared memory the backward's larger kernel needs
+    "repro_flash_attention_bwd_smem": [_I],
     # q, k_pool, v_pool, page_table, kv_len, out, B, KH, G, D, P, page,
     # max_pages, scale, dtype, stream
     "repro_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -30,8 +30,11 @@
 //     banks.
 // Inputs and output keep the reference layout: q, out (B, S, H, D),
 // k, v (B, T, KH, D), all contiguous and 16-byte aligned, D a multiple of
-// 8.  The kernel launches on the caller's stream, allocates nothing and
-// does not synchronise.
+// 8.  For training, an optional float32 lse (B, S, H) receives each row's
+// log-sum-exp m + log(max(l, 1e-30)) of the scaled, masked scores, which
+// the backward kernels (flash_attention_bwd.cu) recompute P from; serving
+// passes none and its work is unchanged.  The kernel launches on the
+// caller's stream, allocates nothing and does not synchronise.
 #include "common.cuh"
 
 namespace {
@@ -48,8 +51,8 @@ template <typename T, int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 int S, int Tlen, int H, int KH, int D, float scale,
-                 int causal, int window, int q_offset) {
+                 float* __restrict__ lse, int S, int Tlen, int H, int KH,
+                 int D, float scale, int causal, int window, int q_offset) {
     extern __shared__ float smem[];
     const int DP = D + 1;
     const int DV = D / 8;           // 8-element vectors per row
@@ -183,13 +186,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int d = sub + 4 * i;
             if (d < D) repro::store(orow + d, acc[i] * inv);
         }
+        if (lse != nullptr && sub == 0)
+            lse[(size_t)(b * S + srow) * H + h] = m + logf(fmaxf(l, 1e-30f));
     }
 }
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int Tlen, int H, int KH, int D, float scale,
-                   int causal, int window, int q_offset, cudaStream_t stream) {
+                   float* lse, int B, int S, int Tlen, int H, int KH, int D,
+                   float scale, int causal, int window, int q_offset,
+                   cudaStream_t stream) {
     auto smem_for = [](int d) {
         return sizeof(float) *
             (size_t)(BQ * (d + 1) + BK * (d + 1) + BK * d + BQ * (BK + 1));
@@ -204,41 +210,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     dim3 grid((S + BQ - 1) / BQ, H, B);
     kernel<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
+        static_cast<const T*>(v), static_cast<T*>(out), lse,
         S, Tlen, H, KH, D, scale, causal, window, q_offset);
     return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
-                       int B, int S, int Tlen, int H, int KH, int D,
-                       float scale, int causal, int window, int q_offset,
-                       cudaStream_t stream) {
+                       float* lse, int B, int S, int Tlen, int H, int KH,
+                       int D, float scale, int causal, int window,
+                       int q_offset, cudaStream_t stream) {
     if (D <= 64)
-        return launch<T, 64>(q, k, v, out, B, S, Tlen, H, KH, D, scale,
+        return launch<T, 64>(q, k, v, out, lse, B, S, Tlen, H, KH, D, scale,
                              causal, window, q_offset, stream);
     if (D <= 128)
-        return launch<T, 128>(q, k, v, out, B, S, Tlen, H, KH, D, scale,
+        return launch<T, 128>(q, k, v, out, lse, B, S, Tlen, H, KH, D, scale,
                               causal, window, q_offset, stream);
-    return launch<T, 256>(q, k, v, out, B, S, Tlen, H, KH, D, scale,
+    return launch<T, 256>(q, k, v, out, lse, B, S, Tlen, H, KH, D, scale,
                           causal, window, q_offset, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16; lse may be null.  Returns a
+// cudaError_t (0 = success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int S,
-                                     int Tlen, int H, int KH, int D,
-                                     float scale, int causal, int window,
+                                     const void* v, void* out, float* lse,
+                                     int B, int S, int Tlen, int H, int KH,
+                                     int D, float scale, int causal, int window,
                                      int q_offset, int dtype, void* stream) {
     if (B < 1 || S < 1 || Tlen < 1 || KH < 1 || H % KH != 0 || D < 8 ||
         D > 256 || D % 8 != 0 || (dtype != 0 && dtype != 1))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return (int)dispatch_d<float>(q, k, v, out, B, S, Tlen, H, KH, D,
-                                      scale, causal, window, q_offset, st);
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, Tlen, H, KH, D,
-                                          scale, causal, window, q_offset, st);
+        return (int)dispatch_d<float>(q, k, v, out, lse, B, S, Tlen, H, KH,
+                                      D, scale, causal, window, q_offset, st);
+    return (int)dispatch_d<__nv_bfloat16>(q, k, v, out, lse, B, S, Tlen, H,
+                                          KH, D, scale, causal, window,
+                                          q_offset, st);
 }

@@ -11,12 +11,24 @@ the plain version, a CUDA tensor launches the kernel (or raises).  The
 kernel takes the reference layout as it is — q ``(B, S, H, D)``, k/v
 ``(B, T, KH, D)`` — with ``D`` unpadded and ``S``/``T`` ragged, so the
 wrapper neither transposes nor pads.
+
+For training, :class:`FlashAttention` joins K1 to its backward, K1-bwd
+(:mod:`repro_torch.kernels.flash_attention_bwd`): the forward also
+writes each row's log-sum-exp and saves ``(q, k, v, out, lse)``, the
+backward recomputes the probabilities from them — the structure of the
+reference's custom VJP in ``src/repro/kernels/flash_xla.py``.  On CPU
+tensors the same Function runs the plain pair
+(``ref.attention_fwd``/``ref.attention_bwd``).  :func:`flash_attention`
+takes the Function only when autograd needs it; serving (no input that
+requires grad) launches the forward alone and writes no LSE.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, flash_attention_bwd, ref
 
 plain = ref.attention
 
@@ -29,8 +41,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         q_offset: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream.  Raises on anything
+                         q_offset: int = 0, with_lse: bool = False):
+    """Launch the CUDA kernel on the current stream.  Returns ``out``, or
+    ``(out, lse)`` with ``with_lse`` (lse ``(B, S, H)`` float32, each
+    row's log-sum-exp of its scaled, masked scores).  Raises on anything
     it does not take: tensors off the card, mixed or unsupported dtypes,
     bad shapes, non-contiguous inputs."""
     global launches
@@ -63,20 +77,63 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if S == 0 or T == 0 or B == 0:
         raise ValueError("empty attention")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = build.library()
     err = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, T, H, KH, D, D ** -0.5, int(causal), int(window), int(q_offset),
+        None if lse is None else lse.data_ptr(), B, S, T, H, KH, D,
+        D ** -0.5, int(causal), int(window), int(q_offset),
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "repro_flash_attention")
     launches += 1
-    return out
+    return out if lse is None else (out, lse)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``: the plain version on a CPU tensor, the kernel on a
+    CUDA tensor."""
+    if q.device.type == "cpu":
+        return ref.attention_fwd(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset, with_lse=True)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention: K1 forward with LSE, K1-bwd backward (the
+    plain pair on CPU tensors).  Saves ``(q, k, v, out, lse)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_bwd.flash_attention_bwd(
+            q, k, v, out, lse, do.contiguous(), causal=causal, window=window,
+            q_offset=q_offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
-    """q ``(B, S, H, D)``, k/v ``(B, T, KH, D)`` -> ``(B, S, H, D)``."""
+    """q ``(B, S, H, D)``, k/v ``(B, T, KH, D)`` -> ``(B, S, H, D)``,
+    differentiable when autograd records and an input requires grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,

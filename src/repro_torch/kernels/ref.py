@@ -6,10 +6,15 @@ masks, float32 scores and softmax, ``NEG_INF = -1e30`` for masked
 scores, and unmapped (``-1``) pages clamped to pool page 0.  On a CPU
 tensor the kernel wrappers return these; ``chip_smoke.py`` holds each
 kernel against them on the card.
+
+:func:`attention_fwd` and :func:`attention_bwd` are K1's training pair,
+the plain counterparts of ``_fwd``/``_bwd_vjp`` in the reference's
+``kernels/flash_xla.py``: the forward also returns the per-row
+log-sum-exp, and the backward recomputes the probabilities from it.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,6 +59,68 @@ def attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, vf)
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def _masked_scores(q, k, causal, window, q_offset):
+    """float32 scores ``(B, KH, G, S, T)`` of ``q * D**-0.5`` against k,
+    ``NEG_INF`` where the causal / window mask rules a pair out."""
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, S, KH, H // KH, D) * (D ** -0.5)
+    s = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
+    qpos = q_offset + torch.arange(S, device=q.device)
+    kpos = torch.arange(T, device=q.device)
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    return torch.where(mask, s, NEG_INF)
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, q_offset: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`attention` that also returns the per-row log-sum-exp of the
+    masked float32 scores: ``(out (B, S, H, D), lse (B, S, H) float32)``,
+    what the reference's ``flash_xla._fwd`` returns (its lse is
+    ``(B, S, KH, G)``, the same numbers with the head split)."""
+    B, S, H, D = q.shape
+    s = _masked_scores(q, k, causal, window, q_offset)
+    lse = torch.logsumexp(s, dim=-1)  # (B, KH, G, S)
+    probs = torch.exp(s - lse[..., None])
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    lse = lse.permute(0, 3, 1, 2).reshape(B, S, H).contiguous()
+    return out.reshape(B, S, H, D).to(q.dtype), lse
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, q_offset: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention backward from the saved ``(q, k, v, out, lse)``, as
+    ``flash_xla._bwd_vjp`` computes it: ``delta = sum_d dO * O``,
+    ``P = exp(s - lse)``, ``dV = P^T dO``, ``dS = P * (dO V^T - delta)``,
+    ``dQ = dS K * scale``, ``dK = dS^T Q * scale``.  dK and dV sum over
+    the G query heads of each KV head.  Returns ``(dq, dk, dv)`` in the
+    input dtypes."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    scale = D ** -0.5
+    s = _masked_scores(q, k, causal, window, q_offset)
+    lse5 = lse.float().reshape(B, S, KH, G).permute(0, 2, 3, 1)[..., None]
+    p = torch.exp(s - lse5)  # (B, KH, G, S, T)
+    dof = do.float().reshape(B, S, KH, G, D)
+    delta = (do.float() * out.float()).sum(-1).reshape(B, S, KH, G)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dof)
+    dp = torch.einsum("bskgd,btkd->bkgst", dof, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
+    qf = q.float().reshape(B, S, KH, G, D)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qf) * scale
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def paged_attention(

@@ -1,9 +1,10 @@
 """Uniform model API: ``build_model(cfg, device) -> Model``.
 
-Counterpart of the reference package's ``models/api.py`` for the serving
-entry points.  A :class:`Model` knows its config and its device; it holds
-no weights — parameters are passed to each call, as in the reference, so
-bridged weights and the port's own init go through the same calls.
+Counterpart of the reference package's ``models/api.py`` for the train
+loss and the serving entry points.  A :class:`Model` knows its config
+and its device; it holds no weights — parameters are passed to each
+call, as in the reference, so bridged weights and the port's own init go
+through the same calls.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"``, and a CUDA device with no GPU present
@@ -41,6 +42,14 @@ class Model:
     def init(self, seed: int = 0) -> lm.Params:
         """Fresh parameters in ``cfg.param_dtype`` on the model's device."""
         return lm.init_lm(self.cfg, seed, self.device)
+
+    # ---- train -----------------------------------------------------------
+    def loss(self, params: lm.Params, batch, remat: str = "none"):
+        """``(loss, metrics)`` of a batch ``{"tokens": (B, S)}``: the
+        next-token cross-entropy of :func:`repro_torch.models.lm.loss_fn`,
+        differentiable with respect to ``params`` (float32 master
+        weights, cast to ``cfg.dtype`` at each use as in the reference)."""
+        return lm.loss_fn(params, self.cfg, batch, remat)
 
     def serving_params(self, params: lm.Params) -> lm.Params:
         """Weights for serving, made once: every matrix, bias and the

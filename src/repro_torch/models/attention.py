@@ -1,4 +1,5 @@
-"""GQA attention: projections and the decode-time cache paths.
+"""GQA attention: projections, the train path and the decode-time cache
+paths.
 
 Counterpart of the reference package's ``models/attention.py``.
 Projection weights keep the reference's 4-D shapes — ``wq (D, H, Dh)``,
@@ -42,6 +43,23 @@ def out_proj(p: Dict[str, torch.Tensor], attn: torch.Tensor,
     """``einsum('bshk,hkd->bsd')``."""
     H, K, D = p[f"{prefix}_wo"].shape
     return attn.flatten(-2) @ p[f"{prefix}_wo"].to(attn.dtype).reshape(H * K, D)
+
+
+def attend_train(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                 cfg: ModelConfig, *, causal: bool = True, window: int = 0,
+                 use_rope: bool = True, prefix: str = "attn") -> torch.Tensor:
+    """Full-sequence attention of the train path: x ``(B, S, D)`` normed
+    -> ``(B, S, D)``.  RoPE over ``arange(S)``, then
+    :func:`repro_torch.kernels.ops.flash_attention` (K1 forward, K1-bwd
+    backward on the card), then the output projection."""
+    q, k, v = qkv(p, x, cfg, prefix)
+    if use_rope:
+        cos, sin = rope_angles(torch.arange(x.shape[1], device=x.device),
+                               cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    return out_proj(p, out, prefix)
 
 
 def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,

@@ -2,9 +2,17 @@
 
 Counterpart of the reference package's ``models/lm.py`` for
 ``family="dense"``: init, embedding and tied/untied head, the gated MLP,
-the dense and paged decode caches, ragged prefill, and the decode and
-speculative verify steps on both caches.  The reference's ``scan`` over stacked layers is a
-Python loop here.  Other families raise ``NotImplementedError``.
+the train forward and the next-token loss, the dense and paged decode
+caches, ragged prefill, and the decode and speculative verify steps on
+both caches.  The reference's ``scan`` over stacked layers is a Python
+loop here.  Other families raise ``NotImplementedError``.
+
+The train path (``forward_train``/``loss_fn``) has no counterpart of the
+reference's ``hints.*`` calls: those pin activations and logits to a
+device mesh's shardings, and the port runs on one card with no mesh
+(parallelism is ROADMAP queue 1, item 10).  Remat ``"full"`` is
+``torch.utils.checkpoint`` (non-reentrant) around each block, the
+reference's ``jax.checkpoint`` of the scan body.
 
 Parameters keep the reference's tree and shapes: ``embed``,
 ``final_g``, and ``blocks`` with a leading layer axis on every entry.
@@ -17,12 +25,13 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.attention import (attend_decode, attend_decode_paged,
-                                          attend_verify, attend_verify_paged,
-                                          out_proj, qkv)
+                                          attend_train, attend_verify,
+                                          attend_verify_paged, out_proj, qkv)
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        init_param, rope_angles)
 
@@ -83,10 +92,12 @@ def init_lm(cfg: ModelConfig, seed: int, device: torch.device) -> Params:
 
 
 def layers(cfg: ModelConfig, blocks) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer parameter dicts (views of the stacked tensors)."""
+    """Per-layer parameter dicts (views of the stacked tensors, by
+    ``unbind``, whose gradient is one stack of the layers' gradients)."""
     if isinstance(blocks, list):
         return blocks
-    return [{k: v[i] for k, v in blocks.items()} for i in range(cfg.num_layers)]
+    per = {k: v.unbind(0) for k, v in blocks.items()}
+    return [{k: per[k][i] for k in per} for i in range(cfg.num_layers)]
 
 
 # ===========================================================================
@@ -94,7 +105,9 @@ def layers(cfg: ModelConfig, blocks) -> List[Dict[str, torch.Tensor]]:
 # ===========================================================================
 def embed_tokens(params: Params, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    # index_select: its gradient has a deterministic CUDA implementation
+    x = params["embed"].index_select(0, tokens.reshape(-1).long())
+    return x.view(*tokens.shape, -1).to(getattr(torch, cfg.dtype))
 
 
 def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -118,6 +131,63 @@ def _mlp_residual(p, x, cfg):
     if cfg.d_ff > 0:
         x = x + apply_mlp(p, apply_norm(p, "norm2", x, cfg.norm), cfg)
     return x
+
+
+# ===========================================================================
+# Train
+# ===========================================================================
+def _block_train(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                 x: torch.Tensor) -> torch.Tensor:
+    """One dense decoder block of the train path (its MoE aux loss is 0)."""
+    h = apply_norm(p, "norm1", x, cfg.norm)
+    x = x + attend_train(p, h, cfg, causal=True)
+    return _mlp_residual(p, x, cfg)
+
+
+def _scan_blocks(cfg: ModelConfig, blocks, x: torch.Tensor,
+                 remat: str = "none") -> torch.Tensor:
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat 'dots' (save only the matmul outputs) is not ported yet: "
+            "ROADMAP queue 1, remat dots")
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat must be none, full or dots; got {remat!r}")
+    for p in layers(cfg, blocks):
+        if remat == "full":
+            x = checkpoint(_block_train, cfg, p, x, use_reentrant=False)
+        else:
+            x = _block_train(cfg, p, x)
+    return x
+
+
+def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens ``(B, S)`` -> ``(logits (B, S, V) in cfg.dtype, aux loss)``."""
+    require_dense(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    x = _scan_blocks(cfg, params["blocks"], x, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_logits(params, cfg, x), aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            remat: str = "none"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy in float32 over ``batch["tokens"]`` plus the
+    aux loss; returns ``(loss, {"loss", "ce", "aux", "tokens"})`` as the
+    reference's ``loss_fn`` does (every position counts: the dense family
+    has no image-token mask)."""
+    tokens = batch["tokens"]
+    logits, aux = forward_train(params, cfg, tokens, remat)
+    logits = logits[:, :-1].float()
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = logz - gold  # (B, S-1)
+    denom = torch.tensor(float(max(nll.numel(), 1)), device=nll.device)
+    ce = nll.sum() / denom
+    total = ce + aux
+    return total, {"loss": total, "ce": ce, "aux": aux, "tokens": denom}
 
 
 # ===========================================================================

@@ -5,13 +5,15 @@ inside the fixture, never at import).  Run on a machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 2e-5 (the kernel and the plain version sum in other
-orders), bfloat16 2e-2 (outputs rounded to bfloat16)."""
+orders), bfloat16 2e-2 (outputs rounded to bfloat16); K1-bwd's float32
+gradients 2e-4 (the reference's own tolerance for its flash VJP, sums
+over whole sequences in other orders)."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (flash_attention, ops, paged_attention,
-                                 paged_attention_mq, ref)
+from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
+                                 ops, paged_attention, paged_attention_mq, ref)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -184,3 +186,118 @@ def test_verify_kernel_refuses_what_it_does_not_take(dev):
         paged_attention_mq.paged_attention_mq_cuda(q, pool, pool,
                                                    table.long(), lens)
     assert paged_attention_mq.launches == n0
+
+
+# K1's training pair: the chip_smoke.py phase-9 cases, shrunk
+# (B, S, T, H, KH, D, causal, window, q_offset)
+TRAIN_CASES = [
+    (1, 512, 512, 12, 2, 128, True, 0, 0),     # the training shape, shorter
+    (1, 200, 200, 12, 2, 128, True, 0, 0),     # ragged S = T
+    (1, 256, 256, 12, 2, 128, True, 64, 0),    # sliding window
+    (1, 72, 200, 12, 2, 128, True, 0, 128),    # S != T with an offset
+    (2, 33, 100, 4, 1, 64, False, 0, 0),       # cross, odd sizes
+    (1, 40, 40, 2, 1, 256, True, 0, 0),        # widest head
+]
+TRAIN_IDS = ["train", "ragged", "window", "offset", "cross", "D256"]
+GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def _train_inputs(dev, dtype, B, S, T, H, KH, D, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return (_randn(gen, (B, S, H, D), dtype, dev),
+            _randn(gen, (B, T, KH, D), dtype, dev),
+            _randn(gen, (B, T, KH, D), dtype, dev),
+            _randn(gen, (B, S, H, D), dtype, dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=TRAIN_IDS)
+def test_flash_forward_lse_matches_plain(dev, dtype, case):
+    B, S, T, H, KH, D, causal, window, q_offset = case
+    q, k, v, _ = _train_inputs(dev, dtype, B, S, T, H, KH, D)
+    out, lse = flash_attention.flash_attention_cuda(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        with_lse=True)
+    torch.cuda.synchronize()
+    want_out, want_lse = ref.attention_fwd(q, k, v, causal=causal,
+                                           window=window, q_offset=q_offset)
+    assert lse.dtype == torch.float32 and lse.shape == (B, S, H)
+    torch.testing.assert_close(lse, want_lse, atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(out.float(), want_out.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    # without the LSE the output is the same, bit for bit
+    plain_out = flash_attention.flash_attention_cuda(
+        q, k, v, causal=causal, window=window, q_offset=q_offset)
+    torch.testing.assert_close(plain_out, out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=TRAIN_IDS)
+def test_flash_bwd_kernel_matches_plain(dev, dtype, case):
+    B, S, T, H, KH, D, causal, window, q_offset = case
+    q, k, v, do = _train_inputs(dev, dtype, B, S, T, H, KH, D)
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = ref.attention_fwd(q, k, v, **mask)
+    n0 = flash_attention_bwd.launches
+    got = flash_attention_bwd.flash_attention_bwd(q, k, v, out, lse, do, **mask)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == n0 + 1
+    want = ref.attention_bwd(q, k, v, out, lse, do, **mask)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=GRAD_TOL[dtype],
+                                   rtol=GRAD_TOL[dtype], msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_is_deterministic(dev, dtype):
+    q, k, v, do = _train_inputs(dev, dtype, 2, 384, 384, 12, 2, 128, seed=3)
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, with_lse=True)
+    first = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    for _ in range(3):
+        again = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                             do)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_flash_function_launches_both_kernels(dev):
+    q, k, v, do = _train_inputs(dev, torch.float32, 1, 128, 128, 4, 2, 64)
+    n0 = (flash_attention.launches, flash_attention_bwd.launches)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ops.flash_attention(*xs, window=32)
+    got = torch.autograd.grad(out, xs, do)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    ys = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ref.attention(*ys, window=32), ys, do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+def test_flash_bwd_refuses_what_it_does_not_take(dev):
+    n0 = flash_attention_bwd.launches
+    bwd = flash_attention_bwd.flash_attention_bwd_cuda
+    q = torch.zeros(1, 8, 2, 64, device=dev)
+    lse = torch.zeros(1, 8, 2, device=dev)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        bwd(q, q, q, q, lse.half(), q)
+    with pytest.raises(ValueError, match="lse must be"):
+        bwd(q, q, q, q, lse[:, :4].contiguous(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(q, q, q, q.transpose(1, 2).contiguous().transpose(1, 2), lse, q)
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        bwd(q, q, q, q, lse, q.bfloat16())
+    with pytest.raises(ValueError, match="dtype"):
+        bwd(*(x.half() for x in (q, q, q, q)), lse, q.half())
+    q100 = torch.zeros(1, 8, 2, 100, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        bwd(q100, q100, q100, q100, lse, q100)
+    with pytest.raises(ValueError, match="out and do"):
+        bwd(q, q, q, q[:, :4].contiguous(), lse, q)
+    assert flash_attention_bwd.launches == n0
+    # the wrapper's shared-memory layout is the CUDA source's
+    lib = build.library()
+    for d in (8, 64, 128, 256):
+        assert (lib.repro_flash_attention_bwd_smem(d)
+                == flash_attention_bwd.smem_bytes(d))

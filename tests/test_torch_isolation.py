@@ -6,13 +6,15 @@ import os
 import pathlib
 import subprocess
 import sys
+from unittest import mock
 
 import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.kernels import (build, flash_attention, paged_attention,
-                                 paged_attention_mq)
+from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
+                                 paged_attention, paged_attention_mq)
+from repro_torch.launch import train as train_cli
 from repro_torch.models import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -38,7 +40,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve; "
+    code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -56,17 +59,27 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg, device="cuda")
     assert build_model(cfg, device="cpu").device.type == "cpu"
+    # the train entry point: --device defaults to cuda and raises here
+    with mock.patch("sys.argv", ["train", "--steps", "1"]), \
+            pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main()
 
 
 def test_cuda_entries_never_return_the_plain_version():
     """The CUDA entry points refuse CPU tensors instead of computing the
     plain result, and the build refuses to run without nvcc."""
-    counters = (flash_attention, paged_attention, paged_attention_mq)
+    counters = (flash_attention, flash_attention_bwd, paged_attention,
+                paged_attention_mq)
     before = [m.launches for m in counters]
     q = torch.zeros(1, 4, 2, 64)
     k = torch.zeros(1, 4, 2, 64)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         flash_attention.flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_attention.flash_attention_cuda(q, k, k, with_lse=True)
+    lse = torch.zeros(1, 4, 2)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_attention_bwd.flash_attention_bwd_cuda(q, k, k, q, lse, q)
     pool = torch.zeros(2, 3, 16, 64)
     table = torch.zeros(1, 2, dtype=torch.int32)
     lens = torch.ones(1, dtype=torch.int32)
