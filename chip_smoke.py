@@ -1,8 +1,9 @@
 """Chip smoke of the PyTorch port: build the CUDA kernels, hold each one
 against its plain PyTorch version on the card, serve full-width
 qwen2-1.5b through the paged engine (main path), the fused engine and
-the paged engine's speculative path, and train it at full width through
-the train step (K1 forward, K1-bwd backward).
+the paged engine's speculative path, train it at full width through
+the train step (K1 forward, K1-bwd backward), and train xlstm-125m at
+full width (K6 forward, K6-bwd backward, the sLSTM loop).
 
     python3 chip_smoke.py
 
@@ -37,7 +38,21 @@ them, and on any mismatch.  Phases, one or more lines each:
      plain path;
  12. resume is exact: 4 steps unbroken against 2 steps, a save and
      restore through the port's Checkpointer, and 2 more (deterministic
-     algorithms on), bit for bit.
+     algorithms on), bit for bit;
+ 13. K6 (the chunkwise mLSTM, with its stats) and K6-bwd against their
+     plain versions at xlstm-125m's training shape, at S = 1000 and at
+     D = 64, with a check that both are deterministic bit for bit;
+ 14. xLSTM training main path: xlstm-125m at full width and full depth,
+     seq 4096, batch 8, through ``make_train_step`` (launch counters
+     reset just before four steps, read just after), then one profiled
+     step's device-time split (K6, K6-bwd, the sLSTM loop, GEMMs, rest);
+ 15. one xLSTM step's loss and gradient norm at full width, kernel path
+     vs plain path (``mlstm_scan_chunked`` under autograd), bounded in
+     float32 compute; in bf16 logged beside the plain path with h moved
+     by one ulp (bf16 rounding alone moves the gradient norm by tens of
+     percent there);
+ 16. xLSTM resume is exact at full width (depth cut to one group of 3
+     mLSTM + 1 sLSTM blocks), seq 1024, batch 2.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -70,10 +85,11 @@ from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.data import make_stream  # noqa: E402
 from repro_torch.kernels import build, flash_attention, ops  # noqa: E402
-from repro_torch.kernels import flash_attention_bwd  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd, mlstm_scan  # noqa: E402
 from repro_torch.kernels import paged_attention, paged_attention_mq  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import recurrent  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, smoke_serve  # noqa: E402
 from repro_torch.train import (OptimizerConfig, Plan,  # noqa: E402
                                init_train_state, make_train_step)
@@ -102,6 +118,14 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_MICROBATCH = 4096, 2, 4, 1
 GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # kernel path vs plain path, one step at full width (bf16 compute)
 LOSS_REL_BOUND, GNORM_REL_BOUND = 1e-2, 5e-2
+# xlstm-125m training: train_4k's length, its global batch of 256 cut to 8
+XL_SEQ, XL_BATCH, XL_STEPS, XL_MICROBATCH = 4096, 8, 4, 1
+# K6-bwd against its plain version: max |diff| over each gradient's max
+# |g| (the same algorithm summed in other orders; bf16 outputs rounded)
+MLSTM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# device kernels counted as GEMMs in a profiled step's split (cuBLAS and
+# CUTLASS names)
+GEMM_KERNELS = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")
 
 
 def log(msg: str) -> None:
@@ -739,8 +763,7 @@ def _device_split(prof):
     name (the names cut to 60 characters)."""
     kinds = {"K1 forward": ("flash_fwd_kernel",),
              "K1-bwd": ("dkdv_kernel", "dq_kernel", "delta_kernel"),
-             "GEMMs": ("gemm", "xmma", "cutlass", "cublas", "nvjet",
-                       "sm90_")}
+             "GEMMs": GEMM_KERNELS}
     split = {k: 0.0 for k in kinds}
     split["rest"] = 0.0
     by_name = {}
@@ -846,9 +869,8 @@ def phase_train_plain(model, state, cfg) -> None:
     assert rel_loss <= LOSS_REL_BOUND and rel_norm <= GNORM_REL_BOUND
 
 
-def phase_resume(cfg) -> None:
+def phase_resume(cfg2, phase: int, note: str) -> None:
     """4 steps unbroken against 2 + save/restore + 2, bit for bit."""
-    cfg2 = dataclasses.replace(cfg, num_layers=2, name=cfg.name + "-2layer")
     model = build_model(cfg2)
     opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
     plan = Plan(remat="none")
@@ -885,11 +907,298 @@ def phase_resume(cfg) -> None:
         torch.use_deterministic_algorithms(False)
     same = all(torch.equal(x, y) for (_, x), (_, y)
                in zip(flatten(a), flatten(b)))
-    log(f"[12 resume] {cfg2.name} seq 1024 batch 2 (depth cut to 2 layers): "
+    log(f"[{phase} resume] {cfg2.name} seq 1024 batch 2 ({note}): "
         f"unbroken {losses_a} resumed {losses_b}; checkpoint "
         f"{nbytes / 1e9:.2f} GB saved and restored in {io_s:.1f} s; "
         f"losses identical={losses_a == losses_b} state identical={same}")
     assert losses_a == losses_b and same, "resume is not exact"
+
+
+# ---------------------------------------------------------------------------
+def _grad_err(got, want, tol: float) -> float:
+    """max |got - want| over max |want|, asserted within ``tol``."""
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    assert err <= tol, f"gradient off by {err:.3g} of its max (tol {tol})"
+    return err
+
+
+def _k6_case(name, dtype, B, H, S, D, DV, gen):
+    dev = torch.device("cuda")
+    q, k = (torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    v, dh = (torch.randn((B, H, S, DV), generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    i_pre = torch.randn((B, H, S), generator=gen, device=dev).to(dtype)
+    f_pre = (torch.randn((B, H, S), generator=gen, device=dev) + 1).to(dtype)
+    xs = (q, k, v, i_pre, f_pre)
+    h, m, qn = mlstm_scan.mlstm_scan_cuda(*xs, with_stats=True)
+    want = ref.mlstm_scan_chunked(*xs, with_stats=True)
+    torch.cuda.synchronize()
+    err_fwd = max(max_err(h, want[0], dtype), max_err(m, want[1], dtype,
+                                                      TOL[torch.float32]),
+                  max_err(qn, want[2], dtype))
+    del want
+    again = mlstm_scan.mlstm_scan_cuda(*xs, with_stats=True)
+    got = mlstm_scan.mlstm_scan_bwd_cuda(*xs, h, m, qn, dh)
+    want = ref.mlstm_scan_bwd(*xs, h, m, qn, dh)
+    torch.cuda.synchronize()
+    err = max(_grad_err(g, w, MLSTM_GRAD_TOL[dtype])
+              for g, w in zip(got, want))
+    del want
+    assert all(torch.equal(a, b) for a, b in zip((h, m, qn), again)), \
+        "K6 is not deterministic"
+    again = mlstm_scan.mlstm_scan_bwd_cuda(*xs, h, m, qn, dh)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "K6-bwd is not deterministic"
+    del again, got
+    ms = time_ms(lambda: mlstm_scan.mlstm_scan_cuda(*xs, with_stats=True),
+                 reps=5, inner=3)
+    bwd_ms = time_ms(lambda: mlstm_scan.mlstm_scan_bwd_cuda(*xs, h, m, qn,
+                                                            dh),
+                     reps=5, inner=3)
+    plain_ms = time_ms(lambda: ref.mlstm_scan_chunked(*xs, with_stats=True),
+                       reps=3, inner=1)
+    plain_bwd_ms = time_ms(lambda: ref.mlstm_scan_bwd(*xs, h, m, qn, dh),
+                           reps=3, inner=1)
+    # bounds: each input read once, each output written once; the
+    # products of 32-row chunks, per row: K6 2 L (D + DV) (scores and
+    # their product with v) + 4 D DV (q C and the state update); K6-bwd
+    # 2 L (3 D + 2 DV) (S, dS and the three intra-chunk products) +
+    # 10 D DV (the state recomputed, q's and k's inter-chunk products, dC
+    # and v's inter-chunk product)
+    L, rows = mlstm_scan.CHUNK, B * H * S
+    size = torch.finfo(dtype).bits // 8
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    fbytes = rows * (size * (2 * D + 2 * DV) + 2 * size + 8)
+    bms, by = bound_ms(fbytes, rows * (2.0 * L * (D + DV) + 4.0 * D * DV),
+                       peak)
+    bbytes = rows * (size * (4 * D + 4 * DV) + 4 * size + 8)
+    bbms, bby = bound_ms(bbytes, rows * (2.0 * L * (3 * D + 2 * DV)
+                                         + 10.0 * D * DV), peak)
+    shape = f"B={B} H={H} S={S} D={D} DV={DV}"
+    log(f"[13 K6] {name} {str(dtype)[6:]} {shape}: max_abs_err={err_fwd:.3g} "
+        f"(tol {TOL[dtype]:g} abs+rel, h, m, qn) deterministic=True "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
+        f"bound_ms={bms:.5f} ({by})")
+    log(f"[13 K6-bwd] {name} {str(dtype)[6:]} {shape}: max_err_of_max="
+        f"{err:.3g} (tol {MLSTM_GRAD_TOL[dtype]:g} of each gradient's max, "
+        f"dq dk dv di df) deterministic=True ms={bwd_ms:.4f} plain_ms="
+        f"{plain_bwd_ms:.4f} library_ms=None bound_ms={bbms:.5f} ({bby})")
+    return (dict(max_abs_err=err_fwd, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                 bound_by=by, library_ms=None),
+            dict(max_abs_err=err, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                 bound_ms=bbms, bound_by=bby, library_ms=None))
+
+
+def phase_k6(gen, cfg):
+    """K6 and K6-bwd at the training shape (bf16), S = 1000 and D = 64
+    (both dtypes)."""
+    H, D = cfg.num_heads, 2 * cfg.d_model // cfg.num_heads
+    main = _k6_case("train-shape", torch.bfloat16, XL_BATCH, H, XL_SEQ, D, D,
+                    gen)
+    torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        _k6_case("S=1000", dtype, 1, H, 1000, D, D, gen)
+        _k6_case("D=64", dtype, 2, H, 4096, 64, 64, gen)
+        torch.cuda.empty_cache()
+    return main
+
+
+_SLSTM_LOOP = recurrent.slstm_loop
+K6_BWD_KERNELS = ("mlstm_prep_kernel", "mlstm_dv_kernel", "mlstm_dqdk_kernel",
+                  "mlstm_gates_kernel")
+
+
+def _mark(grad=None):
+    """A marker kernel (``spin_kernel``) on the stream; as a gradient hook
+    it leaves the gradient as it is."""
+    torch.cuda._sleep(1)
+
+
+def _marked_slstm_loop(wx, r, state):
+    """The sLSTM loop between marker kernels: one before and one after
+    its forward, one when its output's gradient arrives (its backward
+    begins) and one when wx's gradient is whole (its backward is done)."""
+    _mark()
+    if wx.requires_grad:
+        wx.register_hook(_mark)
+    hs = _SLSTM_LOOP(wx, r, state)
+    _mark()
+    if hs.requires_grad:
+        hs.register_hook(_mark)
+    return hs
+
+
+def _xlstm_split(prof, n_slstm: int):
+    """Device ms of one profiled step by kind (K6, K6-bwd, the kernels
+    between the sLSTM loop's markers, GEMMs, rest), the kernel count, and
+    device ms by kernel name (cut to 60 characters)."""
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.start_ns())
+    split = {"K6": 0.0, "K6-bwd": 0.0, "sLSTM loop": 0.0, "GEMMs": 0.0,
+             "rest": 0.0}
+    by_name, inside, markers, loop_kernels = {}, False, 0, 0
+    for e in events:
+        name = e.name()
+        ms = e.duration_ns() / 1e6
+        if "spin_kernel" in name:
+            inside, markers = not inside, markers + 1
+            continue
+        low = name.lower()
+        if "mlstm_fwd_kernel" in name:
+            kind = "K6"
+        elif any(k in name for k in K6_BWD_KERNELS):
+            kind = "K6-bwd"
+        elif inside:
+            kind = "sLSTM loop"
+            loop_kernels += 1
+        elif any(k in low for k in GEMM_KERNELS):
+            kind = "GEMMs"
+        else:
+            kind = "rest"
+        split[kind] += ms
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + ms
+    assert markers == 4 * n_slstm, (markers, n_slstm)
+    return split, len(events) - markers, loop_kernels, by_name
+
+
+def phase_xlstm_train(cfg):
+    """The xLSTM training main path: full width, full depth, seq 4096."""
+    model = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    plan = Plan(remat="none", microbatch=XL_MICROBATCH)
+    t0 = time.perf_counter()
+    state = init_train_state(model, 0, opt, plan)
+    torch.cuda.synchronize()
+    step = make_train_step(model, opt, plan)
+    stream = make_stream(cfg, ShapeConfig("train_4k-cut", XL_SEQ, XL_BATCH,
+                                          "train"))
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()}
+               for i in range(XL_STEPS + 1)]
+    n_s = cfg.num_layers // cfg.slstm_every if cfg.slstm_every else 0
+    n_m = cfg.num_layers - n_s
+    log(f"[14 xlstm train] {cfg.name} full width, {cfg.num_layers} layers "
+        f"({n_m} mLSTM, {n_s} sLSTM), d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads, {cfg.param_count() / 1e9:.4f} B params "
+        f"(float32 master, AdamW float32 moments, {cfg.dtype} compute), seq "
+        f"{XL_SEQ}, batch {XL_BATCH} (train_4k's 256 cut to {XL_BATCH}), "
+        f"microbatch {XL_MICROBATCH}, remat {plan.remat}; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    mlstm_scan.launches = 0
+    mlstm_scan.bwd_launches = 0
+    losses, walls = [], []
+    for i in range(XL_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        losses.append(float(metrics["loss"]))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+    launches = {"mlstm_scan": mlstm_scan.launches,
+                "mlstm_scan_bwd": mlstm_scan.bwd_launches}
+    want = n_m * XL_STEPS * XL_MICROBATCH
+    assert launches == {"mlstm_scan": want, "mlstm_scan_bwd": want}, \
+        (launches, want)
+    assert all(np.isfinite(losses)), losses
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(walls[1:])
+    log(f"[14 xlstm train] losses={[round(x, 4) for x in losses]} "
+        f"step_wall_s={[round(x, 3) for x in walls]} (the first includes "
+        f"set-up) steady_step_s={steady:.3f} tok_per_s="
+        f"{XL_BATCH * XL_SEQ / steady:.1f} max_memory_allocated_GB="
+        f"{peak / 1e9:.2f} launches={launches} (want {want} each)")
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with mock.patch.object(recurrent, "slstm_loop", _marked_slstm_loop), \
+            torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[XL_STEPS])
+        float(metrics["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    split, n_kernels, loop_kernels, by_name = _xlstm_split(prof, n_s)
+    parse_s = time.perf_counter() - t0
+    del prof
+    busy = sum(split.values())
+    assert busy > 0 and split["K6"] > 0 and split["K6-bwd"] > 0, split
+    log(f"[14 xlstm profile] one step: wall_ms={wall:.1f} device_busy_ms="
+        f"{busy:.1f} idle_share={max(0.0, 1 - busy / wall):.3f} "
+        f"(against the unprofiled steady step: "
+        f"{max(0.0, 1 - busy / (steady * 1e3)):.3f}) kernels={n_kernels} "
+        f"(sLSTM loop {loop_kernels}) " + " ".join(
+            f"{k.replace(' ', '_')}_ms={v:.1f} ({v / busy:.1%})"
+            for k, v in split.items()) + f" (parsed in {parse_s:.1f} s)")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[14 xlstm profile]   {ms:9.1f} ms  {name}")
+    return model, state, launches
+
+
+def _plain_mlstm(q, k, v, i_pre, f_pre, chunk=256):
+    """``ops.mlstm_scan`` through K6's plain version, under autograd."""
+    return ref.mlstm_scan_chunked(q, k, v, i_pre, f_pre)
+
+
+def _ulp_moved_mlstm(gen):
+    """The plain path with a tenth of h's bf16 entries moved by one ulp
+    (in the forward only): how far bf16 rounding alone moves the step."""
+    def fn(q, k, v, i_pre, f_pre, chunk=256):
+        h = ref.mlstm_scan_chunked(q, k, v, i_pre, f_pre)
+        bits = h.detach().view(torch.int16)
+        flip = ((torch.rand(h.shape, generator=gen, device=h.device) < 0.1)
+                & (h != 0))  # a zero's bits minus one would be a NaN
+        up = torch.rand(h.shape, generator=gen, device=h.device) < 0.5
+        step = flip.to(torch.int16) * (2 * up.to(torch.int16) - 1)
+        return h + ((bits + step).view(torch.bfloat16) - h).detach()
+    return fn
+
+
+def phase_xlstm_plain(cfg, state) -> None:
+    """One xLSTM step's loss and gradient norm at full width, kernel path
+    vs plain path (batch 1, seq 1024), on the trained parameters.  The
+    bounds hold in float32 compute.  In bf16 the gradient norm is
+    dominated by rounding: the comparison is logged beside the plain
+    path with h moved by one bf16 ulp, which shows that spread."""
+    stream = make_stream(cfg, ShapeConfig("t", 1024, 1, "train"))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in stream.batch_at(0).items()}
+    params = state["params"]
+
+    def loss_and_norm(model, fn=None):
+        flat = [p.requires_grad_() for p in leaves(params)]
+        with mock.patch.object(ops, "mlstm_scan", fn or ops.mlstm_scan):
+            loss, _ = model.loss(params, batch, remat="none")
+        grads = torch.autograd.grad(loss, flat)
+        norm = global_norm(dict(enumerate(grads)))
+        return float(loss.detach()), float(norm)
+
+    def compare(model):
+        kern = loss_and_norm(model)
+        n0 = (mlstm_scan.launches, mlstm_scan.bwd_launches)
+        plain = loss_and_norm(model, _plain_mlstm)
+        assert (mlstm_scan.launches, mlstm_scan.bwd_launches) == n0
+        return (kern, plain, abs(kern[0] - plain[0]) / abs(plain[0]),
+                abs(kern[1] - plain[1]) / abs(plain[1]))
+
+    kern, plain, rel_loss, rel_norm = compare(
+        build_model(dataclasses.replace(cfg, dtype="float32")))
+    log(f"[15 xlstm kernel vs plain] float32 compute: loss {kern[0]:.6f} vs "
+        f"{plain[0]:.6f} (rel {rel_loss:.3g}, bound {LOSS_REL_BOUND}); "
+        f"grad_norm {kern[1]:.6f} vs {plain[1]:.6f} (rel {rel_norm:.3g}, "
+        f"bound {GNORM_REL_BOUND})")
+    assert rel_loss <= LOSS_REL_BOUND and rel_norm <= GNORM_REL_BOUND
+    model = build_model(cfg)
+    kern, plain, rel_loss, rel_norm = compare(model)
+    gen = torch.Generator(device="cuda")
+    moved = []
+    for seed in range(2):
+        gen.manual_seed(seed)
+        moved.append(loss_and_norm(model, _ulp_moved_mlstm(gen))[1])
+    log(f"[15 xlstm kernel vs plain] {cfg.dtype} compute (not bounded): loss "
+        f"rel {rel_loss:.3g}; grad_norm {kern[1]:.5f} vs {plain[1]:.5f} (rel "
+        f"{rel_norm:.3g}); the plain path with a tenth of h moved by one "
+        f"ulp: grad_norm {[round(x, 5) for x in moved]}")
 
 
 def main() -> int:
@@ -925,7 +1234,21 @@ def main() -> int:
     phase_train_plain(model, state, cfg)
     del model, state
     torch.cuda.empty_cache()
-    phase_resume(cfg)
+    phase_resume(dataclasses.replace(cfg, num_layers=2,
+                                     name=cfg.name + "-2layer"), 12,
+                 "depth cut to 2 layers")
+
+    xcfg = get_config("xlstm-125m")
+    k6, k6_bwd = phase_k6(gen, xcfg)
+    model, state, xl_launches = phase_xlstm_train(xcfg)
+    phase_xlstm_plain(xcfg, state)
+    del model, state
+    torch.cuda.empty_cache()
+    # depth cut to one group (3 mLSTM + 1 sLSTM blocks) to keep the
+    # script's time: the sLSTM loop is host bound
+    phase_resume(dataclasses.replace(xcfg, num_layers=xcfg.slstm_every,
+                                     name=xcfg.name + "-1group"), 16,
+                 "full width, depth cut to one group of 4 blocks")
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -944,6 +1267,14 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_xla.py:99",
              launches=train_launches["flash_attention_bwd"], **k1_bwd),
+        dict(name="mlstm_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
+             replaces="src/repro/kernels/mlstm_scan.py:117",
+             launches=xl_launches["mlstm_scan"], **k6),
+        dict(name="mlstm_scan_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/mlstm_scan_bwd.cu",
+             replaces="src/repro/kernels/ref.py:207",
+             launches=xl_launches["mlstm_scan_bwd"], **k6_bwd),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

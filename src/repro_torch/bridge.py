@@ -16,13 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import require_dense
-
-BLOCK_KEYS = ("norm1_g", "norm2_g", "norm1_b", "norm2_b",
-              "attn_wq", "attn_wk", "attn_wv", "attn_wo",
-              "attn_bq", "attn_bk", "attn_bv",
-              "mlp_wg", "mlp_wu", "mlp_wd")
-TOP_KEYS = ("embed", "lm_head", "final_g", "final_b")
+from repro_torch.models.lm import param_shapes
+from repro_torch.tree import flatten, unflatten
 
 
 def _tensor(name: str, x) -> torch.Tensor:
@@ -41,50 +36,28 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
                     device, dtype: Optional[torch.dtype] = None
                     ) -> Dict[str, Any]:
     """Map a numpy copy of the reference parameter tree to the port's
-    tree: ``embed``, ``final_g`` (and ``lm_head``/``final_b`` where the
-    config has them) and ``blocks/{...}`` with the leading layer axis.
+    tree, path by path (:func:`repro_torch.models.lm.param_shapes`):
+    ``embed``, ``final_g`` (and ``lm_head``/``final_b`` where the config
+    has them) and ``blocks/...`` with the leading layer axis — for the
+    xLSTM the nested ``blocks/mlstm/...`` and ``blocks/slstm/...``.
     ``dtype`` casts every tensor (default: keep each array's dtype).
     Raises on a missing or unexpected key, or a shape that does not fit
     the config."""
-    require_dense(cfg)
-
-    def conv(name, x):
-        t = _tensor(name, x).to(device)
-        return t if dtype is None else t.to(dtype)
-
-    extra = set(tree) - set(TOP_KEYS) - {"blocks"}
-    bextra = set(tree["blocks"]) - set(BLOCK_KEYS)
-    if extra or bextra:
-        raise KeyError(f"unexpected parameters: {sorted(extra | bextra)}")
-    out = {k: conv(k, v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = {k: conv(f"blocks/{k}", v)
-                     for k, v in tree["blocks"].items()}
-
-    L, D, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
-    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    want = {"embed": (V, D), "final_g": (D,),
-            "blocks/attn_wq": (L, D, H, Dh), "blocks/attn_wk": (L, D, KH, Dh),
-            "blocks/attn_wv": (L, D, KH, Dh), "blocks/attn_wo": (L, H, Dh, D),
-            "blocks/norm1_g": (L, D), "blocks/norm2_g": (L, D)}
-    if cfg.qkv_bias:
-        want.update({"blocks/attn_bq": (L, H, Dh),
-                     "blocks/attn_bk": (L, KH, Dh),
-                     "blocks/attn_bv": (L, KH, Dh)})
-    if cfg.d_ff > 0:
-        want.update({"blocks/mlp_wu": (L, D, cfg.d_ff),
-                     "blocks/mlp_wd": (L, cfg.d_ff, D)})
-        if cfg.act == "silu":
-            want["blocks/mlp_wg"] = (L, D, cfg.d_ff)
-    if not cfg.tie_embeddings:
-        want["lm_head"] = (D, V)
-    for name, shape in want.items():
-        top, _, sub = name.partition("/")
-        t = out["blocks"].get(sub) if sub else out.get(top)
-        if t is None:
-            raise KeyError(f"missing parameter {name}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-    return out
+    want = {path: shape for path, (shape, _) in param_shapes(cfg).items()}
+    got = dict(flatten(tree))
+    extra, missing = set(got) - set(want), set(want) - set(got)
+    if extra:
+        raise KeyError(f"unexpected parameters: {sorted(extra)}")
+    if missing:
+        raise KeyError(f"missing parameters: {sorted(missing)}")
+    out = []
+    for path, x in got.items():
+        t = _tensor(path, x).to(device)
+        if tuple(t.shape) != want[path]:
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != "
+                             f"{want[path]}")
+        out.append((path, t if dtype is None else t.to(dtype)))
+    return unflatten(out)
 
 
 def from_jax_train_state(tree: Dict[str, Any], cfg: ModelConfig,

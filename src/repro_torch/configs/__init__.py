@@ -1,14 +1,16 @@
 """Architecture registry of the port: the dense decoders that share the
-ported branch of ``models/lm.py``.
+ported dense branch of ``models/lm.py``, and xlstm-125m (the xLSTM
+branch, train path only).
 
 ``get_config`` accepts the exact id or the short alias, as the reference
 registry does.  Families the port does not build yet (MoE, audio,
-xLSTM, hybrid, VLM) raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+hybrid, VLM) raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
-from repro_torch.configs import glm4_9b, internlm2_20b, qwen15_4b, qwen2_15b
+from repro_torch.configs import (glm4_9b, internlm2_20b, qwen15_4b, qwen2_15b,
+                                 xlstm_125m)
 from repro_torch.configs.base import ModelConfig, ShapeConfig, reduced
 
 ARCHS = {
@@ -16,6 +18,7 @@ ARCHS = {
     "qwen1.5-4b": qwen15_4b.CONFIG,
     "glm4-9b": glm4_9b.CONFIG,
     "internlm2-20b": internlm2_20b.CONFIG,
+    "xlstm-125m": xlstm_125m.CONFIG,
 }
 
 _ALIASES = {
@@ -23,6 +26,7 @@ _ALIASES = {
     "qwen15-4b": "qwen1.5-4b",
     "glm4": "glm4-9b",
     "internlm2": "internlm2-20b",
+    "xlstm": "xlstm-125m",
 }
 
 # archs of the reference registry (ids and aliases) that the port does
@@ -33,8 +37,6 @@ _NOT_PORTED = {
     "qwen3-moe-235b-a22b": _MOE, "qwen3-moe": _MOE,
     "whisper-large-v3": "ROADMAP queue 1, item 11 (encoder-decoder)",
     "whisper": "ROADMAP queue 1, item 11 (encoder-decoder)",
-    "xlstm-125m": "ROADMAP queue 1, item 11 (xLSTM family, kernel K6)",
-    "xlstm": "ROADMAP queue 1, item 11 (xLSTM family, kernel K6)",
     "hymba-1.5b": "ROADMAP queue 1, item 11 (hybrid family, kernel K5)",
     "hymba": "ROADMAP queue 1, item 11 (hybrid family, kernel K5)",
     "phi-3-vision-4.2b": "ROADMAP queue 1, item 11 (VLM family)",

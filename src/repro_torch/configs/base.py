@@ -8,6 +8,7 @@ built by either package describes the same model).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -72,17 +73,52 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     def param_count(self) -> int:
-        """Parameters of a dense decoder (embedding, blocks, final norm,
-        untied head) — the only family the port builds so far."""
+        """Parameters of the families the port builds: a dense decoder
+        (embedding, blocks, final norm, untied head) or the xLSTM
+        (``family="ssm"``), by the reference's formulas — for the xLSTM its
+        per-layer average, rounded down, times the layers, as the
+        reference reports it."""
         d, v = self.d_model, self.vocab_size
+        head = 0 if self.tie_embeddings else v * d
+        final = d * (2 if self.norm == "layernorm" else 1)
+        if self.family == "ssm":
+            if self.slstm_every:
+                n_s = self.num_layers // self.slstm_every
+                n_m = self.num_layers - n_s
+            else:
+                n_m, n_s = self.num_layers, 0
+            total = (n_m * self._mlstm_block_params()
+                     + n_s * self._slstm_block_params())
+            return (v * d + head + self.num_layers
+                    * (total // self.num_layers) + final)
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         if self.qkv_bias:
             attn += self.q_dim + 2 * self.kv_dim
         mlp = (3 if self.act == "silu" else 2) * d * self.d_ff
         norms = 2 * d * (2 if self.norm == "layernorm" else 1)
-        head = 0 if self.tie_embeddings else v * d
-        final = d * (2 if self.norm == "layernorm" else 1)
         return v * d + head + self.num_layers * (attn + mlp + norms) + final
+
+    def _mlstm_block_params(self) -> int:
+        d, h = self.d_model, self.num_heads
+        d_in = 2 * d
+        dh = d_in // h
+        return (2 * d  # layernorm
+                + 2 * d * d_in  # up proj (x, z)
+                + 3 * h * dh * dh  # q, k, v block-diagonal per head
+                + 2 * d_in * h + 2 * h  # i/f gate projections + biases
+                + d_in  # headnorm
+                + d_in * d)  # down proj
+
+    def _slstm_block_params(self) -> int:
+        d, h = self.d_model, self.num_heads
+        dh = d // h
+        fs = int(math.ceil(d * 4 / 3 / 64) * 64)
+        return (4 * d  # two layernorms
+                + d * 4 * d  # gate input projections
+                + h * 4 * dh * dh  # recurrent per-head
+                + 4 * d  # gate biases
+                + d  # headnorm
+                + 3 * d * fs)  # gated FFN
 
 
 @dataclass(frozen=True)

@@ -47,6 +47,16 @@ _SIGNATURES = {
     # page, max_pages, scale, dtype, stream
     "repro_paged_attention_mq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _I, _P],
+    # q, k, v, i_pre, f_pre, h, m (nullable), qn (nullable), B, H, S, D,
+    # DV, scale, dtype, stream
+    "repro_mlstm_scan": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    # D -> bytes of shared memory K6 needs
+    "repro_mlstm_scan_smem": [_I],
+    # q, k, v, i_pre, f_pre, h, m, qn, dh, rden, dqn, qdq, kdk, dq, dk, dv,
+    # d i_pre, d f_pre, B, H, S, D, DV, scale, dtype, stream
+    "repro_mlstm_scan_bwd": [_P] * 18 + [_I] * 5 + [_F, _I, _P],
+    # D, DV -> bytes of shared memory K6-bwd's larger walk needs
+    "repro_mlstm_scan_bwd_smem": [_I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,4 +1,4 @@
-"""Public attention entry points of the port, in the reference layout.
+"""Public kernel entry points of the port, in the reference layout.
 
 The counterpart of the reference package's ``kernels/ops.py``.  There is
 no backend switch: each function dispatches on its tensors' device
@@ -19,12 +19,17 @@ transposing or padding happens here.
   * :func:`decode_attention` and :func:`decode_attention_mq` — one decode
     token, or the ``T`` verify rows, against a dense cache: the plain
     version on every device, as in the reference, where the dense decode
-    and verify reads are never a Pallas kernel.
+    and verify reads are never a Pallas kernel;
+  * :func:`mlstm_scan` — the xLSTM matrix memory of the train path (K6,
+    and K6-bwd under autograd), q/k ``(B, H, S, D)``, v ``(B, H, S, DV)``,
+    gates ``(B, H, S)``; :func:`mlstm_step` — one recurrent step, the
+    sequential oracle, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import mlstm_scan as _mlstm
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (
@@ -33,7 +38,8 @@ from repro_torch.kernels.paged_attention_mq import (
     paged_attention_mq as paged_decode_attention_mq)
 
 __all__ = ["decode_attention", "decode_attention_mq", "flash_attention",
-           "paged_decode_attention", "paged_decode_attention_mq"]
+           "mlstm_scan", "mlstm_step", "paged_decode_attention",
+           "paged_decode_attention_mq"]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -49,3 +55,32 @@ def decode_attention_mq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(B, S_max, KH, D)``; row ``t`` sees the positions
     ``< base_len[b] + t``."""
     return ref.decode_attention_mq(q, k, v, base_len)
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               i_pre: torch.Tensor, f_pre: torch.Tensor, *,
+               chunk: int = 256) -> torch.Tensor:
+    """The mLSTM of the train path (K6, and K6-bwd when autograd records):
+    q/k ``(B, H, S, D)``, v ``(B, H, S, DV)``, gate pre-activations
+    ``(B, H, S)`` -> h ``(B, H, S, DV)``.  ``chunk`` keeps the reference's
+    signature, where it is the TPU kernel's block length; the port's
+    kernels and their plain versions run 32-row chunks whatever it is (the
+    chunkwise form is exact for any chunk length, up to rounding)."""
+    del chunk
+    return _mlstm.mlstm_scan(q, k, v, i_pre, f_pre)
+
+
+def mlstm_step(q, k, v, i_pre, f_pre, state):
+    """One recurrent step (the reference's decode path): the sequential
+    oracle from ``state = (C, n, m)``, q/k/v ``(B, H, D)`` or
+    ``(B, H, 1, D)``, gates ``(B, H)`` or ``(B, H, 1)``.  Returns
+    ``(h (B, H, DV), new state)``."""
+    h, state = ref.mlstm_scan(
+        q[:, :, None, :] if q.dim() == 3 else q,
+        k[:, :, None, :] if k.dim() == 3 else k,
+        v[:, :, None, :] if v.dim() == 3 else v,
+        i_pre[..., None] if i_pre.dim() == 2 else i_pre,
+        f_pre[..., None] if f_pre.dim() == 2 else f_pre,
+        initial=state,
+    )
+    return h[:, :, 0, :], state

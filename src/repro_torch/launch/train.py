@@ -8,6 +8,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --full --seq 4096 --batch 2 --steps 4 --remat none
 
+    # xlstm-125m at full width on one H100 (mLSTM through K6 and K6-bwd)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
+        --full --seq 4096 --batch 8 --steps 4 --device cuda
+
     # on the CPU (the plain versions of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6
 

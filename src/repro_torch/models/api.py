@@ -1,7 +1,8 @@
 """Uniform model API: ``build_model(cfg, device) -> Model``.
 
 Counterpart of the reference package's ``models/api.py`` for the train
-loss and the serving entry points.  A :class:`Model` knows its config
+loss (dense decoders and the xLSTM) and the serving entry points (dense
+decoders).  A :class:`Model` knows its config
 and its device; it holds no weights — parameters are passed to each
 call, as in the reference, so bridged weights and the port's own init go
 through the same calls.
@@ -34,7 +35,7 @@ def resolve_device(device: Device) -> torch.device:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device: torch.device):
-        lm.require_dense(cfg)
+        lm.require_ported(cfg)
         self.cfg = cfg
         self.device = device
 
@@ -56,7 +57,9 @@ class Model:
         embedding in ``cfg.dtype`` (numerically what the reference's
         per-use ``.astype(dtype)`` gives), norm gains kept in float32, and
         the stacked blocks split into per-layer dicts.  Idempotent: params
-        already prepared come back as they are."""
+        already prepared come back as they are.  Dense decoders only: the
+        xLSTM's serving is not ported."""
+        lm.require_ported(self.cfg, serving=True)
         dt = getattr(torch, self.cfg.dtype)
 
         def cast(name, x):

@@ -25,7 +25,8 @@ def init_param(name: str, shape: Sequence[int], *, seed: int,
     """One parameter, initialised as the reference's ``ParamBuilder.p``
     does: ``normal`` is a fan-in-scaled normal with std
     ``min(scale, fan_in ** -0.5)`` (fan-in is ``shape[-2]``, or
-    ``shape[-1]`` for a vector), ``zeros``/``ones`` are constant.
+    ``shape[-1]`` for a vector), ``small_normal`` a normal with std 0.01,
+    ``zeros``/``ones`` are constant.
 
     The draw comes from a ``torch.Generator`` on ``device`` seeded by
     ``(seed, name)``, so each parameter is reproducible on its own; it
@@ -35,10 +36,13 @@ def init_param(name: str, shape: Sequence[int], *, seed: int,
         return torch.zeros(shape, dtype=dtype, device=device)
     if init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
-    if init != "normal":
+    if init == "normal":
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        std = min(scale, fan_in ** -0.5)
+    elif init == "small_normal":
+        std = 0.01
+    else:
         raise ValueError(init)
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    std = min(scale, fan_in ** -0.5)
     gen = torch.Generator(device=device).manual_seed(_fold(seed, name))
     return torch.randn(shape, generator=gen, dtype=dtype, device=device) * std
 

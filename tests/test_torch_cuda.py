@@ -7,13 +7,17 @@ inside the fixture, never at import).  Run on a machine with the card:
 Tolerances: float32 2e-5 (the kernel and the plain version sum in other
 orders), bfloat16 2e-2 (outputs rounded to bfloat16); K1-bwd's float32
 gradients 2e-4 (the reference's own tolerance for its flash VJP, sums
-over whole sequences in other orders)."""
+over whole sequences in other orders); K6-bwd's gradients 1e-4 (float32)
+and 2e-2 (bfloat16) of each gradient's max |g| (the same algorithm summed
+in other orders, and the gates' gradients a cumulative sum over the
+whole sequence)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
-                                 ops, paged_attention, paged_attention_mq, ref)
+                                 mlstm_scan, ops, paged_attention,
+                                 paged_attention_mq, ref)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -301,3 +305,127 @@ def test_flash_bwd_refuses_what_it_does_not_take(dev):
     for d in (8, 64, 128, 256):
         assert (lib.repro_flash_attention_bwd_smem(d)
                 == flash_attention_bwd.smem_bytes(d))
+
+
+# K6 and K6-bwd: (B, H, S, D, DV) — the training head width at a short S,
+# a ragged S, the chip_smoke.py D = 64 case, and odd tile edges
+MLSTM_CASES = [
+    (1, 2, 256, 384, 384),   # D = DV = 384, the training width
+    (2, 2, 200, 64, 64),     # ragged S (6.25 chunks)
+    (1, 4, 1000, 64, 64),    # S = 1000, D = 64
+    (1, 2, 70, 72, 136),     # partial D and DV tiles
+    (2, 1, 33, 8, 16),       # smallest D, one row past a chunk
+]
+MLSTM_IDS = ["D384", "ragged", "S1000", "tiles", "small"]
+MLSTM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _mlstm_inputs(dev, dtype, B, H, S, D, DV, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q, k = (_randn(gen, (B, H, S, D), dtype, dev) for _ in range(2))
+    v, dh = (_randn(gen, (B, H, S, DV), dtype, dev) for _ in range(2))
+    i_pre = _randn(gen, (B, H, S), dtype, dev)
+    f_pre = (torch.randn((B, H, S), generator=gen) + 1.0).to(dev, dtype)
+    return q, k, v, i_pre, f_pre, dh
+
+
+def _close_to_max(got, want, tol, name):
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale, f"{name}: max err {err} > {tol} * {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLSTM_CASES, ids=MLSTM_IDS)
+def test_mlstm_kernel_matches_plain(dev, dtype, case):
+    q, k, v, i_pre, f_pre, _ = _mlstm_inputs(dev, dtype, *case)
+    n0 = mlstm_scan.launches
+    h, m, qn = mlstm_scan.mlstm_scan_cuda(q, k, v, i_pre, f_pre,
+                                          with_stats=True)
+    torch.cuda.synchronize()
+    assert mlstm_scan.launches == n0 + 1
+    want_h, want_m, want_qn = ref.mlstm_scan_chunked(q, k, v, i_pre, f_pre,
+                                                     with_stats=True)
+    assert h.dtype == dtype and m.dtype == qn.dtype == torch.float32
+    torch.testing.assert_close(h.float(), want_h.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(m, want_m, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(qn, want_qn, atol=TOL[dtype], rtol=TOL[dtype])
+    # without the stats the output is the same, bit for bit
+    torch.testing.assert_close(
+        mlstm_scan.mlstm_scan_cuda(q, k, v, i_pre, f_pre), h, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLSTM_CASES, ids=MLSTM_IDS)
+def test_mlstm_bwd_kernel_matches_plain(dev, dtype, case):
+    q, k, v, i_pre, f_pre, dh = _mlstm_inputs(dev, dtype, *case)
+    h, m, qn = ref.mlstm_scan_chunked(q, k, v, i_pre, f_pre, with_stats=True)
+    n0 = mlstm_scan.bwd_launches
+    got = mlstm_scan.mlstm_scan_bwd(q, k, v, i_pre, f_pre, h, m, qn, dh)
+    torch.cuda.synchronize()
+    assert mlstm_scan.bwd_launches == n0 + 1
+    want = ref.mlstm_scan_bwd(q, k, v, i_pre, f_pre, h, m, qn, dh)
+    for name, a, b in zip(("dq", "dk", "dv", "di", "df"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape
+        _close_to_max(a, b, MLSTM_GRAD_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_bwd_is_deterministic(dev, dtype):
+    q, k, v, i_pre, f_pre, dh = _mlstm_inputs(dev, dtype, 2, 2, 300, 128, 64,
+                                              seed=3)
+    h, m, qn = mlstm_scan.mlstm_scan_cuda(q, k, v, i_pre, f_pre,
+                                          with_stats=True)
+    first = mlstm_scan.mlstm_scan_bwd_cuda(q, k, v, i_pre, f_pre, h, m, qn, dh)
+    for _ in range(3):
+        again = mlstm_scan.mlstm_scan_bwd_cuda(q, k, v, i_pre, f_pre, h, m, qn,
+                                               dh)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_mlstm_function_launches_both_kernels(dev):
+    q, k, v, i_pre, f_pre, dh = _mlstm_inputs(dev, torch.float32, 1, 2, 100,
+                                              32, 32)
+    n0 = (mlstm_scan.launches, mlstm_scan.bwd_launches)
+    xs = [x.clone().requires_grad_() for x in (q, k, v, i_pre, f_pre)]
+    got = torch.autograd.grad(ops.mlstm_scan(*xs), xs, dh)
+    assert (mlstm_scan.launches, mlstm_scan.bwd_launches) == (n0[0] + 1,
+                                                              n0[1] + 1)
+    ys = [x.clone().requires_grad_() for x in (q, k, v, i_pre, f_pre)]
+    want = torch.autograd.grad(ref.mlstm_scan(*ys)[0], ys, dh)
+    for name, a, b in zip(("dq", "dk", "dv", "di", "df"), got, want):
+        _close_to_max(a, b, 1e-4, name)
+
+
+def test_mlstm_kernels_refuse_what_they_do_not_take(dev):
+    n0 = (mlstm_scan.launches, mlstm_scan.bwd_launches)
+    fwd, bwd = mlstm_scan.mlstm_scan_cuda, mlstm_scan.mlstm_scan_bwd_cuda
+    q = torch.zeros(1, 2, 40, 64, device=dev)
+    g = torch.zeros(1, 2, 40, device=dev)
+    with pytest.raises(ValueError, match="head_dim 392"):
+        x = torch.zeros(1, 2, 40, 392, device=dev)
+        fwd(x, x, q, g, g)
+    with pytest.raises(ValueError, match="value dim 400"):
+        fwd(q, q, torch.zeros(1, 2, 40, 400, device=dev), g, g)
+    with pytest.raises(ValueError, match="dtype"):
+        fwd(q.half(), q.half(), q.half(), g, g)
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        fwd(q, q.bfloat16(), q, g, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, g, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(q, q, q, g.transpose(1, 2).contiguous().transpose(1, 2), g)
+    with pytest.raises(ValueError, match="must be"):
+        fwd(q, q, q, g[:, :, :20].contiguous(), g)
+    with pytest.raises(ValueError, match="m and qn must be float32"):
+        bwd(q, q, q, g, g, q, g.half(), g, q)
+    assert (mlstm_scan.launches, mlstm_scan.bwd_launches) == n0
+    # the wrapper's shared-memory layouts are the CUDA sources'
+    lib = build.library()
+    for D, DV in ((8, 8), (64, 384), (384, 64), (384, 384)):
+        assert mlstm_scan.smem_bytes(D) == lib.repro_mlstm_scan_smem(D)
+        assert (mlstm_scan.bwd_smem_bytes(D, DV)
+                == lib.repro_mlstm_scan_bwd_smem(D, DV))
+        assert mlstm_scan.bwd_smem_bytes(D, DV) <= mlstm_scan.SMEM_LIMIT

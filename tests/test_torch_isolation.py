@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
-                                 paged_attention, paged_attention_mq)
+                                 mlstm_scan, paged_attention,
+                                 paged_attention_mq)
 from repro_torch.launch import train as train_cli
 from repro_torch.models import build_model
 
@@ -41,7 +42,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.models.recurrent, "
+            "repro_torch.kernels.mlstm_scan; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -63,14 +65,19 @@ def test_entry_points_default_to_the_card():
     with mock.patch("sys.argv", ["train", "--steps", "1"]), \
             pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main()
+    xlstm = ["train", "--arch", "xlstm-125m", "--steps", "1"]
+    with mock.patch("sys.argv", xlstm), \
+            pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main()
 
 
 def test_cuda_entries_never_return_the_plain_version():
     """The CUDA entry points refuse CPU tensors instead of computing the
     plain result, and the build refuses to run without nvcc."""
     counters = (flash_attention, flash_attention_bwd, paged_attention,
-                paged_attention_mq)
+                paged_attention_mq, mlstm_scan)
     before = [m.launches for m in counters]
+    before.append(mlstm_scan.bwd_launches)
     q = torch.zeros(1, 4, 2, 64)
     k = torch.zeros(1, 4, 2, 64)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
@@ -87,7 +94,15 @@ def test_cuda_entries_never_return_the_plain_version():
         paged_attention.paged_attention_cuda(q[:, :1], pool, pool, table, lens)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         paged_attention_mq.paged_attention_mq_cuda(q, pool, pool, table, lens)
-    assert [m.launches for m in counters] == before
+    g = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        mlstm_scan.mlstm_scan_cuda(q, q, q, g, g)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        mlstm_scan.mlstm_scan_cuda(q, q, q, g, g, with_stats=True)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        mlstm_scan.mlstm_scan_bwd_cuda(q, q, q, g, g, q, g, g, q)
+    assert [m.launches for m in counters] + [mlstm_scan.bwd_launches] \
+        == before
     try:
         build.find_nvcc()
     except RuntimeError as e:
