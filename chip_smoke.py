@@ -2,8 +2,10 @@
 against its plain PyTorch version on the card, serve full-width
 qwen2-1.5b through the paged engine (main path), the fused engine and
 the paged engine's speculative path, train it at full width through
-the train step (K1 forward, K1-bwd backward), and train xlstm-125m at
-full width (K6 forward, K6-bwd backward, the sLSTM loop).
+the train step (K1 forward, K1-bwd backward), train xlstm-125m at full
+width (K6 forward, K6-bwd backward, the sLSTM loop), and train
+hymba-1.5b at full width (K1 and K1-bwd, global and sliding-window, and
+K5 forward, K5-bwd backward for its SSM heads).
 
     python3 chip_smoke.py
 
@@ -52,7 +54,24 @@ them, and on any mismatch.  Phases, one or more lines each:
      by one ulp (bf16 rounding alone moves the gradient norm by tens of
      percent there);
  16. xLSTM resume is exact at full width (depth cut to one group of 3
-     mLSTM + 1 sLSTM blocks), seq 1024, batch 2.
+     mLSTM + 1 sLSTM blocks), seq 1024, batch 2;
+ 17. K5 (the selective scan, with its checkpoints) and K5-bwd against
+     their plain versions at hymba-1.5b's training shape and at a ragged
+     S and Din, in both dtypes, with a check that both are deterministic
+     bit for bit;
+ 18. K1's forward with its LSE and K1-bwd at hymba-1.5b's attention
+     shapes (25 query heads, 5 KV heads of 64), global and with a 2048
+     window, in both dtypes;
+ 19. hybrid training main path: hymba-1.5b at full width and full depth,
+     seq 4096, through ``make_train_step`` (launch counters reset just
+     before four steps, read just after), then one profiled step's
+     device-time split (K5, K5-bwd, K1, K1-bwd, GEMMs, rest);
+ 20. one hymba step's loss, gradient norm and every gradient leaf at
+     full width (depth cut to 2 layers: 0 global, 1 a 2048 window, the
+     SSM parameters moved off their init), seq 4096, kernel path vs plain
+     path (autodiff through the sequential scan and the plain
+     attention), in float32 compute;
+ 21. hymba resume is exact at full width, the same 2-layer cut, seq 4096.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -87,7 +106,7 @@ from repro_torch.data import make_stream  # noqa: E402
 from repro_torch.kernels import build, flash_attention, ops  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd, mlstm_scan  # noqa: E402
 from repro_torch.kernels import paged_attention, paged_attention_mq  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ref, ssm_scan  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import recurrent  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, smoke_serve  # noqa: E402
@@ -126,6 +145,25 @@ MLSTM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # device kernels counted as GEMMs in a profiled step's split (cuBLAS and
 # CUTLASS names)
 GEMM_KERNELS = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")
+# hymba-1.5b training: train_4k's length, its global batch of 256 cut to 2
+# (batch 2 peaked at 74.5 GB on an H100 80GB, under the 76 GB kept as
+# headroom; batch 1 at 49.4 GB)
+HY_SEQ, HY_BATCH, HY_STEPS = 4096, 2, 4
+# kernel path vs plain path at the 2-layer cut in float32 compute: every
+# gradient leaf within this share of its max |g| (10x the CPU parity
+# bound: sums over 4096 positions in other orders)
+HY_LEAF_BOUND = 1e-3
+# SSM parameters moved off their init for that comparison, so that the
+# scan shapes the gradients: (name, mean, std)
+HY_MOVED = (("ssm_A_log", 0.0, 0.5), ("ssm_b_dt", 1.0, 1.0),
+            ("ssm_D", 0.0, 1.0), ("ssm_conv_w", 0.0, 0.3),
+            ("ssm_w_B", 0.0, 0.1), ("ssm_w_C", 0.0, 0.1),
+            ("ssm_w_dt1", 0.0, 0.1), ("ssm_w_dt2", 0.0, 0.1))
+# K5-bwd against its plain version: max |diff| over each gradient's max |g|
+SSM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# exponentials a second on the special-function units: 16 a clock on each
+# of the 132 SMs at the 1980 MHz boost clock (H100 SXM)
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -671,7 +709,8 @@ def _live_mask(S, T, window, q_offset, dev):
     return live
 
 
-def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen):
+def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
+                   phase=9):
     dev = torch.device("cuda")
     q, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
              for _ in range(2))
@@ -729,12 +768,13 @@ def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen):
     # forward with the LSE: q, k, v read, out and lse written
     fbytes = size * (2 * B * S * H * D + 2 * B * T * KH * D) + 4 * B * S * H
     fbms, fby = bound_ms(fbytes, 4.0 * B * H * D * pairs, peak)
-    log(f"[9 K1+lse] {name} {str(dtype)[6:]} B={B} S={S} T={T} H={H} KH={KH} "
+    log(f"[{phase} K1+lse] {name} {str(dtype)[6:]} B={B} S={S} T={T} H={H} "
+        f"KH={KH} "
         f"D={D} window={window} q_offset={q_offset}: max_abs_err="
         f"{err_fwd:.3g} (tol {TOL[dtype]:g} abs+rel, out and lse) ms="
         f"{fwd_ms:.4f} plain_ms={fplain_ms:.4f} library_ms={lib_fwd_ms:.4f} "
         f"bound_ms={fbms:.5f} ({fby})")
-    log(f"[9 K1-bwd] {name} {str(dtype)[6:]}: max_abs_err={err:.3g} (tol "
+    log(f"[{phase} K1-bwd] {name} {str(dtype)[6:]}: max_abs_err={err:.3g} (tol "
         f"{GRAD_TOL[dtype]:g} abs+rel, dq dk dv) deterministic=True "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
         f"bound_ms={bms:.5f} ({by})")
@@ -758,12 +798,14 @@ def phase_k1_train(gen) -> dict:
     return main
 
 
-def _device_split(prof):
-    """Device ms of one profiled step by kind of kernel, and by kernel
-    name (the names cut to 60 characters)."""
-    kinds = {"K1 forward": ("flash_fwd_kernel",),
-             "K1-bwd": ("dkdv_kernel", "dq_kernel", "delta_kernel"),
-             "GEMMs": GEMM_KERNELS}
+K1_KINDS = {"K1 forward": ("flash_fwd_kernel",),
+            "K1-bwd": ("dkdv_kernel", "dq_kernel", "delta_kernel")}
+
+
+def _device_split(prof, kinds=None):
+    """Device ms of one profiled step by kind of kernel (K1's by default),
+    and by kernel name (the names cut to 60 characters)."""
+    kinds = dict(kinds or K1_KINDS, GEMMs=GEMM_KERNELS)
     split = {k: 0.0 for k in kinds}
     split["rest"] = 0.0
     by_name = {}
@@ -869,13 +911,14 @@ def phase_train_plain(model, state, cfg) -> None:
     assert rel_loss <= LOSS_REL_BOUND and rel_norm <= GNORM_REL_BOUND
 
 
-def phase_resume(cfg2, phase: int, note: str) -> None:
+def phase_resume(cfg2, phase: int, note: str, seq: int = 1024,
+                 batch: int = 2) -> None:
     """4 steps unbroken against 2 + save/restore + 2, bit for bit."""
     model = build_model(cfg2)
     opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
     plan = Plan(remat="none")
     step = make_train_step(model, opt, plan)
-    stream = make_stream(cfg2, ShapeConfig("t", 1024, 2, "train"))
+    stream = make_stream(cfg2, ShapeConfig("t", seq, batch, "train"))
 
     def run(state, steps):
         out = []
@@ -907,7 +950,7 @@ def phase_resume(cfg2, phase: int, note: str) -> None:
         torch.use_deterministic_algorithms(False)
     same = all(torch.equal(x, y) for (_, x), (_, y)
                in zip(flatten(a), flatten(b)))
-    log(f"[{phase} resume] {cfg2.name} seq 1024 batch 2 ({note}): "
+    log(f"[{phase} resume] {cfg2.name} seq {seq} batch {batch} ({note}): "
         f"unbroken {losses_a} resumed {losses_b}; checkpoint "
         f"{nbytes / 1e9:.2f} GB saved and restored in {io_s:.1f} s; "
         f"losses identical={losses_a == losses_b} state identical={same}")
@@ -1201,6 +1244,247 @@ def phase_xlstm_plain(cfg, state) -> None:
         f"ulp: grad_norm {[round(x, 5) for x in moved]}")
 
 
+# ---------------------------------------------------------------------------
+def ssm_bound_ms(nbytes: float, flops: float, exps: float):
+    """The least time for a scan: the larger of its bytes over the memory
+    rate, its float32 operations over the float32 peak, and its
+    exponentials over the special-function units' rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / F32_FLOPS, exps / SFU_EXP_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _k5_case(name, dtype, B, S, Din, N, gen):
+    dev = torch.device("cuda")
+    x = torch.randn((B, S, Din), generator=gen, device=dev).to(dtype)
+    dt = (torch.rand((B, S, Din), generator=gen, device=dev) * 0.2
+          + 0.01).to(dtype)
+    A = -torch.rand((Din, N), generator=gen, device=dev) * 2 - 0.05
+    Bm, Cm = (torch.randn((B, S, N), generator=gen, device=dev)
+              for _ in range(2))
+    D = torch.randn((Din,), generator=gen, device=dev)
+    dy = torch.randn((B, S, Din), generator=gen, device=dev).to(dtype)
+    xs = (x, dt, A, Bm, Cm, D)
+    y, ckpt = ssm_scan.ssm_scan_cuda(*xs, with_ckpt=True)
+    want = ref.ssm_scan_fwd_ckpt(*xs)
+    torch.cuda.synchronize()
+    err_fwd = max(max_err(y, want[0], dtype),
+                  max_err(ckpt, want[1], dtype, TOL[torch.float32]))
+    del want
+    again = ssm_scan.ssm_scan_cuda(*xs, with_ckpt=True)
+    got = ssm_scan.ssm_scan_bwd_cuda(*xs, ckpt, dy)
+    want = ref.ssm_scan_bwd(*xs, ckpt, dy)
+    torch.cuda.synchronize()
+    err = max(_grad_err(g, w, SSM_GRAD_TOL[dtype]) for g, w in zip(got, want))
+    del want
+    assert all(torch.equal(a, b) for a, b in zip((y, ckpt), again)), \
+        "K5 is not deterministic"
+    again = ssm_scan.ssm_scan_bwd_cuda(*xs, ckpt, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "K5-bwd is not deterministic"
+    del again, got
+    ms = time_ms(lambda: ssm_scan.ssm_scan_cuda(*xs, with_ckpt=True), reps=5,
+                 inner=5)
+    bwd_ms = time_ms(lambda: ssm_scan.ssm_scan_bwd_cuda(*xs, ckpt, dy),
+                     reps=5, inner=5)
+    # the plain pair is a loop of small launches a step: timed between
+    # events, not captured
+    plain_ms = time_events_ms(lambda: ref.ssm_scan_fwd_ckpt(*xs), reps=2)
+    plain_bwd_ms = time_events_ms(lambda: ref.ssm_scan_bwd(*xs, ckpt, dy),
+                                  reps=2)
+    # bounds: each input read once, each output written once (K5 writes y
+    # and the chunk-start states, K5-bwd reads them); per (b, t, channel,
+    # n) one exponential, and 7 float32 operations forward (the decay's
+    # argument, the state update's three, the input's two, y's product and
+    # sum), 22 backward (the states recomputed, then the adjoint)
+    elems = B * S * Din * N
+    size = torch.finfo(dtype).bits // 8
+    small = 4 * (Din * N + Din)  # A and D (and their gradients)
+    ck_bytes = 4 * ckpt.numel()
+    fbytes = size * 3 * B * S * Din + 4 * 2 * B * S * N + small + ck_bytes
+    bms, by = ssm_bound_ms(fbytes, 7.0 * elems, elems)
+    bbytes = (size * 5 * B * S * Din + 4 * 4 * B * S * N + 2 * small
+              + ck_bytes)
+    bbms, bby = ssm_bound_ms(bbytes, 22.0 * elems, elems)
+    shape = f"B={B} S={S} Din={Din} N={N}"
+    log(f"[17 K5] {name} {str(dtype)[6:]} {shape}: max_abs_err={err_fwd:.3g} "
+        f"(tol {TOL[dtype]:g} abs+rel, y and checkpoints) deterministic=True "
+        f"ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms=None "
+        f"bound_ms={bms:.5f} ({by}: {fbytes / 1e6:.1f} MB, {elems / 1e6:.1f} M "
+        f"exponentials at {SFU_EXP_PER_S / 1e12:.2f} T/s, {7 * elems / 1e9:.2f} "
+        f"GFLOP float32)")
+    log(f"[17 K5-bwd] {name} {str(dtype)[6:]} {shape}: max_err_of_max="
+        f"{err:.3g} (tol {SSM_GRAD_TOL[dtype]:g} of each gradient's max, dx "
+        f"ddt dA dB dC dD) deterministic=True ms={bwd_ms:.4f} plain_ms="
+        f"{plain_bwd_ms:.3f} library_ms=None bound_ms={bbms:.5f} ({bby}: "
+        f"{bbytes / 1e6:.1f} MB, {elems / 1e6:.1f} M exponentials, "
+        f"{22 * elems / 1e9:.2f} GFLOP float32)")
+    return (dict(max_abs_err=err_fwd, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                 bound_by=by, library_ms=None),
+            dict(max_abs_err=err, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                 bound_ms=bbms, bound_by=bby, library_ms=None))
+
+
+def phase_k5(gen, cfg):
+    """K5 and K5-bwd at hymba's training shape (the main path's batch, and
+    batch 1) and at a ragged S and Din (both dtypes)."""
+    d_in, N = recurrent.ssm_dims(cfg)[:2]
+    main = None
+    for dtype in (torch.bfloat16, torch.float32):
+        r = _k5_case("train-shape", dtype, HY_BATCH, HY_SEQ, d_in, N, gen)
+        main = main or r
+        if dtype == torch.bfloat16:
+            _k5_case("batch-1", dtype, 1, HY_SEQ, d_in, N, gen)
+        _k5_case("ragged", dtype, 2, 1000, 1000, N, gen)
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_k1_hymba(gen, cfg) -> None:
+    """K1 with its LSE and K1-bwd at hymba's attention shapes: global and
+    with its 2048 window in a 4096 sequence."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in (0, cfg.sliding_window):
+            _k1_train_case(f"hymba window={window}", dtype, 1, HY_SEQ,
+                           HY_SEQ, cfg.num_heads, cfg.num_kv_heads,
+                           cfg.head_dim, window, 0, gen, phase=18)
+            torch.cuda.empty_cache()
+
+
+HYMBA_KINDS = dict(K1_KINDS, **{
+    "K5": ("ssm_fwd_kernel",),
+    "K5-bwd": ("ssm_bwd_kernel", "sum_partials_kernel")})
+
+
+def phase_hymba_train(cfg):
+    """The hybrid training main path: full width, full depth, seq 4096."""
+    model = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    plan = Plan(remat="none")
+    t0 = time.perf_counter()
+    state = init_train_state(model, 0, opt, plan)
+    torch.cuda.synchronize()
+    step = make_train_step(model, opt, plan)
+    stream = make_stream(cfg, ShapeConfig("train_4k-cut", HY_SEQ, HY_BATCH,
+                                          "train"))
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()}
+               for i in range(HY_STEPS + 1)]
+    n_global = len(cfg.global_attn_layers)
+    log(f"[19 hymba train] {cfg.name} full width, {cfg.num_layers} layers "
+        f"({n_global} global, {cfg.num_layers - n_global} with a "
+        f"{cfg.sliding_window} window), d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, SSM "
+        f"d_inner {recurrent.ssm_dims(cfg)[0]} state {cfg.ssm_state}, "
+        f"{cfg.param_count() / 1e9:.3f} B params (float32 master, AdamW "
+        f"float32 moments, {cfg.dtype} compute), seq {HY_SEQ}, batch "
+        f"{HY_BATCH} (train_4k's 256 cut to {HY_BATCH}), remat "
+        f"{plan.remat}; init {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"ssm_scan": (ssm_scan, "launches"),
+                "ssm_scan_bwd": (ssm_scan, "bwd_launches"),
+                "flash_attention": (flash_attention, "launches"),
+                "flash_attention_bwd": (flash_attention_bwd, "launches")}
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    losses, walls = [], []
+    for i in range(HY_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        losses.append(float(metrics["loss"]))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    want = cfg.num_layers * HY_STEPS
+    assert launches == dict.fromkeys(counters, want), (launches, want)
+    assert all(np.isfinite(losses)), losses
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(walls[1:])
+    log(f"[19 hymba train] losses={[round(x, 4) for x in losses]} "
+        f"step_wall_s={[round(x, 3) for x in walls]} (the first includes "
+        f"set-up) steady_step_s={steady:.3f} tok_per_s="
+        f"{HY_BATCH * HY_SEQ / steady:.1f} max_memory_allocated_GB="
+        f"{peak / 1e9:.2f} launches={launches} (want {want} each)")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[HY_STEPS])
+        float(metrics["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    split, by_name = _device_split(prof, HYMBA_KINDS)
+    del prof
+    busy = sum(split.values())
+    assert busy > 0 and split["K5"] > 0 and split["K5-bwd"] > 0, split
+    log(f"[19 hymba profile] one step: wall_ms={wall:.1f} device_busy_ms="
+        f"{busy:.1f} idle_share={max(0.0, 1 - busy / wall):.3f} (against the "
+        f"unprofiled steady step: {max(0.0, 1 - busy / (steady * 1e3)):.3f}) "
+        + " ".join(f"{k.replace(' ', '_')}_ms={v:.1f} ({v / busy:.1%})"
+                   for k, v in split.items()))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[19 hymba profile]   {ms:9.1f} ms  {name}")
+    return launches
+
+
+def _plain_ssm(x, dt, A, Bmat, Cmat, D, **_):
+    """``ops.ssm_scan`` through autodiff of the sequential oracle."""
+    return ref.ssm_scan(x, dt, A, Bmat, Cmat, D)[0]
+
+
+def phase_hymba_plain(cfg2) -> None:
+    """One step's loss, gradient norm and every gradient leaf at full
+    width (the 2-layer cut), seq 4096, kernel path vs plain path, in
+    float32 compute, with the SSM parameters moved off their init."""
+    cfg2 = dataclasses.replace(cfg2, dtype="float32")
+    model = build_model(cfg2)
+    params = model.init(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    blocks = params["blocks"]
+    for name, mean, std in HY_MOVED:
+        blocks[name] = mean + std * torch.randn(
+            blocks[name].shape, generator=gen, device="cuda")
+    stream = make_stream(cfg2, ShapeConfig("t", HY_SEQ, 1, "train"))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in stream.batch_at(0).items()}
+    names = [k for k, _ in flatten(params)]
+
+    def loss_and_grads():
+        flat = [p.requires_grad_() for p in leaves(params)]
+        loss, _ = model.loss(params, batch, remat="none")
+        grads = torch.autograd.grad(loss, flat)
+        return float(loss.detach()), grads
+
+    t0 = time.perf_counter()
+    kern, kgrads = loss_and_grads()
+    t1 = time.perf_counter()
+    n0 = (ssm_scan.launches, ssm_scan.bwd_launches, flash_attention.launches,
+          flash_attention_bwd.launches)
+    with mock.patch.object(ops, "ssm_scan", _plain_ssm), \
+            mock.patch.object(ops, "flash_attention", ref.attention):
+        plain, pgrads = loss_and_grads()
+    t2 = time.perf_counter()
+    assert (ssm_scan.launches, ssm_scan.bwd_launches,
+            flash_attention.launches, flash_attention_bwd.launches) == n0
+    knorm = float(global_norm(dict(enumerate(kgrads))))
+    pnorm = float(global_norm(dict(enumerate(pgrads))))
+    rel_loss = abs(kern - plain) / abs(plain)
+    rel_norm = abs(knorm - pnorm) / abs(pnorm)
+    leaf_err = {n: float((g - w).abs().max() / w.abs().max())
+                for n, g, w in zip(names, kgrads, pgrads)}
+    worst = max(leaf_err, key=leaf_err.get)
+    ssm_worst = max(v for k, v in leaf_err.items() if "/ssm_" in k)
+    log(f"[20 hymba kernel vs plain] {cfg2.name} float32 compute, seq "
+        f"{HY_SEQ}: loss {kern:.6f} vs {plain:.6f} (rel {rel_loss:.3g}, "
+        f"bound {LOSS_REL_BOUND}); grad_norm {knorm:.6f} vs {pnorm:.6f} "
+        f"(rel {rel_norm:.3g}, bound {GNORM_REL_BOUND}); worst gradient "
+        f"leaf {worst} {leaf_err[worst]:.3g} of its max (SSM leaves "
+        f"{ssm_worst:.3g}, bound {HY_LEAF_BOUND}); {t1 - t0:.1f} s vs "
+        f"{t2 - t1:.1f} s")
+    assert rel_loss <= LOSS_REL_BOUND and rel_norm <= GNORM_REL_BOUND
+    assert leaf_err[worst] <= HY_LEAF_BOUND, leaf_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1250,6 +1534,20 @@ def main() -> int:
                                      name=xcfg.name + "-1group"), 16,
                  "full width, depth cut to one group of 4 blocks")
 
+    hcfg = get_config("hymba-1.5b")
+    k5, k5_bwd = phase_k5(gen, hcfg)
+    phase_k1_hymba(gen, hcfg)
+    hy_launches = phase_hymba_train(hcfg)
+    torch.cuda.empty_cache()
+    # depth cut to 2 layers, layer 0 global and layer 1 windowed: the plain
+    # scan is thousands of launches a layer
+    cut = dataclasses.replace(hcfg, num_layers=2, global_attn_layers=(0,),
+                              name=hcfg.name + "-2layer")
+    phase_hymba_plain(cut)
+    torch.cuda.empty_cache()
+    phase_resume(cut, 21, "full width, depth cut to 2 layers: 0 global, 1 a "
+                 f"{cut.sliding_window} window", seq=HY_SEQ, batch=1)
+
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1275,6 +1573,14 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/mlstm_scan_bwd.cu",
              replaces="src/repro/kernels/ref.py:207",
              launches=xl_launches["mlstm_scan_bwd"], **k6_bwd),
+        dict(name="ssm_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+             replaces="src/repro/kernels/ssm_scan.py:63",
+             launches=hy_launches["ssm_scan"], **k5),
+        dict(name="ssm_scan_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+             replaces="src/repro/kernels/ssm_vjp.py:79",
+             launches=hy_launches["ssm_scan_bwd"], **k5_bwd),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -39,6 +39,7 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
     tree, path by path (:func:`repro_torch.models.lm.param_shapes`):
     ``embed``, ``final_g`` (and ``lm_head``/``final_b`` where the config
     has them) and ``blocks/...`` with the leading layer axis — for the
+    hybrid also every ``blocks/ssm_*`` and ``blocks/fuse_*`` leaf, for the
     xLSTM the nested ``blocks/mlstm/...`` and ``blocks/slstm/...``.
     ``dtype`` casts every tensor (default: keep each array's dtype).
     Raises on a missing or unexpected key, or a shape that does not fit

@@ -1,16 +1,16 @@
 """Architecture registry of the port: the dense decoders that share the
-ported dense branch of ``models/lm.py``, and xlstm-125m (the xLSTM
-branch, train path only).
+ported dense branch of ``models/lm.py``, xlstm-125m (the xLSTM branch)
+and hymba-1.5b (the hybrid branch), the last two for their train paths
+only.
 
 ``get_config`` accepts the exact id or the short alias, as the reference
-registry does.  Families the port does not build yet (MoE, audio,
-hybrid, VLM) raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+registry does.  Families the port does not build yet (MoE, audio, VLM)
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (glm4_9b, internlm2_20b, qwen15_4b, qwen2_15b,
-                                 xlstm_125m)
+from repro_torch.configs import (glm4_9b, hymba_15b, internlm2_20b, qwen15_4b,
+                                 qwen2_15b, xlstm_125m)
 from repro_torch.configs.base import ModelConfig, ShapeConfig, reduced
 
 ARCHS = {
@@ -19,6 +19,7 @@ ARCHS = {
     "glm4-9b": glm4_9b.CONFIG,
     "internlm2-20b": internlm2_20b.CONFIG,
     "xlstm-125m": xlstm_125m.CONFIG,
+    "hymba-1.5b": hymba_15b.CONFIG,
 }
 
 _ALIASES = {
@@ -27,6 +28,7 @@ _ALIASES = {
     "glm4": "glm4-9b",
     "internlm2": "internlm2-20b",
     "xlstm": "xlstm-125m",
+    "hymba": "hymba-1.5b",
 }
 
 # archs of the reference registry (ids and aliases) that the port does
@@ -37,8 +39,6 @@ _NOT_PORTED = {
     "qwen3-moe-235b-a22b": _MOE, "qwen3-moe": _MOE,
     "whisper-large-v3": "ROADMAP queue 1, item 11 (encoder-decoder)",
     "whisper": "ROADMAP queue 1, item 11 (encoder-decoder)",
-    "hymba-1.5b": "ROADMAP queue 1, item 11 (hybrid family, kernel K5)",
-    "hymba": "ROADMAP queue 1, item 11 (hybrid family, kernel K5)",
     "phi-3-vision-4.2b": "ROADMAP queue 1, item 11 (VLM family)",
     "phi3-vision": "ROADMAP queue 1, item 11 (VLM family)",
 }

@@ -73,11 +73,12 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     def param_count(self) -> int:
-        """Parameters of the families the port builds: a dense decoder
-        (embedding, blocks, final norm, untied head) or the xLSTM
-        (``family="ssm"``), by the reference's formulas — for the xLSTM its
-        per-layer average, rounded down, times the layers, as the
-        reference reports it."""
+        """Parameters of the families the port builds, by the reference's
+        formulas: a dense decoder (embedding, blocks, final norm, untied
+        head), the hybrid (each block's attention, mamba heads, MLP, norms
+        and one fuse vector, as the reference counts them), or the xLSTM
+        (``family="ssm"``) — for the xLSTM its per-layer average, rounded
+        down, times the layers, as the reference reports it."""
         d, v = self.d_model, self.vocab_size
         head = 0 if self.tie_embeddings else v * d
         final = d * (2 if self.norm == "layernorm" else 1)
@@ -91,12 +92,36 @@ class ModelConfig:
                      + n_s * self._slstm_block_params())
             return (v * d + head + self.num_layers
                     * (total // self.num_layers) + final)
-        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-        if self.qkv_bias:
-            attn += self.q_dim + 2 * self.kv_dim
-        mlp = (3 if self.act == "silu" else 2) * d * self.d_ff
         norms = 2 * d * (2 if self.norm == "layernorm" else 1)
-        return v * d + head + self.num_layers * (attn + mlp + norms) + final
+        block = self._attn_params() + self._mlp_params() + norms
+        if self.family == "hybrid":
+            block += self._ssm_params() + d
+        return v * d + head + self.num_layers * block + final
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        p = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.qkv_bias:
+            p += self.q_dim + 2 * self.kv_dim
+        return p
+
+    def _mlp_params(self) -> int:
+        if self.d_ff == 0:
+            return 0
+        return (3 if self.act == "silu" else 2) * self.d_model * self.d_ff
+
+    def _ssm_params(self) -> int:
+        """Mamba-style heads of a hybrid block, as the reference counts
+        them (its B, C and dt projections simplified to ``2 N + 1``
+        vectors a channel; the tree's low-rank dt has more)."""
+        d = self.d_model
+        d_in = self.ssm_expand * d
+        return (d * 2 * d_in  # in_proj (x and z branches)
+                + d_in * self.ssm_conv  # depthwise conv
+                + d_in * (2 * self.ssm_state + 1)  # B, C, dt projections
+                + d_in * self.ssm_state  # A (log)
+                + d_in  # D skip
+                + d_in * d)  # out_proj
 
     def _mlstm_block_params(self) -> int:
         d, h = self.d_model, self.num_heads

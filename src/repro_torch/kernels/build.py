@@ -57,6 +57,15 @@ _SIGNATURES = {
     "repro_mlstm_scan_bwd": [_P] * 18 + [_I] * 5 + [_F, _I, _P],
     # D, DV -> bytes of shared memory K6-bwd's larger walk needs
     "repro_mlstm_scan_bwd_smem": [_I, _I],
+    # x, dt, A, B, C, D, y, ckpt (nullable), B, S, Din, N, dtype, stream
+    "repro_ssm_scan": [_P] * 8 + [_I] * 5 + [_P],
+    # () -> the steps between K5's checkpoints
+    "repro_ssm_scan_chunk": [],
+    # x, dt, A, B, C, D, ckpt, dy, dx, ddt, part_dB, part_dC, part_dA,
+    # part_dD, dB, dC, dA, dD, B, S, Din, N, dtype, stream
+    "repro_ssm_scan_bwd": [_P] * 18 + [_I] * 5 + [_P],
+    # () -> channels a block of K5 and K5-bwd covers
+    "repro_ssm_scan_channels_per_block": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -23,7 +23,10 @@ transposing or padding happens here.
   * :func:`mlstm_scan` — the xLSTM matrix memory of the train path (K6,
     and K6-bwd under autograd), q/k ``(B, H, S, D)``, v ``(B, H, S, DV)``,
     gates ``(B, H, S)``; :func:`mlstm_step` — one recurrent step, the
-    sequential oracle, as in the reference.
+    sequential oracle, as in the reference;
+  * :func:`ssm_scan` — the selective scan of the hybrid's train path (K5,
+    and K5-bwd under autograd), x/dt ``(B, S, Din)``, A ``(Din, N)``,
+    B/C ``(B, S, N)``, D ``(Din,)``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 
 from repro_torch.kernels import mlstm_scan as _mlstm
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (
     paged_attention as paged_decode_attention)
@@ -39,7 +43,7 @@ from repro_torch.kernels.paged_attention_mq import (
 
 __all__ = ["decode_attention", "decode_attention_mq", "flash_attention",
            "mlstm_scan", "mlstm_step", "paged_decode_attention",
-           "paged_decode_attention_mq"]
+           "paged_decode_attention_mq", "ssm_scan"]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -84,3 +88,18 @@ def mlstm_step(q, k, v, i_pre, f_pre, state):
         initial=state,
     )
     return h[:, :, 0, :], state
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor, *,
+             block_d: int = 256, chunk: int = 128) -> torch.Tensor:
+    """The selective scan of the train path (K5, and K5-bwd when autograd
+    records): x, dt ``(B, S, Din)``, A ``(Din, N)``, B, C ``(B, S, N)``,
+    D ``(Din,)`` -> y ``(B, S, Din)`` in x's dtype.  ``block_d`` and
+    ``chunk`` keep the reference's signature, where they are the TPU
+    kernel's channel block and sequence block; the port's kernels take 16
+    channels a block, and they and their plain versions checkpoint the
+    state every 32 steps, whatever those are (the scan is exact for any
+    blocking, up to rounding)."""
+    del block_d, chunk
+    return _ssm.ssm_scan(x, dt, A, Bmat, Cmat, D)

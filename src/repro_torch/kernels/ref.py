@@ -11,10 +11,15 @@ kernel against them on the card.
 the plain counterparts of ``_fwd``/``_bwd_vjp`` in the reference's
 ``kernels/flash_xla.py``: the forward also returns the per-row
 log-sum-exp, and the backward recomputes the probabilities from it.
+
+The mLSTM (K6, K6-bwd) and the selective scan (K5, K5-bwd) follow with
+their sequential oracles; :func:`ssm_scan_fwd_ckpt` and
+:func:`ssm_scan_bwd` are the counterparts of ``_fwd_full``/``_bwd_vjp``
+in the reference's ``kernels/ssm_vjp.py``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -425,3 +430,144 @@ def mlstm_scan_bwd(
     return ((dq[:, :, :S] * scale).to(q.dtype), dk[:, :, :S].to(k.dtype),
             dv[:, :, :S].to(v.dtype), kdk[..., :S].to(i_pre.dtype),
             d_f.to(f_pre.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Mamba-style selective scan: the sequential oracle, the chunked scan, and
+# K5's and K5-bwd's plain versions (the checkpointed adjoint of the
+# reference's ``kernels/ssm_vjp.py``).  Layout as the reference's: x, dt
+# ``(B, S, Din)``, A ``(Din, N)``, B and C ``(B, S, N)``, D ``(Din,)``.
+# ---------------------------------------------------------------------------
+SSM_CHUNK = 32  # the checkpoint interval of the CUDA kernels (csrc/ssm_scan.cu)
+
+
+def ssm_scan(
+    x: torch.Tensor,     # (B, S, Din)
+    dt: torch.Tensor,    # (B, S, Din), already softplus'd, > 0
+    A: torch.Tensor,     # (Din, N), negative
+    Bmat: torch.Tensor,  # (B, S, N)
+    Cmat: torch.Tensor,  # (B, S, N)
+    D: torch.Tensor,     # (Din,)
+    initial: Optional[torch.Tensor] = None,  # (B, Din, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``y_t = C_t . h_t + D x_t`` with ``h_t = exp(dt_t A) h_{t-1} + dt_t
+    B_t x_t``, one step at a time, as the reference's ``ref.ssm_scan``.
+    Returns y ``(B, S, Din)`` in x's dtype and the final float32 state
+    ``(B, Din, N)``."""
+    Bsz, S, Din = x.shape
+    xf, dtf = x.float(), dt.float()
+    Af, Bf, Cf = A.float(), Bmat.float(), Cmat.float()
+    h = (torch.zeros((Bsz, Din, A.shape[-1]), dtype=torch.float32,
+                     device=x.device)
+         if initial is None else initial.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t, :, None] * Af)
+        h = decay * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + xf * D.float()
+    return y.to(x.dtype), h
+
+
+def _ssm_padded(chunk: int, *xs: torch.Tensor) -> List[torch.Tensor]:
+    """Each of ``xs`` ((B, S, W) tensors) in float32, zero-padded along S to
+    a multiple of ``chunk``: a padded step has dt = 0, so it keeps the
+    state (decay 1, no input) and adds nothing to any gradient."""
+    pad = -xs[0].shape[1] % chunk
+    return [F.pad(x.float(), (0, 0, 0, pad)) for x in xs]
+
+
+def _ssm_chunk_states(h, xc, dtc, bc, Af):
+    """The states of one chunk from its initial state h: ``(decay (B, L,
+    Din, N), states (B, L + 1, Din, N))`` with ``states[:, t + 1] = h_t``
+    and ``states[:, 0]`` the initial state."""
+    a = torch.exp(dtc[..., None] * Af)
+    u = (dtc * xc)[..., None] * bc[:, :, None, :]
+    hs = [h]
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + u[:, t]
+        hs.append(h)
+    return a, torch.stack(hs, dim=1)
+
+
+def _ssm_chunks(x, dt, A, Bmat, Cmat, chunk):
+    """Walk the chunks forward: ``(h_t . C_t (B, S, Din) float32, the state
+    at each chunk start (nc, B, Din, N), the final state)``."""
+    Bsz, S, Din = x.shape
+    xf, dtf, bf, cf = _ssm_padded(chunk, x, dt, Bmat, Cmat)
+    Af = A.float()
+    h = torch.zeros((Bsz, Din, A.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys, ckpts = [], []
+    for t0 in range(0, xf.shape[1], chunk):
+        sl = slice(t0, t0 + chunk)
+        ckpts.append(h)
+        _, hs = _ssm_chunk_states(h, xf[:, sl], dtf[:, sl], bf[:, sl], Af)
+        ys.append((hs[:, 1:] * cf[:, sl, None, :]).sum(-1))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1)[:, :S], torch.stack(ckpts), h
+
+
+def ssm_scan_chunked(x, dt, A, Bmat, Cmat, D, chunk: int = 16
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``ref.ssm_scan_chunked``: the oracle's math with
+    the state carried once per chunk.  Returns ``(y in x's dtype, final
+    float32 state)``."""
+    ys, _, h = _ssm_chunks(x, dt, A, Bmat, Cmat, chunk)
+    return (ys + x.float() * D.float()).to(x.dtype), h
+
+
+def ssm_scan_fwd_ckpt(x, dt, A, Bmat, Cmat, D, chunk: int = SSM_CHUNK
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's plain version, the reference's ``ssm_vjp._fwd_full``: y in x's
+    dtype (``D x`` added in float32 before the cast, as the oracle does)
+    and the float32 state at the start of each ``chunk``-step chunk,
+    ``(ceil(S / chunk), B, Din, N)`` (the first is zero)."""
+    ys, ckpts, _ = _ssm_chunks(x, dt, A, Bmat, Cmat, chunk)
+    return (ys + x.float() * D.float()).to(x.dtype), ckpts
+
+
+def ssm_scan_bwd(x, dt, A, Bmat, Cmat, D, ckpts: torch.Tensor,
+                 dy: torch.Tensor, chunk: int = SSM_CHUNK
+                 ) -> Tuple[torch.Tensor, ...]:
+    """K5-bwd's plain version, the reference's ``ssm_vjp._bwd_vjp``: the
+    gradients ``(dx, ddt, dA, dB, dC, dD)`` of :func:`ssm_scan_fwd_ckpt`'s
+    y, each in its input's dtype, from the inputs, the checkpoints and the
+    incoming ``dy``.  The chunks are walked in reverse; each recomputes its
+    states forward from its checkpoint (never inverting the decay, which
+    can be tiny) and runs the adjoint
+    ``dh_t = dy_t C_t + a_{t+1} dh_{t+1}``, ``da_t = dh_t h_{t-1}``."""
+    Bsz, S, Din = x.shape
+    xf, dtf, bf, cf, dyf = _ssm_padded(chunk, x, dt, Bmat, Cmat, dy)
+    Af = A.float()
+    dh = torch.zeros_like(ckpts[0])
+    dA = torch.zeros_like(Af)
+    dxs, ddts, dBs, dCs = [], [], [], []
+    for k in reversed(range(ckpts.shape[0])):
+        sl = slice(k * chunk, (k + 1) * chunk)
+        xc, dtc, bc, cc, dyc = (z[:, sl] for z in (xf, dtf, bf, cf, dyf))
+        a, hs = _ssm_chunk_states(ckpts[k], xc, dtc, bc, Af)
+        g = dyc[..., None] * cc[:, :, None, :]  # dy_t C_t
+        dhs = [None] * a.shape[1]
+        for t in reversed(range(a.shape[1])):
+            dh = dh + g[:, t]
+            dhs[t] = dh
+            dh = a[:, t] * dh
+        dhs = torch.stack(dhs, dim=1)  # (B, L, Din, N)
+        da = dhs * hs[:, :-1]
+        ddtx = (dhs * bc[:, :, None, :]).sum(-1)
+        dCs.append((dyc[..., None] * hs[:, 1:]).sum(2))
+        dBs.append((dhs * (dtc * xc)[..., None]).sum(2))
+        dA = dA + (da * dtc[..., None] * a).sum((0, 1))
+        dxs.append(ddtx * dtc)
+        ddts.append((da * Af * a).sum(-1) + ddtx * xc)
+
+    def whole(parts):
+        return torch.cat(parts[::-1], dim=1)[:, :S]
+
+    dyx = dyf[:, :S]
+    dx = whole(dxs) + dyx * D.float()
+    dD = (dyx * xf[:, :S]).sum((0, 1))
+    return (dx.to(x.dtype), whole(ddts).to(dt.dtype), dA.to(A.dtype),
+            whole(dBs).to(Bmat.dtype), whole(dCs).to(Cmat.dtype),
+            dD.to(D.dtype))

@@ -12,6 +12,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
         --full --seq 4096 --batch 8 --steps 4 --device cuda
 
+    # hymba-1.5b at full width on one H100 (SSM heads through K5 and
+    # K5-bwd, global and sliding-window attention through K1 and K1-bwd)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+        --full --seq 4096 --batch 1 --steps 4 --remat none
+
     # on the CPU (the plain versions of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6
 

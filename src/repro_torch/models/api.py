@@ -1,8 +1,8 @@
 """Uniform model API: ``build_model(cfg, device) -> Model``.
 
 Counterpart of the reference package's ``models/api.py`` for the train
-loss (dense decoders and the xLSTM) and the serving entry points (dense
-decoders).  A :class:`Model` knows its config
+loss (dense decoders, the hybrid and the xLSTM) and the serving entry
+points (dense decoders).  A :class:`Model` knows its config
 and its device; it holds no weights — parameters are passed to each
 call, as in the reference, so bridged weights and the port's own init go
 through the same calls.
@@ -58,7 +58,7 @@ class Model:
         per-use ``.astype(dtype)`` gives), norm gains kept in float32, and
         the stacked blocks split into per-layer dicts.  Idempotent: params
         already prepared come back as they are.  Dense decoders only: the
-        xLSTM's serving is not ported."""
+        hybrid's and the xLSTM's serving are not ported."""
         lm.require_ported(self.cfg, serving=True)
         dt = getattr(torch, self.cfg.dtype)
 

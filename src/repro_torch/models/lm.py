@@ -1,13 +1,16 @@
-"""Decoder-only language model: the dense branch and the xLSTM branch.
+"""Decoder-only language model: the dense, hybrid and xLSTM branches.
 
 Counterpart of the reference package's ``models/lm.py`` for
 ``family="dense"`` — init, embedding and tied/untied head, the gated MLP,
 the train forward and the next-token loss, the dense and paged decode
 caches, ragged prefill, and the decode and speculative verify steps on
-both caches — and, for ``family="ssm"`` (the xLSTM), its train path:
-init, the grouped block layout and the train forward.  The reference's
-``scan`` over stacked layers is a Python loop here.  The xLSTM's
-serving paths (prefill, caches, decode) and the other families raise
+both caches — and the train paths of ``family="hybrid"`` (hymba: each
+block's attention, global or sliding-window by layer, and its SSM heads
+side by side, fused) and ``family="ssm"`` (the xLSTM: the grouped block
+layout).  The reference's ``scan`` over stacked layers is a Python loop
+here, so the hybrid's per-layer global/window flag is a static ``if``,
+not a ``cond``.  The serving paths (prefill, caches, decode) of the
+hybrid and the xLSTM, and the other families, raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 
 The train path (``forward_train``/``loss_fn``) has no counterpart of the
@@ -21,7 +24,8 @@ reference, whose ``_xlstm_forward`` checkpoints with no policy for both.
 
 Parameters keep the reference's tree and shapes (:func:`param_shapes`):
 ``embed``, ``final_g``, and ``blocks`` with a leading layer axis on every
-entry — for the xLSTM, ``blocks/mlstm`` and ``blocks/slstm``.  Dense
+entry — for the hybrid also ``blocks/ssm_*`` and ``blocks/fuse_*``, for
+the xLSTM ``blocks/mlstm`` and ``blocks/slstm``.  Dense
 ``blocks`` may also be a list of per-layer dicts (what
 :meth:`repro_torch.models.api.Model.serving_params` prepares once, so a
 decode step does not re-slice the stacked tensors).
@@ -46,26 +50,35 @@ from repro_torch.tree import unflatten
 Params = Dict[str, Any]
 
 XLSTM_SERVING = "ROADMAP queue 1, xLSTM serving"
+HYMBA_SERVING = "ROADMAP queue 1, hymba serving"
+_SERVING_LATER = {
+    "ssm": (XLSTM_SERVING, "prefill through K6 with a final state, the "
+            "recurrent decode, the engine's exact-length admission groups"),
+    "hybrid": (HYMBA_SERVING, "the hybrid prefill and decode blocks, the "
+               "ring-buffer window cache, the SSM decode state, the "
+               "engine's exact-length admission groups"),
+}
 
 
 def require_ported(cfg: ModelConfig, *, serving: bool = False) -> None:
     """Raise ``NotImplementedError`` for what the port does not build:
-    families other than the dense decoder and the xLSTM, and, with
-    ``serving``, the xLSTM's serving paths (its train path is ported)."""
+    families other than the dense decoder, the hybrid and the xLSTM, and,
+    with ``serving``, the hybrid's and the xLSTM's serving paths (their
+    train paths are ported)."""
     plain = not cfg.is_encoder_decoder and not cfg.num_experts
-    if cfg.family == "ssm" and plain:
+    if cfg.family in _SERVING_LATER and plain:
         if serving:
+            item, what = _SERVING_LATER[cfg.family]
             raise NotImplementedError(
-                f"serving {cfg.name!r} (family 'ssm') is not ported to "
-                f"PyTorch yet, only its train path is: {XLSTM_SERVING} "
-                f"(prefill through K6 with a final state, the recurrent "
-                f"decode, the engine's exact-length admission groups)")
+                f"serving {cfg.name!r} (family {cfg.family!r}) is not "
+                f"ported to PyTorch yet, only its train path is: {item} "
+                f"({what})")
         return
     if cfg.family != "dense" or not plain:
         raise NotImplementedError(
             f"family {cfg.family!r} of {cfg.name!r} is not ported to "
-            f"PyTorch yet: only the dense decoder and the xLSTM are "
-            f"(ROADMAP queue 1, item 11 lists the other families)")
+            f"PyTorch yet: only the dense decoder, the hybrid and the xLSTM "
+            f"are (ROADMAP queue 1, item 11 lists the other families)")
 
 
 # ===========================================================================
@@ -111,6 +124,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
             blocks.update(attn_bq=((L, H, Dh), "zeros"),
                           attn_bk=((L, KH, Dh), "zeros"),
                           attn_bv=((L, KH, Dh), "zeros"))
+        if cfg.family == "hybrid":
+            blocks.update(rec.ssm_shapes(cfg, L))
+            blocks.update(fuse_attn=((L, D), "ones"),
+                          fuse_ssm=((L, D), "ones"))
         if F > 0:
             if cfg.act == "silu":
                 blocks["mlp_wg"] = ((L, D, F), "normal")
@@ -183,11 +200,26 @@ def _mlp_residual(p, x, cfg):
 # Train
 # ===========================================================================
 def _block_train(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                 x: torch.Tensor) -> torch.Tensor:
-    """One dense decoder block of the train path (its MoE aux loss is 0)."""
+                 x: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """One decoder block of the train path (its MoE aux loss is 0).  The
+    hybrid's block runs attention (``window`` 0 = global) and the SSM
+    heads on the same normed input and adds their fused mean."""
     h = apply_norm(p, "norm1", x, cfg.norm)
-    x = x + attend_train(p, h, cfg, causal=True)
-    return _mlp_residual(p, x, cfg)
+    mix = attend_train(p, h, cfg, causal=True, window=window)
+    if cfg.family == "hybrid":
+        dt = x.dtype
+        mix = 0.5 * (mix * p["fuse_attn"].to(dt)
+                     + rec.apply_ssm(p, h, cfg) * p["fuse_ssm"].to(dt))
+    return _mlp_residual(p, x + mix, cfg)
+
+
+def layer_window(cfg: ModelConfig, i: int) -> int:
+    """Layer ``i``'s attention window: 0 (global) for the hybrid's global
+    layers and for every other decoder, else ``cfg.sliding_window`` (the
+    reference's ``_layer_flags``)."""
+    if cfg.family == "hybrid" and i not in cfg.global_attn_layers:
+        return cfg.sliding_window
+    return 0
 
 
 def _scan_blocks(cfg: ModelConfig, blocks, x: torch.Tensor,
@@ -198,11 +230,13 @@ def _scan_blocks(cfg: ModelConfig, blocks, x: torch.Tensor,
             "ROADMAP queue 1, remat dots")
     if remat not in ("none", "full"):
         raise ValueError(f"remat must be none, full or dots; got {remat!r}")
-    for p in layers(cfg, blocks):
+    for i, p in enumerate(layers(cfg, blocks)):
+        window = layer_window(cfg, i)
         if remat == "full":
-            x = checkpoint(_block_train, cfg, p, x, use_reentrant=False)
+            x = checkpoint(_block_train, cfg, p, x, window,
+                           use_reentrant=False)
         else:
-            x = _block_train(cfg, p, x)
+            x = _block_train(cfg, p, x, window)
     return x
 
 
@@ -256,8 +290,8 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in float32 over ``batch["tokens"]`` plus the
     aux loss; returns ``(loss, {"loss", "ce", "aux", "tokens"})`` as the
-    reference's ``loss_fn`` does (every position counts: the dense and
-    xLSTM families have no image-token mask)."""
+    reference's ``loss_fn`` does (every position counts: the dense, hybrid
+    and xLSTM families have no image-token mask)."""
     tokens = batch["tokens"]
     logits, aux = forward_train(params, cfg, tokens, remat)
     logits = logits[:, :-1].float()

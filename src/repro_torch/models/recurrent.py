@@ -1,20 +1,22 @@
-"""Recurrent blocks of the xLSTM: the mLSTM and sLSTM halves.
+"""Recurrent blocks: the xLSTM's mLSTM and sLSTM halves and the hybrid's
+Mamba-style SSM heads.
 
-Counterpart of the mLSTM and sLSTM parts of the reference package's
-``models/recurrent.py`` (the SSM heads come with the hybrid family),
-for the train path: the parameters' names and shapes
-(:func:`mlstm_shapes`, :func:`slstm_shapes`), the projections, the
-blocks' forward and the sLSTM's initial state, at the reference's dtype
-at each operation.  The mLSTM's decode state comes with the xLSTM's
-serving (ROADMAP queue 1, xLSTM serving).
+Counterpart of the reference package's ``models/recurrent.py`` for the
+train path: the parameters' names and shapes (:func:`mlstm_shapes`,
+:func:`slstm_shapes`, :func:`ssm_shapes`), the projections, the blocks'
+forward and the sLSTM's initial state, at the reference's dtype at each
+operation.  The decode states (the mLSTM's, the SSM's
+``ssm_state_spec``/``decode_ssm``) come with the xLSTM's and hymba's
+serving (ROADMAP queue 1).
 
 The mLSTM's matrix memory runs through ``ops.mlstm_scan`` (K6, and
-K6-bwd under autograd).  The sLSTM is a loop over time in plain PyTorch,
-as the reference's ``jax.lax.scan`` is no kernel; its input projection
-``x_t . w_gates`` does not depend on the state, so it is one float32
-product over all steps before the loop (:func:`slstm_loop`), and each
-step adds its recurrent part with one batched product (``baddbmm``): the
-same float32 sums in another order.
+K6-bwd under autograd), the SSM's selective scan through
+``ops.ssm_scan`` (K5, and K5-bwd under autograd).  The sLSTM is a loop
+over time in plain PyTorch, as the reference's ``jax.lax.scan`` is no
+kernel; its input projection ``x_t . w_gates`` does not depend on the
+state, so it is one float32 product over all steps before the loop
+(:func:`slstm_loop`), and each step adds its recurrent part with one
+batched product (``baddbmm``): the same float32 sums in another order.
 """
 from __future__ import annotations
 
@@ -191,3 +193,58 @@ def apply_slstm(p: Dict[str, Any], x: torch.Tensor,
     hg = xn2 @ p["ffn_wg"].to(x.dtype)
     hu = xn2 @ p["ffn_wu"].to(x.dtype)
     return x + (activation(hg, "gelu") * hu) @ p["ffn_wd"].to(x.dtype)
+
+
+# ===========================================================================
+# Mamba-style SSM heads (hymba hybrid blocks)
+# ===========================================================================
+def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    d_in = cfg.ssm_expand * cfg.d_model
+    return d_in, cfg.ssm_state, 16  # (d_inner, state, dt_rank)
+
+
+def ssm_shapes(cfg: ModelConfig, num_layers: int):
+    """``name -> (shape, init)`` of the SSM parameters (``ssm_*``), each
+    with a leading layer axis (the reference's ``init_ssm``)."""
+    D = cfg.d_model
+    d_in, N, R = ssm_dims(cfg)
+    L, K = num_layers, cfg.ssm_conv
+    shapes = {
+        "w_in": ((L, D, d_in), "normal"), "w_z": ((L, D, d_in), "normal"),
+        "conv_w": ((L, K, d_in), "small_normal"),
+        "w_B": ((L, d_in, N), "small_normal"),
+        "w_C": ((L, d_in, N), "small_normal"),
+        "w_dt1": ((L, d_in, R), "small_normal"),
+        "w_dt2": ((L, R, d_in), "small_normal"),
+        "b_dt": ((L, d_in), "zeros"), "A_log": ((L, d_in, N), "zeros"),
+        "D": ((L, d_in), "ones"), "w_out": ((L, d_in, D), "normal"),
+    }
+    return {f"ssm_{k}": v for k, v in shapes.items()}
+
+
+def _ssm_coeffs(p, xc):
+    """B, C and dt in float32 (dt low-rank, biased toward small steps), and
+    ``A = -exp(A_log)``."""
+    xf = xc.float()
+    Bm = xf @ p["ssm_w_B"].float()
+    Cm = xf @ p["ssm_w_C"].float()
+    dt = F.softplus(xf @ p["ssm_w_dt1"].float() @ p["ssm_w_dt2"].float()
+                    + p["ssm_b_dt"].float() - 4.0)
+    A = -torch.exp(p["ssm_A_log"].float())  # (d_in, N), negative
+    return dt, A, Bm, Cm
+
+
+def apply_ssm(p: Dict[str, Any], xn: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """Train path.  xn: (B, S, D) already normed.  Returns (B, S, D)."""
+    S, dt_ = xn.shape[1], xn.dtype
+    K = cfg.ssm_conv
+    xin, z = xn @ p["ssm_w_in"].to(dt_), xn @ p["ssm_w_z"].to(dt_)
+    # causal depthwise conv over time: K shifted products, summed in
+    # cfg.dtype in the reference's order
+    conv_w = p["ssm_conv_w"].to(dt_)  # (K, d_in)
+    xpad = F.pad(xin, (0, 0, K - 1, 0))
+    xc = F.silu(sum(xpad[:, i:i + S] * conv_w[i] for i in range(K)))
+    dt, A, Bm, Cm = _ssm_coeffs(p, xc)
+    y = ops.ssm_scan(xc, dt.to(dt_), A, Bm, Cm, p["ssm_D"])
+    return (y * F.silu(z)) @ p["ssm_w_out"].to(dt_)

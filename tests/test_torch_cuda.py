@@ -10,14 +10,16 @@ gradients 2e-4 (the reference's own tolerance for its flash VJP, sums
 over whole sequences in other orders); K6-bwd's gradients 1e-4 (float32)
 and 2e-2 (bfloat16) of each gradient's max |g| (the same algorithm summed
 in other orders, and the gates' gradients a cumulative sum over the
-whole sequence)."""
+whole sequence); K5 2e-5 / 2e-2 abs+rel as the other forwards, K5-bwd's
+gradients 1e-4 / 2e-2 of each gradient's max |g| (dB, dC, dA and dD are
+sums over every channel or step, in other orders)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
                                  mlstm_scan, ops, paged_attention,
-                                 paged_attention_mq, ref)
+                                 paged_attention_mq, ref, ssm_scan)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -429,3 +431,140 @@ def test_mlstm_kernels_refuse_what_they_do_not_take(dev):
         assert (mlstm_scan.bwd_smem_bytes(D, DV)
                 == lib.repro_mlstm_scan_bwd_smem(D, DV))
         assert mlstm_scan.bwd_smem_bytes(D, DV) <= mlstm_scan.SMEM_LIMIT
+
+
+# K1 and K1-bwd at hymba-1.5b's attention shapes: head dim 64, 5 query
+# heads a KV head, global and a 2048 window inside a 4096 sequence
+HYMBA_ATTN_CASES = [(1, 4096, 4096, 25, 5, 64, True, w, 0) for w in (0, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", HYMBA_ATTN_CASES, ids=["global", "window"])
+def test_flash_pair_matches_plain_at_hymba_shapes(dev, dtype, case):
+    B, S, T, H, KH, D, causal, window, q_offset = case
+    q, k, v, do = _train_inputs(dev, dtype, B, S, T, H, KH, D)
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, with_lse=True,
+                                                    **mask)
+    want_out, want_lse = ref.attention_fwd(q, k, v, **mask)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, atol=TOL[dtype], rtol=TOL[dtype])
+    got = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                       **mask)
+    want = ref.attention_bwd(q, k, v, out, lse, do, **mask)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=GRAD_TOL[dtype],
+                                   rtol=GRAD_TOL[dtype], msg=name)
+
+
+# K5 and K5-bwd: (B, S, Din, N) — hymba's channels at a short S, a ragged S
+# and Din, three batch rows, one step past a chunk, and fewer channels than
+# a block
+SSM_CASES = [
+    (1, 512, 3200, 16),
+    (2, 1000, 200, 16),
+    (3, 300, 72, 16),
+    (1, 33, 40, 16),
+    (1, 7, 5, 16),
+]
+SSM_IDS = ["hymba", "ragged", "B3", "chunk+1", "tiny"]
+SSM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _ssm_inputs(dev, dtype, B, S, Din, N, seed=0):
+    """x, dt in ``dtype`` (dt a softplus-sized step), A, B, C, D float32, dy
+    in ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    x = _randn(gen, (B, S, Din), dtype, dev)
+    dt = (torch.rand((B, S, Din), generator=gen) * 0.2 + 0.01).to(dev, dtype)
+    A = (-torch.rand((Din, N), generator=gen) * 2 - 0.05).to(dev)
+    Bm = _randn(gen, (B, S, N), torch.float32, dev)
+    Cm = _randn(gen, (B, S, N), torch.float32, dev)
+    D = _randn(gen, (Din,), torch.float32, dev)
+    dy = _randn(gen, (B, S, Din), dtype, dev)
+    return x, dt, A, Bm, Cm, D, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSM_CASES, ids=SSM_IDS)
+def test_ssm_kernel_matches_plain(dev, dtype, case):
+    *xs, _ = _ssm_inputs(dev, dtype, *case)
+    n0 = ssm_scan.launches
+    y, ckpt = ssm_scan.ssm_scan_cuda(*xs, with_ckpt=True)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == n0 + 1
+    want_y, want_ckpt = ref.ssm_scan_fwd_ckpt(*xs)
+    assert y.dtype == dtype and ckpt.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(ckpt, want_ckpt, atol=2e-5, rtol=2e-5)
+    # without the checkpoints the output is the same, bit for bit
+    torch.testing.assert_close(ssm_scan.ssm_scan_cuda(*xs), y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSM_CASES, ids=SSM_IDS)
+def test_ssm_bwd_kernel_matches_plain(dev, dtype, case):
+    *xs, dy = _ssm_inputs(dev, dtype, *case)
+    _, ckpt = ref.ssm_scan_fwd_ckpt(*xs)
+    n0 = ssm_scan.bwd_launches
+    got = ssm_scan.ssm_scan_bwd(*xs, ckpt, dy)
+    torch.cuda.synchronize()
+    assert ssm_scan.bwd_launches == n0 + 1
+    want = ref.ssm_scan_bwd(*xs, ckpt, dy)
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        _close_to_max(a, b, SSM_GRAD_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_kernels_are_deterministic(dev, dtype):
+    *xs, dy = _ssm_inputs(dev, dtype, 2, 700, 400, 16, seed=3)
+    y, ckpt = ssm_scan.ssm_scan_cuda(*xs, with_ckpt=True)
+    first = ssm_scan.ssm_scan_bwd_cuda(*xs, ckpt, dy)
+    for _ in range(3):
+        y2, ckpt2 = ssm_scan.ssm_scan_cuda(*xs, with_ckpt=True)
+        assert torch.equal(y, y2) and torch.equal(ckpt, ckpt2)
+        for a, b in zip(first, ssm_scan.ssm_scan_bwd_cuda(*xs, ckpt, dy)):
+            assert torch.equal(a, b)
+
+
+def test_ssm_function_launches_both_kernels(dev):
+    *xs, dy = _ssm_inputs(dev, torch.float32, 2, 100, 48, 16)
+    n0 = (ssm_scan.launches, ssm_scan.bwd_launches)
+    ts = [x.clone().requires_grad_() for x in xs]
+    got = torch.autograd.grad(ops.ssm_scan(*ts), ts, dy)
+    assert (ssm_scan.launches, ssm_scan.bwd_launches) == (n0[0] + 1,
+                                                          n0[1] + 1)
+    us = [x.clone().requires_grad_() for x in xs]
+    want = torch.autograd.grad(ref.ssm_scan(*us)[0], us, dy)
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        _close_to_max(a, b, 1e-4, name)
+
+
+def test_ssm_kernels_refuse_what_they_do_not_take(dev):
+    n0 = (ssm_scan.launches, ssm_scan.bwd_launches)
+    fwd, bwd = ssm_scan.ssm_scan_cuda, ssm_scan.ssm_scan_bwd_cuda
+    x, dt, A, Bm, Cm, D, dy = _ssm_inputs(dev, torch.float32, 1, 40, 24, 16)
+    with pytest.raises(ValueError, match="state size N=8"):
+        fwd(x, dt, A[:, :8].contiguous(), Bm[..., :8].contiguous(),
+            Cm[..., :8].contiguous(), D)
+    with pytest.raises(ValueError, match="dtype"):
+        fwd(x.half(), dt.half(), A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="dt is torch.bfloat16"):
+        fwd(x, dt.bfloat16(), A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="B must be"):
+        fwd(x, dt, A, Bm[:, :20], Cm, D)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fwd(x, dt, A, Bm, Cm, D.cpu())
+    _, ckpt = fwd(x, dt, A, Bm, Cm, D, with_ckpt=True)
+    with pytest.raises(ValueError, match="ckpt must be"):
+        bwd(x, dt, A, Bm, Cm, D, ckpt[:1].contiguous(), dy)
+    with pytest.raises(ValueError, match="ckpt must be float32"):
+        bwd(x, dt, A, Bm, Cm, D, ckpt.double(), dy)
+    assert (ssm_scan.launches, ssm_scan.bwd_launches) == (n0[0] + 1, n0[1])
+    # the wrapper's constants are the CUDA sources'
+    lib = build.library()
+    assert lib.repro_ssm_scan_chunk() == ssm_scan.CHUNK
+    assert lib.repro_ssm_scan_channels_per_block() == ssm_scan.CHANNELS

@@ -13,8 +13,8 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
-                                 mlstm_scan, paged_attention,
-                                 paged_attention_mq)
+                                 mlstm_scan, ops, paged_attention,
+                                 paged_attention_mq, ssm_scan)
 from repro_torch.launch import train as train_cli
 from repro_torch.models import build_model
 
@@ -43,7 +43,7 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.models.recurrent, "
-            "repro_torch.kernels.mlstm_scan; "
+            "repro_torch.kernels.mlstm_scan, repro_torch.kernels.ssm_scan; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -65,10 +65,11 @@ def test_entry_points_default_to_the_card():
     with mock.patch("sys.argv", ["train", "--steps", "1"]), \
             pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main()
-    xlstm = ["train", "--arch", "xlstm-125m", "--steps", "1"]
-    with mock.patch("sys.argv", xlstm), \
-            pytest.raises(RuntimeError, match="device='cpu'"):
-        train_cli.main()
+    for arch in ("xlstm-125m", "hymba-1.5b"):
+        argv = ["train", "--arch", arch, "--steps", "1"]
+        with mock.patch("sys.argv", argv), \
+                pytest.raises(RuntimeError, match="device='cpu'"):
+            train_cli.main()
 
 
 def test_cuda_entries_never_return_the_plain_version():
@@ -111,3 +112,23 @@ def test_cuda_entries_never_return_the_plain_version():
             build.library()
     else:
         pytest.skip("nvcc is installed here")
+
+
+def test_ssm_cuda_entries_never_return_the_plain_version():
+    """K5's and K5-bwd's CUDA entry points refuse CPU tensors instead of
+    computing the plain result; the CPU path takes the plain pair and
+    launches nothing."""
+    n0 = (ssm_scan.launches, ssm_scan.bwd_launches)
+    x = torch.zeros(1, 40, 24)
+    A, D = -torch.ones(24, 16), torch.ones(24)
+    Bm = torch.zeros(1, 40, 16)
+    ckpt = torch.zeros(2, 1, 24, 16)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ssm_scan.ssm_scan_cuda(x, x, A, Bm, Bm, D)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ssm_scan.ssm_scan_cuda(x, x, A, Bm, Bm, D, with_ckpt=True)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ssm_scan.ssm_scan_bwd_cuda(x, x, A, Bm, Bm, D, ckpt, x)
+    y = ops.ssm_scan(x, x + 0.1, A, Bm, Bm, D)
+    assert y.shape == x.shape
+    assert (ssm_scan.launches, ssm_scan.bwd_launches) == n0
