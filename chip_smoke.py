@@ -3,9 +3,11 @@ against its plain PyTorch version on the card, serve full-width
 qwen2-1.5b through the paged engine (main path), the fused engine and
 the paged engine's speculative path, train it at full width through
 the train step (K1 forward, K1-bwd backward), train xlstm-125m at full
-width (K6 forward, K6-bwd backward, the sLSTM loop), and train
-hymba-1.5b at full width (K1 and K1-bwd, global and sliding-window, and
-K5 forward, K5-bwd backward for its SSM heads).
+width (K6 forward, K6-bwd backward, the sLSTM loop), train hymba-1.5b
+at full width (K1 and K1-bwd, global and sliding-window, and K5
+forward, K5-bwd backward for its SSM heads), and train phi3.5-moe at
+full width, depth cut to 2 layers (K4 for the expert FFN forward and
+its dX, K1 and K1-bwd).
 
     python3 chip_smoke.py
 
@@ -22,7 +24,9 @@ them, and on any mismatch.  Phases, one or more lines each:
   6. the same workload on the fused engine, and the first admission
      group's prefill and decode logits, kernel path vs plain path;
   7. K3 (paged verify) against its plain version at qwen2 shapes, and
-     against K2 at one row;
+     against K2 at one row; past one block's rows (glm4-9b's G = 16 at
+     spec_k 8 and 16: 144 and 272 rows, qwen2's G = 6 at spec_k 24: 150
+     rows, in row tiles) beside the 128-row one-tile case;
   8. the speculative path: the paged engine with the n-gram proposer at
      full width (launch counters reset just before, read just after),
      beside the same workload without speculation; greedy identity with
@@ -71,7 +75,27 @@ them, and on any mismatch.  Phases, one or more lines each:
      SSM parameters moved off their init), seq 4096, kernel path vs plain
      path (autodiff through the sequential scan and the plain
      attention), in float32 compute;
- 21. hymba resume is exact at full width, the same 2-layer cut, seq 4096.
+ 21. hymba resume is exact at full width, the same 2-layer cut, seq 4096;
+ 22. K4 (the grouped expert matmul) against its plain version: ragged and
+     empty groups, rows past sum(sizes) (zero in K4), the transposed-W
+     read, bf16 and float32, phi3.5-moe's layer shapes at batch 2 (M =
+     20480, D = 4096, F = 6400, E = 16: the three forward products and
+     the three dX products) and qwen3-moe's (E = 128, groups of 640 rows,
+     F = 1536), with reruns bit for bit, beside ``torch.bmm`` on the
+     equal-group layout (the library yardstick);
+ 23. ``MoeGmm`` (K4, K4 on the transposed weights for dX, dW by bmm)
+     against autograd of the plain version at phi3.5-moe's shapes;
+ 24. MoE training main path: phi3.5-moe at full width, depth cut to 2 of
+     its 32 layers, seq 4096, batch 2, through ``make_train_step`` (launch
+     counters reset just before four steps, read just after: K4 12 a
+     step), then one profiled step's device-time split (K4, K4's dX, the
+     dW GEMMs, K1, K1-bwd, GEMMs, rest);
+ 25. one MoE step's loss, aux loss and every gradient leaf at the same
+     2-layer cut, batch 1, kernel path vs plain path, in float32 compute
+     (a bf16 rounding upstream can flip a routing choice);
+ 26. MoE resume is exact at full d_model and heads, 16 experts top-2,
+     depth cut to 2 layers and d_ff to 256 (a 5.4 GB checkpoint), seq
+     1024, batch 2.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -106,9 +130,9 @@ from repro_torch.data import make_stream  # noqa: E402
 from repro_torch.kernels import build, flash_attention, ops  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd, mlstm_scan  # noqa: E402
 from repro_torch.kernels import paged_attention, paged_attention_mq  # noqa: E402
-from repro_torch.kernels import ref, ssm_scan  # noqa: E402
+from repro_torch.kernels import moe_gmm, ref, ssm_scan  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models import recurrent  # noqa: E402
+from repro_torch.models import moe, recurrent  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, smoke_serve  # noqa: E402
 from repro_torch.train import (OptimizerConfig, Plan,  # noqa: E402
                                init_train_state, make_train_step)
@@ -164,6 +188,16 @@ SSM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # exponentials a second on the special-function units: 16 a clock on each
 # of the 132 SMs at the 1980 MHz boost clock (H100 SXM)
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
+# phi3.5-moe training: train_4k's length, its global batch of 256 cut to
+# 2, its 32 layers cut to 2 (2.86 B parameters: 45.8 GB of float32
+# weights, gradients and moments)
+MOE_SEQ, MOE_BATCH, MOE_STEPS, MOE_LAYERS = 4096, 2, 4, 2
+# K4 against its plain version: bf16 abs+rel, float32 over the output's
+# max |y| (sums of up to 6400 products in other orders)
+GMM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# kernel path vs plain path of one MoE step in float32: every gradient
+# leaf within this share of its max |g| (as hymba's phase 20)
+MOE_LEAF_BOUND = 1e-3
 
 
 def log(msg: str) -> None:
@@ -534,6 +568,22 @@ def phase_k3(gen) -> dict:
                  [1, 33, 64, 100], gen, rng)
         _k3_case("T=1", dtype, MAX_BATCH, 1, 2, 6, 128, PAGE, mp, lens, gen,
                  rng)
+    # past one block's 128 rows at D = 128: row tiles, beside the largest
+    # one-tile case (glm4-9b, G = 16, spec_k 7); drawn from their own
+    # generators, so that the phases after this one see the inputs they
+    # saw before these cases existed
+    tgen = torch.Generator(device="cuda").manual_seed(7)
+    trng = np.random.default_rng(7)
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, T, G in (("128 rows (G=16 spec_k=7)", 8, 16),
+                           ("144 rows (G=16 spec_k=8)", 9, 16),
+                           ("272 rows (G=16 spec_k=16)", 17, 16),
+                           ("150 rows (G=6 spec_k=24)", 25, 6)):
+            rows = build.library().repro_paged_attention_mq_tile_rows(
+                T * G, 128)
+            log(f"[7 K3] {name}: {-(-T * G // rows)} row tile(s) of {rows}")
+            _k3_case(name, dtype, 4, T, 2, G, 128, PAGE, 12,
+                     [1, 33, 64, 150], tgen, trng)
     return main
 
 
@@ -1485,6 +1535,315 @@ def phase_hymba_plain(cfg2) -> None:
     assert leaf_err[worst] <= HY_LEAF_BOUND, leaf_err
 
 
+# ---------------------------------------------------------------------------
+def _gmm_bound(dtype, M_live, M, K, N, E):
+    """K4's bound: x read, w read, out written once; 2 K N flops a live
+    row (the rows past sum(sizes) are only written)."""
+    size = torch.finfo(dtype).bits // 8
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    return bound_ms(size * (M * K + E * K * N + M * N) + 4 * E,
+                    2.0 * M_live * K * N, peak)
+
+
+def _gmm_err(got, want, dtype) -> float:
+    got, want = got.detach(), want.detach()
+    if dtype == torch.bfloat16:
+        return max_err(got, want, dtype, GMM_TOL[dtype])
+    return _grad_err(got, want, GMM_TOL[dtype])
+
+
+def _k4_case(name, dtype, M, K, N, sizes, gen, transpose_w=False,
+             timed=True):
+    dev = torch.device("cuda")
+    E = len(sizes)
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    wshape = (E, N, K) if transpose_w else (E, K, N)
+    w = (torch.randn(wshape, generator=gen, device=dev) * K ** -0.5
+         ).to(dtype)
+    s = torch.tensor(sizes, dtype=torch.int32).to(dev)
+    got = moe_gmm.moe_gmm_cuda(x, s, w, transpose_w=transpose_w)
+    want = moe_gmm.plain(x, sizes, w, transpose_w=transpose_w)
+    torch.cuda.synchronize()
+    n = min(sum(sizes), M)
+    err = _gmm_err(got[:n], want[:n], dtype)
+    del want
+    assert torch.count_nonzero(got[n:]) == 0, "rows past sum(sizes) not 0"
+    again = moe_gmm.moe_gmm_cuda(x, s, w, transpose_w=transpose_w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "K4 is not deterministic"
+    del again
+    tc = build.library().repro_moe_gmm_tensor_cores(K, N, int(
+        dtype == torch.bfloat16))
+    bms, by = _gmm_bound(dtype, n, M, K, N, E)
+    r = dict(max_abs_err=err, bound_ms=bms, bound_by=by, ms=None,
+             plain_ms=None, library_ms=None)
+    if timed:
+        slow = dtype == torch.float32 and M * K * N > 1e11
+        r["ms"] = time_ms(lambda: moe_gmm.moe_gmm_cuda(
+            x, s, w, transpose_w=transpose_w),
+            reps=3 if slow else 10, inner=2 if slow else 5)
+        r["plain_ms"] = time_events_ms(lambda: moe_gmm.plain(
+            x, sizes, w, transpose_w=transpose_w), reps=3)
+        if len(set(sizes)) == 1 and sizes[0] * E == M:
+            # the library yardstick: one cuBLAS batched GEMM on the
+            # equal-group layout (never called by the port's forward)
+            xb = x.view(E, M // E, K)
+            wb = w.transpose(1, 2) if transpose_w else w
+            r["library_ms"] = time_ms(lambda: torch.bmm(xb, wb),
+                                      reps=3 if slow else 10,
+                                      inner=2 if slow else 5)
+    fmt = (lambda v: "null" if v is None else f"{v:.4f}")
+    how = "abs+rel" if dtype == torch.bfloat16 else "of max |y|"
+    log(f"[22 K4] {name} {str(dtype)[6:]} M={M} K={K} N={N} E={E} "
+        f"live_rows={n} transposed_w={transpose_w} tensor_cores={bool(tc)}: "
+        f"max_abs_err={err:.3g} ({how} tol {GMM_TOL[dtype]:g}) "
+        f"rows_past_sum_zero=True deterministic=True "
+        f"ms={fmt(r['ms'])} plain_ms={fmt(r['plain_ms'])} library_ms="
+        f"{fmt(r['library_ms'])} bound_ms={bms:.5f} ({by})"
+        + (f" achieved_TFLOP/s={2.0 * n * K * N / r['ms'] / 1e9:.1f}"
+           if r["ms"] else ""))
+    return r
+
+
+def phase_k4(gen, cfg, qcfg) -> dict:
+    """K4 against its plain version; the phi3.5-moe forward product of
+    the gate projection at batch 2 is the kernel line's entry."""
+    rng = np.random.default_rng(2)
+    main = None
+    for dtype in (torch.bfloat16, torch.float32):
+        sizes = rng.multinomial(3000, np.ones(8) / 8).tolist()
+        sizes[2] = sizes[5] = 0
+        _k4_case("ragged-empty", dtype, sum(sizes), 1024, 1536, sizes, gen)
+        _k4_case("rows-past-sum", dtype, 2048, 512, 768,
+                 [0, 700, 0, 801, 9], gen, timed=False)
+        _k4_case("transposed-w ragged", dtype, 2048, 768, 512,
+                 [600, 0, 1000, 448], gen, transpose_w=True, timed=False)
+        _k4_case("unaligned widths", dtype, 999, 1000, 900,
+                 [300, 0, 333, 366], gen, timed=False)
+        torch.cuda.empty_cache()
+    # phi3.5-moe at batch 2: 16 groups of B C = 2 x 640 rows
+    E, D, F_ = cfg.num_experts, cfg.d_model, cfg.d_ff
+    G = MOE_BATCH * moe.moe_capacity(cfg, MOE_SEQ)
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, K, N, tr in (("phi3.5 gate/up", D, F_, False),
+                               ("phi3.5 down", F_, D, False),
+                               ("phi3.5 gate/up dX", F_, D, True),
+                               ("phi3.5 down dX", D, F_, True)):
+            timed = dtype == torch.bfloat16 or name == "phi3.5 gate/up"
+            r = _k4_case(name, dtype, E * G, K, N, [G] * E, gen,
+                         transpose_w=tr, timed=timed)
+            if main is None:
+                main = r
+            torch.cuda.empty_cache()
+    # qwen3-moe at batch 2: 128 groups of 2 x 320 rows
+    E, D, F_ = qcfg.num_experts, qcfg.d_model, qcfg.d_ff
+    G = MOE_BATCH * moe.moe_capacity(qcfg, MOE_SEQ)
+    for name, K, N, tr in (("qwen3 gate/up", D, F_, False),
+                           ("qwen3 down", F_, D, False),
+                           ("qwen3 gate/up dX", F_, D, True)):
+        _k4_case(name, torch.bfloat16, E * G, K, N, [G] * E, gen,
+                 transpose_w=tr)
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_moe_gmm_bwd(gen, cfg) -> None:
+    """``MoeGmm``'s forward and backward at phi3.5-moe's gate projection
+    (batch 2) in bf16, and at a ragged cut in float32, against autograd of
+    the plain version; a rerun gives the same bits."""
+    dev = torch.device("cuda")
+    G = MOE_BATCH * moe.moe_capacity(cfg, MOE_SEQ)
+    E, D, F_ = cfg.num_experts, cfg.d_model, cfg.d_ff
+    for dtype, sizes, K, N in ((torch.bfloat16, [G] * E, D, F_),
+                               (torch.float32, [700, 0, 1100, 248], 1024,
+                                1536)):
+        M = sum(sizes)
+        x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((len(sizes), K, N), generator=gen, device=dev)
+             * K ** -0.5).to(dtype)
+        dy = torch.randn((M, N), generator=gen, device=dev).to(dtype)
+        runs = []
+        n0 = moe_gmm.launches
+        for _ in range(2):
+            tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = ops.moe_gmm(tx, sizes, tw)
+            runs.append((y,) + torch.autograd.grad(y, (tx, tw), dy))
+            del tx, tw, y
+        assert moe_gmm.launches == n0 + 4
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        assert same, "MoeGmm's backward is not deterministic"
+        ux, uw = x.clone().requires_grad_(), w.clone().requires_grad_()
+        uy = moe_gmm.plain(ux, sizes, uw)
+        want = (uy,) + torch.autograd.grad(uy, (ux, uw), dy)
+        torch.cuda.synchronize()
+        errs = {n: _gmm_err(a, b, dtype)
+                for n, a, b in zip(("y", "dx", "dw"), runs[0], want)}
+        del runs, want, ux, uw, uy
+        groups = (f"{len(sizes)} x {sizes[0]}" if len(set(sizes)) == 1
+                  else sizes)
+        how = "abs+rel" if dtype == torch.bfloat16 else "of each max"
+        log(f"[23 MoeGmm] {str(dtype)[6:]} M={M} K={K} N={N} sizes={groups}: "
+            f"max err y {errs['y']:.3g} dx {errs['dx']:.3g} dw "
+            f"{errs['dw']:.3g} ({how} tol {GMM_TOL[dtype]:g}) against "
+            f"autograd of the plain version; rerun bit-identical={same}")
+        torch.cuda.empty_cache()
+
+
+# K4's transposed-weight launches are the backward's dX
+MOE_KINDS = dict(K1_KINDS, **{"K4 dX": ("gmm_tc_kernel<true>",),
+                              "K4": ("gmm_tc_kernel", "schedule_kernel")})
+
+
+def _moe_cut(cfg, **over):
+    return dataclasses.replace(cfg, num_layers=MOE_LAYERS,
+                               name=cfg.name + f"-{MOE_LAYERS}layer", **over)
+
+
+def phase_moe_train(cfg):
+    """The MoE training main path: full width, 2 layers, seq 4096."""
+    model = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    plan = Plan(remat="none")
+    t0 = time.perf_counter()
+    state = init_train_state(model, 0, opt, plan)
+    torch.cuda.synchronize()
+    step = make_train_step(model, opt, plan)
+    stream = make_stream(cfg, ShapeConfig("train_4k-cut", MOE_SEQ,
+                                          MOE_BATCH, "train"))
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()}
+               for i in range(MOE_STEPS + 1)]
+    C = moe.moe_capacity(cfg, MOE_SEQ)
+    log(f"[24 moe train] {cfg.name} full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"{cfg.num_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, "
+        f"capacity {C} a row), depth cut to {cfg.num_layers} of 32 layers, "
+        f"{cfg.param_count() / 1e9:.3f} B params (float32 master, AdamW "
+        f"float32 moments, {cfg.dtype} compute), seq {MOE_SEQ}, batch "
+        f"{MOE_BATCH} (train_4k's 256 cut to {MOE_BATCH}), remat "
+        f"{plan.remat}; init {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"moe_gmm": (moe_gmm, "launches"),
+                "flash_attention": (flash_attention, "launches"),
+                "flash_attention_bwd": (flash_attention_bwd, "launches")}
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    losses, auxes, walls = [], [], []
+    for i in range(MOE_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        losses.append(float(metrics["loss"]))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+        auxes.append(float(metrics["aux"]))
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    want = {"moe_gmm": 6 * cfg.num_layers * MOE_STEPS,
+            "flash_attention": cfg.num_layers * MOE_STEPS,
+            "flash_attention_bwd": cfg.num_layers * MOE_STEPS}
+    assert launches == want, (launches, want)
+    assert all(np.isfinite(losses)) and all(np.isfinite(auxes)), losses
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(walls[1:])
+    log(f"[24 moe train] losses={[round(x, 4) for x in losses]} aux="
+        f"{[round(x, 5) for x in auxes]} step_wall_s="
+        f"{[round(x, 3) for x in walls]} (the first includes set-up) "
+        f"steady_step_s={steady:.3f} tok_per_s="
+        f"{MOE_BATCH * MOE_SEQ / steady:.1f} max_memory_allocated_GB="
+        f"{peak / 1e9:.2f} launches={launches} (want {want}: K4 "
+        f"{6 * cfg.num_layers} a step, 3 forward and 3 dX a layer)")
+    weight_grad, dw_events = moe_gmm.weight_grad, []
+
+    def timed_weight_grad(*a, **k):  # the dW GEMMs between CUDA events
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = weight_grad(*a, **k)
+        ev[1].record()
+        dw_events.append(ev)
+        return out
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with mock.patch.object(moe_gmm, "weight_grad", timed_weight_grad), \
+            torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[MOE_STEPS])
+        float(metrics["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    split, by_name = _device_split(prof, MOE_KINDS)
+    dw_ms = sum(a.elapsed_time(b) for a, b in dw_events)
+    assert len(dw_events) == 3 * cfg.num_layers, len(dw_events)
+    del prof
+    busy = sum(split.values())
+    assert busy > 0 and split["K4"] > 0 and split["K4 dX"] > 0, split
+    log(f"[24 moe profile] one step: wall_ms={wall:.1f} device_busy_ms="
+        f"{busy:.1f} idle_share={max(0.0, 1 - busy / wall):.3f} (against the "
+        f"unprofiled steady step: {max(0.0, 1 - busy / (steady * 1e3)):.3f}) "
+        + " ".join(f"{k.replace(' ', '_')}_ms={v:.1f} ({v / busy:.1%})"
+                   for k, v in split.items())
+        + f" of_which_dW_GEMMs_ms={dw_ms:.1f} ({dw_ms / busy:.1%}, CUDA "
+        f"events)")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[24 moe profile]   {ms:9.1f} ms  {name}")
+    return launches
+
+
+def _plain_moe_gmm(tokens, group_sizes, w, **_):
+    """``ops.moe_gmm`` through autograd of the plain version."""
+    return moe_gmm.plain(tokens, group_sizes, w)
+
+
+def phase_moe_plain(cfg2) -> None:
+    """One step's loss, aux, gradient norm and every gradient leaf at
+    full width (the 2-layer cut), seq 4096, batch 1, kernel path vs plain
+    path, in float32 compute."""
+    cfg2 = dataclasses.replace(cfg2, dtype="float32")
+    model = build_model(cfg2)
+    params = model.init(seed=0)
+    stream = make_stream(cfg2, ShapeConfig("t", MOE_SEQ, 1, "train"))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in stream.batch_at(0).items()}
+    names = [k for k, _ in flatten(params)]
+
+    def loss_and_grads():
+        flat = [p.requires_grad_() for p in leaves(params)]
+        loss, metrics = model.loss(params, batch, remat="none")
+        grads = torch.autograd.grad(loss, flat)
+        return float(loss.detach()), float(metrics["aux"].detach()), grads
+
+    t0 = time.perf_counter()
+    kern, kaux, kgrads = loss_and_grads()
+    t1 = time.perf_counter()
+    n0 = (moe_gmm.launches, flash_attention.launches,
+          flash_attention_bwd.launches)
+    with mock.patch.object(ops, "moe_gmm", _plain_moe_gmm), \
+            mock.patch.object(ops, "flash_attention", ref.attention):
+        plain, paux, pgrads = loss_and_grads()
+    t2 = time.perf_counter()
+    assert (moe_gmm.launches, flash_attention.launches,
+            flash_attention_bwd.launches) == n0
+    knorm = float(global_norm(dict(enumerate(kgrads))))
+    pnorm = float(global_norm(dict(enumerate(pgrads))))
+    rel_loss = abs(kern - plain) / abs(plain)
+    rel_aux = abs(kaux - paux) / abs(paux)
+    rel_norm = abs(knorm - pnorm) / abs(pnorm)
+    leaf_err = {n: float((g - w).abs().max() / w.abs().max())
+                for n, g, w in zip(names, kgrads, pgrads)}
+    worst = max(leaf_err, key=leaf_err.get)
+    moe_worst = max(v for k, v in leaf_err.items()
+                    if "/moe_" in k or "/router" in k)
+    log(f"[25 moe kernel vs plain] {cfg2.name} float32 compute, seq "
+        f"{MOE_SEQ}, batch 1: loss {kern:.6f} vs {plain:.6f} (rel "
+        f"{rel_loss:.3g}, bound {LOSS_REL_BOUND}); aux {kaux:.6g} vs "
+        f"{paux:.6g} (rel {rel_aux:.3g}, bound {LOSS_REL_BOUND}); grad_norm "
+        f"{knorm:.6f} vs {pnorm:.6f} (rel {rel_norm:.3g}, bound "
+        f"{GNORM_REL_BOUND}); worst gradient leaf {worst} "
+        f"{leaf_err[worst]:.3g} of its max (router and expert leaves "
+        f"{moe_worst:.3g}, bound {MOE_LEAF_BOUND}); {t1 - t0:.1f} s vs "
+        f"{t2 - t1:.1f} s")
+    assert rel_loss <= LOSS_REL_BOUND and rel_norm <= GNORM_REL_BOUND
+    assert rel_aux <= LOSS_REL_BOUND
+    assert leaf_err[worst] <= MOE_LEAF_BOUND, leaf_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1547,6 +1906,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_resume(cut, 21, "full width, depth cut to 2 layers: 0 global, 1 a "
                  f"{cut.sliding_window} window", seq=HY_SEQ, batch=1)
+    torch.cuda.empty_cache()
+
+    mcfg = get_config("phi3.5-moe-42b-a6.6b")
+    mgen = torch.Generator(device="cuda").manual_seed(16)
+    k4 = phase_k4(mgen, mcfg, get_config("qwen3-moe-235b-a22b"))
+    phase_moe_gmm_bwd(mgen, mcfg)
+    moe_launches = phase_moe_train(_moe_cut(mcfg))
+    torch.cuda.empty_cache()
+    phase_moe_plain(_moe_cut(mcfg))
+    torch.cuda.empty_cache()
+    phase_resume(_moe_cut(mcfg, d_ff=256), 26,
+                 "full d_model and heads, 16 experts top-2, depth cut to 2 "
+                 "layers and d_ff to 256")
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -1581,6 +1953,10 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
              replaces="src/repro/kernels/ssm_vjp.py:79",
              launches=hy_launches["ssm_scan_bwd"], **k5_bwd),
+        dict(name="moe_gmm", route="cuda",
+             source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+             replaces="src/repro/kernels/moe_gmm.py:65",
+             launches=moe_launches["moe_gmm"], **k4),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

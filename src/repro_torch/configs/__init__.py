@@ -1,15 +1,16 @@
 """Architecture registry of the port: the dense decoders that share the
-ported dense branch of ``models/lm.py``, xlstm-125m (the xLSTM branch)
-and hymba-1.5b (the hybrid branch), the last two for their train paths
-only.
+ported dense branch of ``models/lm.py``, xlstm-125m (the xLSTM branch),
+hymba-1.5b (the hybrid branch) and the MoE decoders phi3.5-moe and
+qwen3-moe (the MoE branch), the last four for their train paths only.
 
 ``get_config`` accepts the exact id or the short alias, as the reference
-registry does.  Families the port does not build yet (MoE, audio, VLM)
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+registry does.  Families the port does not build yet (audio, VLM) raise
+``NotImplementedError`` naming the ROADMAP entry that brings them.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (glm4_9b, hymba_15b, internlm2_20b, qwen15_4b,
+from repro_torch.configs import (glm4_9b, hymba_15b, internlm2_20b,
+                                 phi35_moe_42b, qwen3_moe_235b, qwen15_4b,
                                  qwen2_15b, xlstm_125m)
 from repro_torch.configs.base import ModelConfig, ShapeConfig, reduced
 
@@ -20,6 +21,8 @@ ARCHS = {
     "internlm2-20b": internlm2_20b.CONFIG,
     "xlstm-125m": xlstm_125m.CONFIG,
     "hymba-1.5b": hymba_15b.CONFIG,
+    "phi3.5-moe-42b-a6.6b": phi35_moe_42b.CONFIG,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b.CONFIG,
 }
 
 _ALIASES = {
@@ -29,18 +32,17 @@ _ALIASES = {
     "internlm2": "internlm2-20b",
     "xlstm": "xlstm-125m",
     "hymba": "hymba-1.5b",
+    "phi35-moe": "phi3.5-moe-42b-a6.6b",
+    "qwen3-moe": "qwen3-moe-235b-a22b",
 }
 
 # archs of the reference registry (ids and aliases) that the port does
-# not build yet, with the ROADMAP item that brings each family
-_MOE = "ROADMAP queue 1, item 11 (MoE family, kernel K4)"
+# not build yet, with the ROADMAP entry that brings each family
+_ENCDEC = "ROADMAP queue 1, the encoder-decoder family"
+_VLM = "ROADMAP queue 1, the VLM family"
 _NOT_PORTED = {
-    "phi3.5-moe-42b-a6.6b": _MOE, "phi35-moe": _MOE,
-    "qwen3-moe-235b-a22b": _MOE, "qwen3-moe": _MOE,
-    "whisper-large-v3": "ROADMAP queue 1, item 11 (encoder-decoder)",
-    "whisper": "ROADMAP queue 1, item 11 (encoder-decoder)",
-    "phi-3-vision-4.2b": "ROADMAP queue 1, item 11 (VLM family)",
-    "phi3-vision": "ROADMAP queue 1, item 11 (VLM family)",
+    "whisper-large-v3": _ENCDEC, "whisper": _ENCDEC,
+    "phi-3-vision-4.2b": _VLM, "phi3-vision": _VLM,
 }
 
 

@@ -75,10 +75,12 @@ class ModelConfig:
     def param_count(self) -> int:
         """Parameters of the families the port builds, by the reference's
         formulas: a dense decoder (embedding, blocks, final norm, untied
-        head), the hybrid (each block's attention, mamba heads, MLP, norms
-        and one fuse vector, as the reference counts them), or the xLSTM
-        (``family="ssm"``) — for the xLSTM its per-layer average, rounded
-        down, times the layers, as the reference reports it."""
+        head), an MoE decoder (the same with the router and the gated
+        experts in place of the MLP), the hybrid (each block's attention,
+        mamba heads, MLP, norms and one fuse vector, as the reference
+        counts them), or the xLSTM (``family="ssm"``) — for the xLSTM its
+        per-layer average, rounded down, times the layers, as the
+        reference reports it."""
         d, v = self.d_model, self.vocab_size
         head = 0 if self.tie_embeddings else v * d
         final = d * (2 if self.norm == "layernorm" else 1)
@@ -93,7 +95,9 @@ class ModelConfig:
             return (v * d + head + self.num_layers
                     * (total // self.num_layers) + final)
         norms = 2 * d * (2 if self.norm == "layernorm" else 1)
-        block = self._attn_params() + self._mlp_params() + norms
+        ffn = (self._moe_params() if self.num_experts > 0
+               else self._mlp_params())
+        block = self._attn_params() + ffn + norms
         if self.family == "hybrid":
             block += self._ssm_params() + d
         return v * d + head + self.num_layers * block + final
@@ -109,6 +113,11 @@ class ModelConfig:
         if self.d_ff == 0:
             return 0
         return (3 if self.act == "silu" else 2) * self.d_model * self.d_ff
+
+    def _moe_params(self) -> int:
+        """The router and the gated experts (up, gate, down each)."""
+        d = self.d_model
+        return d * self.num_experts + self.num_experts * 3 * d * self.d_ff
 
     def _ssm_params(self) -> int:
         """Mamba-style heads of a hybrid block, as the reference counts

@@ -47,6 +47,8 @@ _SIGNATURES = {
     # page, max_pages, scale, dtype, stream
     "repro_paged_attention_mq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _I, _P],
+    # rows = T * G, D -> query rows of one of K3's row tiles
+    "repro_paged_attention_mq_tile_rows": [_I, _I],
     # q, k, v, i_pre, f_pre, h, m (nullable), qn (nullable), B, H, S, D,
     # DV, scale, dtype, stream
     "repro_mlstm_scan": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
@@ -66,6 +68,10 @@ _SIGNATURES = {
     "repro_ssm_scan_bwd": [_P] * 18 + [_I] * 5 + [_P],
     # () -> channels a block of K5 and K5-bwd covers
     "repro_ssm_scan_channels_per_block": [],
+    # x, sizes, w, out, sched, M, K, N, E, trans, dtype, stream
+    "repro_moe_gmm": [_P] * 5 + [_I] * 6 + [_P],
+    # K, N, dtype -> 1 when K4 runs on the tensor cores
+    "repro_moe_gmm_tensor_cores": [_I, _I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

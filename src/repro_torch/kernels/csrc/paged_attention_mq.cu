@@ -19,24 +19,31 @@
 // compute bound, so the bound is the bytes of the visible pages.  What the
 // design does:
 //   * one block per (slot, KV head), as in K2 (paged_attention.cu), holds all
-//     R rows: the q rows (t, kh, g) are read straight from the (B, T, H, D)
-//     layout (row r = t * G + g, the TPU kernel's packing, with no transpose
-//     in the wrapper), and each K/V page is read from device memory once;
+//     R rows when they fit (see below): the q rows (t, kh, g) are read
+//     straight from the (B, T, H, D) layout (row r = t * G + g, the TPU
+//     kernel's packing, with no transpose in the wrapper), and each K/V page
+//     is read from device memory once per row tile;
 //   * the block reads its own row of the page table and walks only positions
-//     below min(base_len + T - 1, max_pages * page) — what the furthest row
-//     sees — in chunks of 64 tokens staged in shared memory as float32 with
-//     16-byte loads, four per tensor in flight per thread; pages past that
-//     (dead pages, parked slots) are never read;
+//     below min(base_len + t_last, max_pages * page) — what the furthest row
+//     of its tile sees — in chunks of 64 tokens staged in shared memory as
+//     float32 with 16-byte loads, four per tensor in flight per thread; pages
+//     past that (dead pages, parked slots) are never read;
 //   * the per-row limit is applied inside the chunk; each score and each
 //     accumulator element is owned by one thread (no atomics), and the online
 //     softmax runs one warp per row.
-// Shared memory grows with R * D, so the rows a block can hold depend on D:
-// the entry point refuses a shape whose layout exceeds the 227 KB a block may
-// use (R = 128 fits at D = 128, R = 43 at D = 256).  Like K2 this first
-// version runs B * KH blocks with no split over the sequence and uses no
-// tensor cores.  All inputs are contiguous and 16-byte aligned, D a multiple
-// of 8.  The kernel launches on the caller's stream, allocates nothing and
-// does not synchronise.
+// Shared memory grows with R * D, so the rows a block can hold depend on D
+// (128 at D = 128, 43 at D = 256).  The R rows of a (slot, KV head) are
+// therefore tiled over blocks: the grid is (row tiles, KH, B), and each block
+// holds a tile of at most the rows that fit in the 227 KB a block may use,
+// the tiles balanced (144 rows at D = 128 run as two tiles of 72).  A block
+// walks kv positions only up to what the last row of its tile sees,
+// min(base_len + t_last, max_pages * page), so each tile re-reads the pages
+// its rows share; when all R rows fit, the one tile is the whole row set and
+// the launch is the untiled kernel, bit for bit (each row's online softmax
+// depends on no other row).  Like K2 this first version runs no split over
+// the sequence and uses no tensor cores.  All inputs are contiguous and
+// 16-byte aligned, D a multiple of 8.  The kernel launches on the caller's
+// stream, allocates nothing and does not synchronise.
 #include "common.cuh"
 
 namespace {
@@ -53,6 +60,18 @@ size_t smem_for(int rows, int d) {
         (size_t)(2 * rows * d + rows * CT + 3 * rows + CT * (2 * d + 1));
 }
 
+// rows of one tile: the fewest tiles whose largest layout fits, balanced
+// (0 when rows < 1 or not even one row fits)
+int tile_rows(int rows, int d) {
+    const long fixed = (long)CT * (2 * d + 1);
+    const long per_row = 2L * d + CT + 3;
+    const long words = (long)(MAX_SMEM / sizeof(float));
+    const int fit = (int)((words - fixed) / per_row);
+    if (rows < 1 || fit < 1) return 0;
+    const int tiles = (rows + fit - 1) / fit;
+    return (rows + tiles - 1) / tiles;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 paged_verify_kernel(const T* __restrict__ q,            // (B, Tq, H, D)
@@ -62,9 +81,11 @@ paged_verify_kernel(const T* __restrict__ q,            // (B, Tq, H, D)
                     const int* __restrict__ base_len,   // (B,)
                     T* __restrict__ out,                // (B, Tq, H, D)
                     int Tq, int KH, int G, int D, int P, int page,
-                    int max_pages, float scale) {
+                    int max_pages, int tile, float scale) {
     extern __shared__ float smem[];
-    const int R = Tq * G;
+    // this block's rows: r0 .. r0 + R - 1 of the Tq * G rows
+    const int r0 = blockIdx.x * tile;
+    const int R = min(tile, Tq * G - r0);
     const int H = KH * G;
     const int DP = D + 1;
     const int DV = D / 8;          // 8-element vectors per row
@@ -79,14 +100,17 @@ paged_verify_kernel(const T* __restrict__ q,            // (B, Tq, H, D)
 
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
-    const int kh = blockIdx.x, b = blockIdx.y;
+    const int kh = blockIdx.y, b = blockIdx.z;
     const int base = base_len[b];
-    // the furthest row sees base + Tq - 1 positions; clamp to the table
-    const int len = max(0, min(base + Tq - 1, max_pages * page));
+    // the tile's furthest row sees base + t_last positions; clamp to the
+    // table
+    const int t_last = (r0 + R - 1) / G;
+    const int len = max(0, min(base + t_last, max_pages * page));
     const int* table = page_table + (size_t)b * max_pages;
-    // element d of row r = t * G + g sits at q[b, t, kh * G + g, d]
+    // element d of local row r (row r0 + r = t * G + g) sits at
+    // q[b, t, kh * G + g, d]
     auto q_at = [&](int r) -> size_t {
-        const int t = r / G, g = r - t * G;
+        const int t = (r0 + r) / G, g = r0 + r - t * G;
         return (((size_t)b * Tq + t) * H + kh * G + g) * D;
     };
 
@@ -148,7 +172,7 @@ paged_verify_kernel(const T* __restrict__ q,            // (B, Tq, H, D)
             const float* krow = Ks + j * DP;
             float s = 0.f;
             for (int d = 0; d < D; ++d) s += qrow[d] * krow[d];
-            const bool seen = j < n && c0 + j < base + r / G;
+            const bool seen = j < n && c0 + j < base + (r0 + r) / G;
             Ss[idx] = seen ? s : NEG_INF;
         }
         __syncthreads();
@@ -208,11 +232,12 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
     static cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
     if (attr != cudaSuccess) return attr;
-    dim3 grid(KH, B);
-    kernel<<<grid, THREADS, smem_for(Tq * G, D), stream>>>(
+    const int tile = tile_rows(Tq * G, D);
+    dim3 grid((Tq * G + tile - 1) / tile, KH, B);
+    kernel<<<grid, THREADS, smem_for(tile, D), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_pool),
         static_cast<const T*>(v_pool), page_table, base_len,
-        static_cast<T*>(out), Tq, KH, G, D, P, page, max_pages, scale);
+        static_cast<T*>(out), Tq, KH, G, D, P, page, max_pages, tile, scale);
     return cudaGetLastError();
 }
 
@@ -228,7 +253,7 @@ extern "C" int repro_paged_attention_mq(const void* q, const void* k_pool,
                                         float scale, int dtype, void* stream) {
     if (B < 1 || Tq < 1 || KH < 1 || G < 1 || D < 8 || D > 256 ||
         D % 8 != 0 || P < 1 || page < 1 || max_pages < 1 ||
-        smem_for(Tq * G, D) > MAX_SMEM || (dtype != 0 && dtype != 1))
+        B > 65535 || KH > 65535 || (dtype != 0 && dtype != 1))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int* pt = static_cast<const int*>(page_table);
@@ -238,4 +263,9 @@ extern "C" int repro_paged_attention_mq(const void* q, const void* k_pool,
                                   D, P, page, max_pages, scale, st);
     return (int)launch<__nv_bfloat16>(q, k_pool, v_pool, pt, bl, out, B, Tq,
                                       KH, G, D, P, page, max_pages, scale, st);
+}
+
+// rows of one row tile of the launch for rows = T * G at head dim d
+extern "C" int repro_paged_attention_mq_tile_rows(int rows, int d) {
+    return tile_rows(rows, d);
 }

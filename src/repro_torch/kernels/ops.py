@@ -26,13 +26,18 @@ transposing or padding happens here.
     sequential oracle, as in the reference;
   * :func:`ssm_scan` — the selective scan of the hybrid's train path (K5,
     and K5-bwd under autograd), x/dt ``(B, S, Din)``, A ``(Din, N)``,
-    B/C ``(B, S, N)``, D ``(Din,)``.
+    B/C ``(B, S, N)``, D ``(Din,)``;
+  * :func:`moe_gmm` — the grouped matmul over expert-sorted rows of the
+    MoE layer's expert FFN (K4, with K4 on the transposed weights for dX
+    under autograd), tokens ``(M, K)``, group sizes ``(E,)``, w
+    ``(E, K, N)``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import mlstm_scan as _mlstm
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels.flash_attention import flash_attention
@@ -42,7 +47,7 @@ from repro_torch.kernels.paged_attention_mq import (
     paged_attention_mq as paged_decode_attention_mq)
 
 __all__ = ["decode_attention", "decode_attention_mq", "flash_attention",
-           "mlstm_scan", "mlstm_step", "paged_decode_attention",
+           "mlstm_scan", "mlstm_step", "moe_gmm", "paged_decode_attention",
            "paged_decode_attention_mq", "ssm_scan"]
 
 
@@ -103,3 +108,16 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     blocking, up to rounding)."""
     del block_d, chunk
     return _ssm.ssm_scan(x, dt, A, Bmat, Cmat, D)
+
+
+def moe_gmm(tokens: torch.Tensor, group_sizes, w: torch.Tensor, *,
+            block_m: int = 256) -> torch.Tensor:
+    """``out[i] = tokens[i] @ w[e(i)]`` over expert-sorted tokens
+    ``(M, K)``, ``group_sizes`` ``(E,)`` (an integer tensor, or a sequence
+    of ints known on the host), w ``(E, K, N)`` -> ``(M, N)``: K4, and
+    its backward when autograd records.  ``block_m`` keeps the
+    reference's signature, where it is the TPU kernel's row tile (and the
+    multiple the reference pads M to); the port's kernel tiles each group
+    by itself and takes any M, whatever it is."""
+    del block_m
+    return _gmm.moe_gmm_op(tokens, group_sizes, w)

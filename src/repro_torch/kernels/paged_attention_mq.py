@@ -13,7 +13,10 @@ Queries arrive in the reference layout ``(B, T, H, D)`` — ``T = k + 1``
 draft positions — and the kernel reads query row ``(t, kh, g)`` of KV
 head ``kh`` straight from it; the pools are ``(KH, P, page, D)`` and
 ``D`` is unpadded.  Row ``t`` sees the kv positions
-``< base_len[b] + t``.
+``< base_len[b] + t``.  The ``T * G`` rows of a KV head are tiled over
+blocks when they do not fit in one block's shared memory (the C entry
+``repro_paged_attention_mq_tile_rows`` gives a launch's rows per tile),
+so any ``T`` is taken.
 """
 from __future__ import annotations
 
@@ -26,18 +29,6 @@ from repro_torch.kernels import build, ref
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_CHUNK = 64            # kv tokens per chunk, as in the CUDA source
-MAX_SMEM = 232448      # shared memory a block may use on the H100
-
-
-def smem_bytes(rows: int, head_dim: int) -> int:
-    """Shared memory of one block holding ``rows = T * G`` query rows —
-    the CUDA source's layout: q and the accumulator (rows x D), the
-    scores (rows x chunk), the staged K and V chunk, three per-row
-    floats."""
-    return 4 * (2 * rows * head_dim + rows * _CHUNK + 3 * rows
-                + _CHUNK * (2 * head_dim + 1))
-
 
 plain = ref.paged_attention_mq
 
@@ -81,11 +72,6 @@ def paged_attention_mq_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"base_len must be ({B},)")
     if D % 8 or not 8 <= D <= 256:
         raise ValueError(f"head_dim {D} must be a multiple of 8 in [8, 256]")
-    if smem_bytes(T * G, D) > MAX_SMEM:
-        raise ValueError(
-            f"T * G = {T * G} query rows at head_dim {D} need "
-            f"{smem_bytes(T * G, D)} bytes of shared memory, over the "
-            f"{MAX_SMEM} a block may use: too many rows")
     out = torch.empty_like(q)
     lib = build.library()
     err = lib.repro_paged_attention_mq(

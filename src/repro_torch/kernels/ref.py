@@ -16,10 +16,13 @@ The mLSTM (K6, K6-bwd) and the selective scan (K5, K5-bwd) follow with
 their sequential oracles; :func:`ssm_scan_fwd_ckpt` and
 :func:`ssm_scan_bwd` are the counterparts of ``_fwd_full``/``_bwd_vjp``
 in the reference's ``kernels/ssm_vjp.py``.
+
+:func:`moe_gmm` is K4's plain version, the grouped matmul over
+expert-sorted rows of the reference's oracle ``ref.moe_gmm``.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -571,3 +574,45 @@ def ssm_scan_bwd(x, dt, A, Bmat, Cmat, D, ckpts: torch.Tensor,
     return (dx.to(x.dtype), whole(ddts).to(dt.dtype), dA.to(A.dtype),
             whole(dBs).to(Bmat.dtype), whole(dCs).to(Cmat.dtype),
             dD.to(D.dtype))
+
+
+# --------------------------------------------------------------------------
+# MoE grouped matmul over expert-sorted rows (K4)
+# --------------------------------------------------------------------------
+def group_ranges(group_sizes: Union[torch.Tensor, Sequence[int]], M: int,
+                 *, tail_to_last: bool) -> List[Tuple[int, int]]:
+    """Each expert's rows ``[lo, hi)`` of an ``M``-row sorted matrix, in
+    expert order.  ``tail_to_last``: the rows past ``sum(sizes)`` go to the
+    last expert (the reference oracle's convention); else they belong to
+    none (the kernels', which write zeros there)."""
+    sizes = (group_sizes.tolist() if isinstance(group_sizes, torch.Tensor)
+             else list(group_sizes))
+    out, start = [], 0
+    for e, size in enumerate(sizes):
+        end = start + int(size)
+        hi = M if tail_to_last and e == len(sizes) - 1 else end
+        out.append((min(start, M), min(max(hi, start), M)))
+        start = end
+    return out
+
+
+def moe_gmm(tokens: torch.Tensor,
+            group_sizes: Union[torch.Tensor, Sequence[int]],
+            w: torch.Tensor, *, transpose_w: bool = False) -> torch.Tensor:
+    """``out[i] = tokens[i] @ w[e(i)]`` — tokens ``(M, K)`` sorted so that
+    expert ``e`` owns ``group_sizes[e]`` consecutive rows, w ``(E, K, N)``
+    (or ``(E, N, K)`` read transposed with ``transpose_w``) -> ``(M, N)``
+    in tokens' dtype, each product in float32.  Rows past
+    ``sum(group_sizes)`` get the last expert's product, as in the
+    reference's oracle (its Pallas kernel and K4 write zeros there).  A
+    loop over the groups, so that it is cheap at a full layer's shapes."""
+    M = tokens.shape[0]
+    N = w.shape[1] if transpose_w else w.shape[2]
+    out = torch.zeros((M, N), dtype=tokens.dtype, device=tokens.device)
+    for e, (lo, hi) in enumerate(group_ranges(group_sizes, M,
+                                              tail_to_last=True)):
+        if hi > lo:
+            we = w[e].float()
+            out[lo:hi] = (tokens[lo:hi].float()
+                          @ (we.t() if transpose_w else we)).to(tokens.dtype)
+    return out

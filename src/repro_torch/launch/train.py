@@ -17,22 +17,33 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
         --full --seq 4096 --batch 1 --steps 4 --remat none
 
+    # phi3.5-moe at full width, depth cut to 2 of its 32 layers, on one
+    # H100 (the expert FFN through K4 and its backward)
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch phi3.5-moe-42b-a6.6b --full --layers 2 --seq 4096 \
+        --batch 2 --steps 4 --remat none
+
     # on the CPU (the plain versions of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi35-moe \
+        --device cpu --steps 6
 
 Counterpart of the reference's ``launch/train.py``, with its flags plus
 ``--device``.  The loop is the reference envelope's run: restore from the
 newest checkpoint in ``<runs-dir>/ckpt`` or initialise from ``--seed``,
 run the steps on the data stream's batches (the reference's batches, byte
 for byte), save every ``--ckpt-every`` steps and once more, blocking, at
-the end; then print the reference's summary line.  The provenance record,
-the straggler watch and failure injection (``--fail-at``) belong to the
-control plane, which is not ported yet (ROADMAP queue 1, item 7), so the
+the end; then print the reference's summary line, with the MoE aux loss
+of the last step beside the loss.  ``--layers`` cuts the depth of a
+reduced or a ``--full`` config.  The provenance record, the straggler
+watch and failure injection (``--fail-at``) belong to the control plane,
+which is not ported yet (ROADMAP queue 1, the control plane), so the
 flag does not exist here.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -84,6 +95,8 @@ def main() -> None:
         if args.layers:
             over["num_layers"] = args.layers
         cfg = reduced(cfg, **over)
+    elif args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = build_model(cfg, device=args.device)
 
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
@@ -105,7 +118,7 @@ def main() -> None:
         start += 1
         print(f"restored step {start - 1} from {ckpt.dir}")
     n_params = sum(p.numel() for p in leaves(state["params"]))
-    losses = []
+    losses, aux = [], 0.0
     for step in range(start, args.steps):
         batch = {k: torch.from_numpy(v).to(model.device)
                  for k, v in stream.batch_at(step).items()}
@@ -114,7 +127,9 @@ def main() -> None:
         loss = float(metrics["loss"])  # waits for the step
         dt = time.perf_counter() - ts
         losses.append(loss)
-        print(f"step {step} loss={loss:.4f} lr={float(metrics['lr']):.3g} "
+        aux = float(metrics["aux"])
+        print(f"step {step} loss={loss:.4f} aux={aux:.4g} "
+              f"lr={float(metrics['lr']):.3g} "
               f"grad_norm={float(metrics['grad_norm']):.4f} "
               f"step_time_s={dt:.3f}", flush=True)
         if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
@@ -122,8 +137,8 @@ def main() -> None:
     ckpt.save(args.steps - 1, state, blocking=True)
     dt = time.time() - t0
     tok_s = args.batch * args.seq * len(losses) / dt
-    span = (f"loss {losses[0]:.4f} -> {losses[-1]:.4f} " if losses
-            else "")
+    span = (f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (aux {aux:.4g}) "
+            if losses else "")
     print(f"params={n_params/1e6:.1f}M steps={len(losses)} {span}"
           f"wall={dt:.1f}s ({tok_s:,.0f} tok/s) device={model.device}")
 

@@ -1,22 +1,24 @@
-"""Decoder-only language model: the dense, hybrid and xLSTM branches.
+"""Decoder-only language model: the dense, MoE, hybrid and xLSTM branches.
 
 Counterpart of the reference package's ``models/lm.py`` for
 ``family="dense"`` — init, embedding and tied/untied head, the gated MLP,
 the train forward and the next-token loss, the dense and paged decode
 caches, ragged prefill, and the decode and speculative verify steps on
-both caches — and the train paths of ``family="hybrid"`` (hymba: each
-block's attention, global or sliding-window by layer, and its SSM heads
-side by side, fused) and ``family="ssm"`` (the xLSTM: the grouped block
-layout).  The reference's ``scan`` over stacked layers is a Python loop
-here, so the hybrid's per-layer global/window flag is a static ``if``,
-not a ``cond``.  The serving paths (prefill, caches, decode) of the
-hybrid and the xLSTM, and the other families, raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+both caches — and the train paths of ``family="moe"`` (each block's MLP
+replaced by the routed experts of ``models/moe.py``, whose aux loss the
+blocks carry into the loss), ``family="hybrid"`` (hymba: each block's
+attention, global or sliding-window by layer, and its SSM heads side by
+side, fused) and ``family="ssm"`` (the xLSTM: the grouped block layout).
+The reference's ``scan`` over stacked layers is a Python loop here, so
+the hybrid's per-layer global/window flag is a static ``if``, not a
+``cond``.  The serving paths (prefill, caches, decode) of the MoE
+decoders, the hybrid and the xLSTM, and the other families, raise
+``NotImplementedError`` naming the ROADMAP entry that brings them.
 
 The train path (``forward_train``/``loss_fn``) has no counterpart of the
 reference's ``hints.*`` calls: those pin activations and logits to a
 device mesh's shardings, and the port runs on one card with no mesh
-(parallelism is ROADMAP queue 1, item 10).  Remat ``"full"`` is
+(ROADMAP queue 1, parallelism and elasticity).  Remat ``"full"`` is
 ``torch.utils.checkpoint`` (non-reentrant) around each block, the
 reference's ``jax.checkpoint`` of the scan body; for the xLSTM around
 each group of blocks, and ``"dots"`` there is ``"full"``, as in the
@@ -24,9 +26,10 @@ reference, whose ``_xlstm_forward`` checkpoints with no policy for both.
 
 Parameters keep the reference's tree and shapes (:func:`param_shapes`):
 ``embed``, ``final_g``, and ``blocks`` with a leading layer axis on every
-entry — for the hybrid also ``blocks/ssm_*`` and ``blocks/fuse_*``, for
-the xLSTM ``blocks/mlstm`` and ``blocks/slstm``.  Dense
-``blocks`` may also be a list of per-layer dicts (what
+entry — for the MoE decoders ``blocks/router`` and ``blocks/moe_w*`` in
+place of ``blocks/mlp_*``, for the hybrid also ``blocks/ssm_*`` and
+``blocks/fuse_*``, for the xLSTM ``blocks/mlstm`` and ``blocks/slstm``.
+Dense ``blocks`` may also be a list of per-layer dicts (what
 :meth:`repro_torch.models.api.Model.serving_params` prepares once, so a
 decode step does not re-slice the stacked tensors).
 """
@@ -39,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import moe
 from repro_torch.models import recurrent as rec
 from repro_torch.models.attention import (attend_decode, attend_decode_paged,
                                           attend_train, attend_verify,
@@ -51,7 +55,12 @@ Params = Dict[str, Any]
 
 XLSTM_SERVING = "ROADMAP queue 1, xLSTM serving"
 HYMBA_SERVING = "ROADMAP queue 1, hymba serving"
+MOE_SERVING = "ROADMAP queue 1, MoE serving"
 _SERVING_LATER = {
+    "moe": (MOE_SERVING, "the engine's exact-length admission groups: "
+            "capacity dispatch makes a token's expert output depend on the "
+            "other tokens of its row, so padding or mixing lengths would "
+            "change the routing"),
     "ssm": (XLSTM_SERVING, "prefill through K6 with a final state, the "
             "recurrent decode, the engine's exact-length admission groups"),
     "hybrid": (HYMBA_SERVING, "the hybrid prefill and decode blocks, the "
@@ -62,23 +71,23 @@ _SERVING_LATER = {
 
 def require_ported(cfg: ModelConfig, *, serving: bool = False) -> None:
     """Raise ``NotImplementedError`` for what the port does not build:
-    families other than the dense decoder, the hybrid and the xLSTM, and,
-    with ``serving``, the hybrid's and the xLSTM's serving paths (their
-    train paths are ported)."""
-    plain = not cfg.is_encoder_decoder and not cfg.num_experts
-    if cfg.family in _SERVING_LATER and plain:
-        if serving:
-            item, what = _SERVING_LATER[cfg.family]
-            raise NotImplementedError(
-                f"serving {cfg.name!r} (family {cfg.family!r}) is not "
-                f"ported to PyTorch yet, only its train path is: {item} "
-                f"({what})")
-        return
-    if cfg.family != "dense" or not plain:
+    families other than the dense decoder, the MoE decoder, the hybrid
+    and the xLSTM, and, with ``serving``, the MoE decoder's, the hybrid's
+    and the xLSTM's serving paths (their train paths are ported)."""
+    built = (not cfg.is_encoder_decoder
+             and (cfg.num_experts > 0) == (cfg.family == "moe")
+             and cfg.family in ("dense", "moe", "hybrid", "ssm"))
+    if not built:
         raise NotImplementedError(
             f"family {cfg.family!r} of {cfg.name!r} is not ported to "
-            f"PyTorch yet: only the dense decoder, the hybrid and the xLSTM "
-            f"are (ROADMAP queue 1, item 11 lists the other families)")
+            f"PyTorch yet: only the dense decoder, the MoE decoder, the "
+            f"hybrid and the xLSTM are (ROADMAP queue 1 lists the VLM and "
+            f"the encoder-decoder family)")
+    if serving and cfg.family in _SERVING_LATER:
+        item, what = _SERVING_LATER[cfg.family]
+        raise NotImplementedError(
+            f"serving {cfg.name!r} (family {cfg.family!r}) is not ported to "
+            f"PyTorch yet, only its train path is: {item} ({what})")
 
 
 # ===========================================================================
@@ -128,7 +137,9 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
             blocks.update(rec.ssm_shapes(cfg, L))
             blocks.update(fuse_attn=((L, D), "ones"),
                           fuse_ssm=((L, D), "ones"))
-        if F > 0:
+        if cfg.num_experts > 0:
+            blocks.update(moe.moe_shapes(cfg, L))
+        elif F > 0:
             if cfg.act == "silu":
                 blocks["mlp_wg"] = ((L, D, F), "normal")
             blocks.update(mlp_wu=((L, D, F), "normal"),
@@ -200,17 +211,24 @@ def _mlp_residual(p, x, cfg):
 # Train
 # ===========================================================================
 def _block_train(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                 x: torch.Tensor, window: int = 0) -> torch.Tensor:
-    """One decoder block of the train path (its MoE aux loss is 0).  The
-    hybrid's block runs attention (``window`` 0 = global) and the SSM
-    heads on the same normed input and adds their fused mean."""
+                 x: torch.Tensor, window: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder block of the train path: ``(x, aux loss)``, the aux
+    loss the MoE layer's (a float32 0 elsewhere).  The hybrid's block runs
+    attention (``window`` 0 = global) and the SSM heads on the same normed
+    input and adds their fused mean."""
     h = apply_norm(p, "norm1", x, cfg.norm)
     mix = attend_train(p, h, cfg, causal=True, window=window)
     if cfg.family == "hybrid":
         dt = x.dtype
         mix = 0.5 * (mix * p["fuse_attn"].to(dt)
                      + rec.apply_ssm(p, h, cfg) * p["fuse_ssm"].to(dt))
-    return _mlp_residual(p, x + mix, cfg)
+    x = x + mix
+    if cfg.num_experts > 0:
+        out, aux = moe.apply_moe(p, apply_norm(p, "norm2", x, cfg.norm), cfg)
+        return x + out, aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _mlp_residual(p, x, cfg), aux
 
 
 def layer_window(cfg: ModelConfig, i: int) -> int:
@@ -223,21 +241,25 @@ def layer_window(cfg: ModelConfig, i: int) -> int:
 
 
 def _scan_blocks(cfg: ModelConfig, blocks, x: torch.Tensor,
-                 remat: str = "none") -> torch.Tensor:
+                 remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x, aux)`` after every block, the blocks' aux losses summed in
+    layer order from a float32 zero (the reference's scan carry)."""
     if remat == "dots":
         raise NotImplementedError(
             "remat 'dots' (save only the matmul outputs) is not ported yet: "
             "ROADMAP queue 1, remat dots")
     if remat not in ("none", "full"):
         raise ValueError(f"remat must be none, full or dots; got {remat!r}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(layers(cfg, blocks)):
         window = layer_window(cfg, i)
         if remat == "full":
-            x = checkpoint(_block_train, cfg, p, x, window,
-                           use_reentrant=False)
+            x, a = checkpoint(_block_train, cfg, p, x, window,
+                              use_reentrant=False)
         else:
-            x = _block_train(cfg, p, x, window)
-    return x
+            x, a = _block_train(cfg, p, x, window)
+        aux = aux + a
+    return x, aux
 
 
 def _xlstm_group(cfg: ModelConfig, x: torch.Tensor, mlayers, slayer):
@@ -279,9 +301,9 @@ def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(params, cfg, tokens)
     if cfg.family == "ssm":
         x = _xlstm_forward(cfg, params["blocks"], x, remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
-        x = _scan_blocks(cfg, params["blocks"], x, remat)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = _scan_blocks(cfg, params["blocks"], x, remat)
     return lm_logits(params, cfg, x), aux
 
 
@@ -290,8 +312,8 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in float32 over ``batch["tokens"]`` plus the
     aux loss; returns ``(loss, {"loss", "ce", "aux", "tokens"})`` as the
-    reference's ``loss_fn`` does (every position counts: the dense, hybrid
-    and xLSTM families have no image-token mask)."""
+    reference's ``loss_fn`` does (every position counts: the dense, MoE,
+    hybrid and xLSTM families have no image-token mask)."""
     tokens = batch["tokens"]
     logits, aux = forward_train(params, cfg, tokens, remat)
     logits = logits[:, :-1].float()

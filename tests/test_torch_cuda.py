@@ -12,13 +12,16 @@ and 2e-2 (bfloat16) of each gradient's max |g| (the same algorithm summed
 in other orders, and the gates' gradients a cumulative sum over the
 whole sequence); K5 2e-5 / 2e-2 abs+rel as the other forwards, K5-bwd's
 gradients 1e-4 / 2e-2 of each gradient's max |g| (dB, dC, dA and dD are
-sums over every channel or step, in other orders)."""
+sums over every channel or step, in other orders); K4 and its backward
+2e-2 abs+rel in bfloat16 (outputs rounded to bfloat16) and 1e-4 of the
+output's max |y| in float32 (sums over K of up to 4096 products in other
+orders)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
-                                 mlstm_scan, ops, paged_attention,
+                                 mlstm_scan, moe_gmm, ops, paged_attention,
                                  paged_attention_mq, ref, ssm_scan)
 
 pytestmark = pytest.mark.cuda
@@ -172,13 +175,38 @@ def test_verify_kernel_one_row_matches_decode_kernel(dev, dtype):
                                rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_kernel_tiles_rows_past_one_block(dev, dtype):
+    """144 query rows (T = 9, G = 16: glm4-9b at spec_k 8) do not fit in
+    one block's shared memory at D = 128: they run as two row tiles and
+    match the plain version.  Each row's bits do not depend on the tiling:
+    the 128 rows of T = 8 (one tile, the untiled launch) equal the same
+    rows inside the two-tile launch, bit for bit."""
+    q, kp, vp, tt, tl = _verify_inputs(dev, dtype, 4, 9, 2, 16, 128, 16, 8,
+                                       [1, 33, 64, 100])
+    n0 = paged_attention_mq.launches
+    got = ops.paged_decode_attention_mq(q, kp, vp, tt, base_len=tl)
+    torch.cuda.synchronize()
+    assert paged_attention_mq.launches == n0 + 1
+    want = ref.paged_attention_mq(q, kp, vp, tt, tl)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    one_tile = paged_attention_mq.paged_attention_mq_cuda(
+        q[:, :8].contiguous(), kp, vp, tt, tl)
+    torch.testing.assert_close(one_tile, got[:, :8], rtol=0, atol=0)
+    # rows per tile: all of them while they fit (128 at D = 128, 43 at
+    # D = 256), else the fewest balanced tiles
+    tile_rows = build.library().repro_paged_attention_mq_tile_rows
+    for rows, d, want in ((80, 128, 80), (128, 128, 128), (144, 128, 72),
+                          (150, 128, 75), (272, 128, 91), (43, 256, 43),
+                          (44, 256, 22)):
+        assert tile_rows(rows, d) == want, (rows, d)
+
+
 def test_verify_kernel_refuses_what_it_does_not_take(dev):
     table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
     lens = torch.ones(1, dtype=torch.int32, device=dev)
     pool = torch.zeros(2, 3, 16, 128, device=dev)
-    q = torch.zeros(1, 9, 32, 128, device=dev)  # 9 x 16 = 144 rows
-    with pytest.raises(ValueError, match="too many rows"):
-        paged_attention_mq.paged_attention_mq_cuda(q, pool, pool, table, lens)
     half = torch.zeros(1, 5, 12, 128, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         paged_attention_mq.paged_attention_mq_cuda(
@@ -568,3 +596,104 @@ def test_ssm_kernels_refuse_what_they_do_not_take(dev):
     lib = build.library()
     assert lib.repro_ssm_scan_chunk() == ssm_scan.CHUNK
     assert lib.repro_ssm_scan_channels_per_block() == ssm_scan.CHANNELS
+
+
+# K4: (name, M, K, N, sizes); None sizes: equal groups of M / 4
+GMM_CASES = [
+    ("equal", 1024, 512, 640, None),
+    ("ragged-empty", 1000, 256, 384, [300, 0, 211, 489, 0]),
+    ("rows-past-sum", 700, 128, 136, [0, 250, 0, 313]),
+    ("unaligned", 333, 100, 90, [100, 0, 200, 33]),  # not 8-aligned widths
+    ("one-row-groups", 9, 64, 64, [1, 1, 0, 1, 5, 0]),
+]
+
+
+def _gmm_inputs(dev, dtype, M, K, N, sizes, transpose_w, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    sizes = sizes or [M // 4] * 4
+    E = len(sizes)
+    x = _randn(gen, (M, K), dtype, dev)
+    w = _randn(gen, (E, N, K) if transpose_w else (E, K, N), dtype, dev)
+    return x, torch.tensor(sizes, dtype=torch.int32, device=dev), w
+
+
+def _gmm_close(got, want, dtype, name=""):
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    else:
+        _close_to_max(got, want, 1e-4, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("transpose_w", [False, True])
+@pytest.mark.parametrize("case", GMM_CASES, ids=lambda c: c[0])
+def test_moe_gmm_kernel_matches_plain(dev, dtype, transpose_w, case):
+    _, M, K, N, sizes = case
+    x, s, w = _gmm_inputs(dev, dtype, M, K, N, sizes, transpose_w)
+    n0 = moe_gmm.launches
+    got = ops.moe_gmm(x, s, w) if not transpose_w else \
+        moe_gmm.moe_gmm(x, s, w, transpose_w=True)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    want = ref.moe_gmm(x, s, w, transpose_w=transpose_w)
+    n = min(int(s.sum()), M)
+    _gmm_close(got[:n], want[:n], dtype)
+    # rows past sum(sizes) are zero (the Pallas kernel's convention)
+    assert torch.count_nonzero(got[n:]) == 0
+    # reruns give the same bits
+    for _ in range(2):
+        again = moe_gmm.moe_gmm_cuda(x, s, w, transpose_w=transpose_w)
+        assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes", [None, [100, 300, 0, 112]])
+def test_moe_gmm_function_matches_autograd_of_plain(dev, dtype, sizes):
+    """K4 forward, K4 on the transposed weights for dX and the plain dW
+    (one bmm on equal groups, a loop on ragged ones) against autograd of
+    the plain version; bit-identical on a rerun."""
+    x, s, w = _gmm_inputs(dev, dtype, 512, 256, 320, sizes, False, seed=1)
+    gen = torch.Generator().manual_seed(2)
+    dy = _randn(gen, (512, 320), dtype, dev)
+    host = s.tolist()
+    n0 = moe_gmm.launches
+    runs = []
+    for _ in range(2):
+        tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = ops.moe_gmm(tx, host, tw)
+        runs.append((y.detach(),) + torch.autograd.grad(y, (tx, tw), dy))
+    assert moe_gmm.launches == n0 + 4  # a forward and a dX each
+    ux, uw = x.clone().requires_grad_(), w.clone().requires_grad_()
+    uy = ref.moe_gmm(ux, host, uw)
+    want = (uy.detach(),) + torch.autograd.grad(uy, (ux, uw), dy)
+    for name, a, b in zip(("y", "dx", "dw"), runs[0], want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        _gmm_close(a, b, dtype, name)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_moe_gmm_kernel_refuses_what_it_does_not_take(dev):
+    x, s, w = _gmm_inputs(dev, torch.float32, 64, 32, 48, [32, 32], False)
+    n0 = moe_gmm.launches
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        moe_gmm.moe_gmm_cuda(x.cpu(), s, w)
+    with pytest.raises(ValueError, match="dtype"):
+        moe_gmm.moe_gmm_cuda(x.half(), s, w.half())
+    with pytest.raises(ValueError, match="w is torch.bfloat16"):
+        moe_gmm.moe_gmm_cuda(x, s, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gmm.moe_gmm_cuda(x.t(), s, w)
+    with pytest.raises(ValueError, match="does not contract"):
+        moe_gmm.moe_gmm_cuda(x, s, w, transpose_w=True)
+    with pytest.raises(ValueError, match="group_sizes must be"):
+        moe_gmm.moe_gmm_cuda(x, s[:1], w)
+    with pytest.raises(ValueError, match="group_sizes is on"):
+        moe_gmm.moe_gmm_cuda(x, s.cpu(), w)
+    assert moe_gmm.launches == n0
+    lib = build.library()
+    assert lib.repro_moe_gmm_tensor_cores(4096, 6400, 1) == 1
+    assert lib.repro_moe_gmm_tensor_cores(4096, 6400, 0) == 0
+    assert lib.repro_moe_gmm_tensor_cores(100, 90, 1) == 0

@@ -148,7 +148,11 @@ def test_unported_paths_raise(setup):
         eng = ServeEngine(model, tparams, spec_k=2, engine=engine)
         assert eng.spec_k == 2 and eng.hist.shape == (8, 256)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen3-moe")
+        get_config("whisper")
+    # the MoE decoders train in the port; their serving raises
+    moe = build_model(reduced(get_config("qwen3-moe")), device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE serving"):
+        ServeEngine(moe, moe.init(seed=0))
     eng = ServeEngine(model, tparams, max_batch=2, max_seq=16, engine="paged",
                       page_size=8)
     with pytest.raises(ValueError, match="KV pages"):
