@@ -16,7 +16,9 @@ them, and on any mismatch.  Phases, one or more lines each:
 
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the kernels compiled from ``src/repro_torch/kernels/csrc``;
-  3. K1 (flash prefill) against its plain version at qwen2 shapes;
+  3. K1 (flash prefill) against its plain version at qwen2 shapes, with
+     the path each case took (bf16 on the tensor cores, float32 on FMAs)
+     and its time over SDPA's;
   4. K2 (paged decode) against its plain version at qwen2 shapes;
   5. main path: ``smoke_serve`` with the paged engine at full width
      (launch counters reset just before, read just after), then the
@@ -35,11 +37,12 @@ them, and on any mismatch.  Phases, one or more lines each:
      plain path; a burst through a 2-layer draft model;
   9. K1's forward with its LSE and K1-bwd (the attention backward)
      against their plain versions at the training shape and three more
-     cases, with a check that K1-bwd is deterministic bit for bit;
+     cases, with a check that K1-bwd is deterministic bit for bit, the
+     path each took and its time over SDPA's;
  10. training main path: qwen2-1.5b at full width and full depth, seq
      4096, through ``make_train_step`` (launch counters reset just before
-     four steps, read just after), then one profiled step's device-time
-     split;
+     four steps, read just after: every bf16 K1 and K1-bwd launch on the
+     tensor cores), then one profiled step's device-time split;
  11. one step's loss and gradient norm at full width, kernel path vs
      plain path;
  12. resume is exact: 4 steps unbroken against 2 steps, a save and
@@ -47,7 +50,10 @@ them, and on any mismatch.  Phases, one or more lines each:
      algorithms on), bit for bit;
  13. K6 (the chunkwise mLSTM, with its stats) and K6-bwd against their
      plain versions at xlstm-125m's training shape, at S = 1000 and at
-     D = 64, with a check that both are deterministic bit for bit;
+     D = 64, with a check that both are deterministic bit for bit; in
+     float32 against the plain version run in float64, within 4 times
+     the float32 plain version's own error (at least the float32 TOL and
+     MLSTM_GRAD_TOL);
  14. xLSTM training main path: xlstm-125m at full width and full depth,
      seq 4096, batch 8, through ``make_train_step`` (launch counters
      reset just before four steps, read just after), then one profiled
@@ -65,10 +71,12 @@ them, and on any mismatch.  Phases, one or more lines each:
      bit for bit;
  18. K1's forward with its LSE and K1-bwd at hymba-1.5b's attention
      shapes (25 query heads, 5 KV heads of 64), global and with a 2048
-     window, in both dtypes;
+     window, in both dtypes, with the path each took and its time over
+     SDPA's;
  19. hybrid training main path: hymba-1.5b at full width and full depth,
      seq 4096, through ``make_train_step`` (launch counters reset just
-     before four steps, read just after), then one profiled step's
+     before four steps, read just after: K1 and K1-bwd all on the tensor
+     cores), then one profiled step's
      device-time split (K5, K5-bwd, K1, K1-bwd, GEMMs, rest);
  20. one hymba step's loss, gradient norm and every gradient leaf at
      full width (depth cut to 2 layers: 0 global, 1 a 2048 window, the
@@ -88,7 +96,8 @@ them, and on any mismatch.  Phases, one or more lines each:
  24. MoE training main path: phi3.5-moe at full width, depth cut to 2 of
      its 32 layers, seq 4096, batch 2, through ``make_train_step`` (launch
      counters reset just before four steps, read just after: K4 12 a
-     step), then one profiled step's device-time split (K4, K4's dX, the
+     step, K1 and K1-bwd all on the tensor cores), then one profiled
+     step's device-time split (K4, K4's dX, the
      dW GEMMs, K1, K1-bwd, GEMMs, rest);
  25. one MoE step's loss, aux loss and every gradient leaf at the same
      2-layer cut, batch 1, kernel path vs plain path, in float32 compute
@@ -188,6 +197,9 @@ SSM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # exponentials a second on the special-function units: 16 a clock on each
 # of the 132 SMs at the 1980 MHz boost clock (H100 SXM)
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
+# the tensor-core building blocks K1 and K1-bwd include (wgmma, TMA,
+# mbarriers), named beside their sources in the kernel table
+HOPPER_COMMON = "src/repro_torch/kernels/csrc/hopper_common.cuh"
 # phi3.5-moe training: train_4k's length, its global batch of 256 cut to
 # 2, its 32 layers cut to 2 (2.86 B parameters: 45.8 GB of float32
 # weights, gradients and moments)
@@ -267,13 +279,20 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def _path(tc_launches: int) -> str:
+    """The K1 / K1-bwd path one launch took, by its tensor-core count."""
+    return "tensor-cores" if tc_launches == 1 else "fma"
+
+
 def _k1_case(name, dtype, B, S, T, H, KH, D, window, gen):
     dev = torch.device("cuda")
     q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, T, KH, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, T, KH, D), generator=gen, device=dev).to(dtype)
+    n_tc = flash_attention.tc_launches
     got = flash_attention.flash_attention_cuda(q, k, v, causal=True,
                                                window=window)
+    path = _path(flash_attention.tc_launches - n_tc)
     want = flash_attention.plain(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     err = max_err(got, want, dtype)
@@ -301,9 +320,10 @@ def _k1_case(name, dtype, B, S, T, H, KH, D, window, gen):
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     bms, by = bound_ms(nbytes, flops, peak)
     log(f"[3 K1] {name} {str(dtype)[6:]} B={B} S={S} T={T} H={H} KH={KH} "
-        f"D={D} window={window}: max_abs_err={err:.3g} (tol "
+        f"D={D} window={window}: path={path} max_abs_err={err:.3g} (tol "
         f"{TOL[dtype]:g} abs+rel) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={lib_ms:.4f} bound_ms={bms:.5f} ({by})")
+        f"library_ms={lib_ms:.4f} ms/library_ms={ms / lib_ms:.2f} "
+        f"bound_ms={bms:.5f} ({by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
@@ -767,6 +787,7 @@ def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
     k, v = (torch.randn((B, T, KH, D), generator=gen, device=dev).to(dtype)
             for _ in range(2))
     mask = dict(causal=True, window=window, q_offset=q_offset)
+    n_tc = (flash_attention.tc_launches, flash_attention_bwd.tc_launches)
     out, lse = flash_attention.flash_attention_cuda(q, k, v, with_lse=True,
                                                     **mask)
     want_out, want_lse = ref.attention_fwd(q, k, v, **mask)
@@ -774,6 +795,8 @@ def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
     err_fwd = max(max_err(out, want_out, dtype), max_err(lse, want_lse, dtype))
     got = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, do,
                                                        **mask)
+    paths = (_path(flash_attention.tc_launches - n_tc[0]),
+             _path(flash_attention_bwd.tc_launches - n_tc[1]))
     want = ref.attention_bwd(q, k, v, out, lse, do, **mask)
     torch.cuda.synchronize()
     err = max(max_err(g, w, dtype, GRAD_TOL[dtype]) for g, w in zip(got, want))
@@ -820,13 +843,15 @@ def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
     fbms, fby = bound_ms(fbytes, 4.0 * B * H * D * pairs, peak)
     log(f"[{phase} K1+lse] {name} {str(dtype)[6:]} B={B} S={S} T={T} H={H} "
         f"KH={KH} "
-        f"D={D} window={window} q_offset={q_offset}: max_abs_err="
-        f"{err_fwd:.3g} (tol {TOL[dtype]:g} abs+rel, out and lse) ms="
-        f"{fwd_ms:.4f} plain_ms={fplain_ms:.4f} library_ms={lib_fwd_ms:.4f} "
+        f"D={D} window={window} q_offset={q_offset}: path={paths[0]} "
+        f"max_abs_err={err_fwd:.3g} (tol {TOL[dtype]:g} abs+rel, out and lse) "
+        f"ms={fwd_ms:.4f} plain_ms={fplain_ms:.4f} library_ms="
+        f"{lib_fwd_ms:.4f} ms/library_ms={fwd_ms / lib_fwd_ms:.2f} "
         f"bound_ms={fbms:.5f} ({fby})")
-    log(f"[{phase} K1-bwd] {name} {str(dtype)[6:]}: max_abs_err={err:.3g} (tol "
-        f"{GRAD_TOL[dtype]:g} abs+rel, dq dk dv) deterministic=True "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+    log(f"[{phase} K1-bwd] {name} {str(dtype)[6:]}: path={paths[1]} "
+        f"max_abs_err={err:.3g} (tol {GRAD_TOL[dtype]:g} abs+rel, dq dk dv) "
+        f"deterministic=True ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} ms/library_ms={ms / lib_ms:.2f} "
         f"bound_ms={bms:.5f} ({by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
@@ -848,8 +873,32 @@ def phase_k1_train(gen) -> dict:
     return main
 
 
-K1_KINDS = {"K1 forward": ("flash_fwd_kernel",),
-            "K1-bwd": ("dkdv_kernel", "dq_kernel", "delta_kernel")}
+# K1's and K1-bwd's kernels by name, both paths: the tensor cores'
+# (flash_fwd_tc_kernel, dkdv_tc_kernel, dq_tc_kernel) and the FMAs'
+K1_KINDS = {"K1 forward": ("flash_fwd_tc_kernel", "flash_fwd_kernel"),
+            "K1-bwd": ("dkdv_tc_kernel", "dq_tc_kernel", "dkdv_kernel",
+                       "dq_kernel", "delta_kernel")}
+
+
+def _reset_k1_counters() -> None:
+    for mod in (flash_attention, flash_attention_bwd):
+        mod.launches = mod.tc_launches = mod.fma_launches = 0
+
+
+def _k1_paths(cfg, want: int) -> dict:
+    """K1's and K1-bwd's launches by path since the counters were reset,
+    asserted: all ``want`` of each on the path ``cfg``'s dtype and head
+    dim take (the tensor cores in bf16 at every config's head dim)."""
+    paths = {f"{mod.__name__.rsplit('.', 1)[1]}_{p}": getattr(mod,
+                                                            f"{p}_launches")
+             for mod in (flash_attention, flash_attention_bwd)
+             for p in ("tc", "fma")}
+    tc = flash_attention.tensor_core_path(getattr(torch, cfg.dtype),
+                                          cfg.head_dim)
+    for mod in ("flash_attention", "flash_attention_bwd"):
+        assert (paths[f"{mod}_tc"], paths[f"{mod}_fma"]) == (
+            (want, 0) if tc else (0, want)), (paths, want, tc)
+    return paths
 
 
 def _device_split(prof, kinds=None):
@@ -892,8 +941,7 @@ def phase_train(cfg):
         f"{TRAIN_MICROBATCH}, remat {plan.remat}; init "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    flash_attention_bwd.launches = 0
+    _reset_k1_counters()
     losses, walls = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -905,6 +953,7 @@ def phase_train(cfg):
     want = cfg.num_layers * TRAIN_STEPS * TRAIN_MICROBATCH
     assert launches == {"flash_attention": want,
                         "flash_attention_bwd": want}, (launches, want)
+    paths = _k1_paths(cfg, want)
     assert all(np.isfinite(losses)), losses
     peak = torch.cuda.max_memory_allocated()
     steady = statistics.median(walls[1:])
@@ -912,7 +961,8 @@ def phase_train(cfg):
         f"{[round(x, 3) for x in walls]} (the first includes set-up) "
         f"steady_step_s={steady:.3f} tok_per_s="
         f"{TRAIN_BATCH * TRAIN_SEQ / steady:.1f} max_memory_allocated_GB="
-        f"{peak / 1e9:.2f} launches={launches} (want {want} each)")
+        f"{peak / 1e9:.2f} launches={launches} (want {want} each) "
+        f"paths={paths}")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1008,6 +1058,12 @@ def phase_resume(cfg2, phase: int, note: str, seq: int = 1024,
 
 
 # ---------------------------------------------------------------------------
+def _abs_rel_err(got, want) -> float:
+    """max |got - want| / (1 + |want|), the abs+rel measure of ``TOL``."""
+    want = want.double()
+    return float(((got.double() - want).abs() / (1 + want.abs())).max())
+
+
 def _grad_err(got, want, tol: float) -> float:
     """max |got - want| over max |want|, asserted within ``tol``."""
     err = float((got.float() - want.float()).abs().max()
@@ -1028,16 +1084,56 @@ def _k6_case(name, dtype, B, H, S, D, DV, gen):
     h, m, qn = mlstm_scan.mlstm_scan_cuda(*xs, with_stats=True)
     want = ref.mlstm_scan_chunked(*xs, with_stats=True)
     torch.cuda.synchronize()
-    err_fwd = max(max_err(h, want[0], dtype), max_err(m, want[1], dtype,
-                                                      TOL[torch.float32]),
-                  max_err(qn, want[2], dtype))
-    del want
+    if dtype == torch.float32:
+        # float32 against float64: the plain version on the same inputs in
+        # float64 is the oracle.  Two float32 summation orders, each within
+        # e of the exact result, may differ by 2 e, and the kernel's chunk
+        # reduction order adds another factor of 2: the kernel is held to 4
+        # times the float32 plain version's own error, and never less than
+        # the float32 TOL
+        x64 = tuple(x.double() for x in xs)
+        want64 = ref.mlstm_scan_chunked(*x64, with_stats=True)
+        plain_fwd = max(_abs_rel_err(w, o) for w, o in zip(want, want64))
+        fwd_bound = max(TOL[dtype], 4 * plain_fwd)
+        err_fwd = max(max_err(g, o, dtype, fwd_bound)
+                      for g, o in zip((h, m, qn), want64))
+        kern_fwd = max(_abs_rel_err(g, o) for g, o in zip((h, m, qn), want64))
+        vs_plain = max(_abs_rel_err(g, w) for g, w in zip((h, m, qn), want))
+        fwd_note = (f"against float64: {kern_fwd:.3g} abs+rel (bound "
+                    f"{fwd_bound:.3g} = max({TOL[dtype]:g}, 4 x the float32 "
+                    f"plain version's {plain_fwd:.3g}), h, m, qn); kernel vs "
+                    f"float32 plain {vs_plain:.3g}")
+    else:
+        err_fwd = max(max_err(h, want[0], dtype),
+                      max_err(m, want[1], dtype, TOL[torch.float32]),
+                      max_err(qn, want[2], dtype))
+        fwd_note = f"(tol {TOL[dtype]:g} abs+rel, h, m, qn)"
     again = mlstm_scan.mlstm_scan_cuda(*xs, with_stats=True)
     got = mlstm_scan.mlstm_scan_bwd_cuda(*xs, h, m, qn, dh)
-    want = ref.mlstm_scan_bwd(*xs, h, m, qn, dh)
+    if dtype == torch.float32:
+        want64 = ref.mlstm_scan_bwd(*x64, *want64, dh.double())
+        plain = ref.mlstm_scan_bwd(*xs, *want, dh)
+        plain_bwd = max(_grad_err(w, o, float("inf"))
+                        for w, o in zip(plain, want64))
+        bwd_bound = max(MLSTM_GRAD_TOL[dtype], 4 * plain_bwd)
+        err = max(_grad_err(g, o, bwd_bound) for g, o in zip(got, want64))
+        del plain, want
+        want = ref.mlstm_scan_bwd(*xs, h, m, qn, dh)
+        vs_plain = max(_grad_err(g, w, float("inf"))
+                       for g, w in zip(got, want))
+        bwd_note = (f"against float64: {err:.3g} (bound {bwd_bound:.3g} = "
+                    f"max({MLSTM_GRAD_TOL[dtype]:g}, 4 x the float32 plain "
+                    f"version's {plain_bwd:.3g}) of each gradient's max, dq dk "
+                    f"dv di df); kernel vs float32 plain {vs_plain:.3g}")
+        del want64, x64
+    else:
+        del want
+        want = ref.mlstm_scan_bwd(*xs, h, m, qn, dh)
+        err = max(_grad_err(g, w, MLSTM_GRAD_TOL[dtype])
+                  for g, w in zip(got, want))
+        bwd_note = (f"(tol {MLSTM_GRAD_TOL[dtype]:g} of each gradient's max, "
+                    f"dq dk dv di df)")
     torch.cuda.synchronize()
-    err = max(_grad_err(g, w, MLSTM_GRAD_TOL[dtype])
-              for g, w in zip(got, want))
     del want
     assert all(torch.equal(a, b) for a, b in zip((h, m, qn), again)), \
         "K6 is not deterministic"
@@ -1072,12 +1168,11 @@ def _k6_case(name, dtype, B, H, S, D, DV, gen):
                                          + 10.0 * D * DV), peak)
     shape = f"B={B} H={H} S={S} D={D} DV={DV}"
     log(f"[13 K6] {name} {str(dtype)[6:]} {shape}: max_abs_err={err_fwd:.3g} "
-        f"(tol {TOL[dtype]:g} abs+rel, h, m, qn) deterministic=True "
+        f"{fwd_note} deterministic=True "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
         f"bound_ms={bms:.5f} ({by})")
     log(f"[13 K6-bwd] {name} {str(dtype)[6:]} {shape}: max_err_of_max="
-        f"{err:.3g} (tol {MLSTM_GRAD_TOL[dtype]:g} of each gradient's max, "
-        f"dq dk dv di df) deterministic=True ms={bwd_ms:.4f} plain_ms="
+        f"{err:.3g} {bwd_note} deterministic=True ms={bwd_ms:.4f} plain_ms="
         f"{plain_bwd_ms:.4f} library_ms=None bound_ms={bbms:.5f} ({bby})")
     return (dict(max_abs_err=err_fwd, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                  bound_by=by, library_ms=None),
@@ -1439,6 +1534,7 @@ def phase_hymba_train(cfg):
                 "flash_attention_bwd": (flash_attention_bwd, "launches")}
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
+    _reset_k1_counters()
     losses, walls = [], []
     for i in range(HY_STEPS):
         t0 = time.perf_counter()
@@ -1448,6 +1544,7 @@ def phase_hymba_train(cfg):
     launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     want = cfg.num_layers * HY_STEPS
     assert launches == dict.fromkeys(counters, want), (launches, want)
+    paths = _k1_paths(cfg, want)
     assert all(np.isfinite(losses)), losses
     peak = torch.cuda.max_memory_allocated()
     steady = statistics.median(walls[1:])
@@ -1455,7 +1552,8 @@ def phase_hymba_train(cfg):
         f"step_wall_s={[round(x, 3) for x in walls]} (the first includes "
         f"set-up) steady_step_s={steady:.3f} tok_per_s="
         f"{HY_BATCH * HY_SEQ / steady:.1f} max_memory_allocated_GB="
-        f"{peak / 1e9:.2f} launches={launches} (want {want} each)")
+        f"{peak / 1e9:.2f} launches={launches} (want {want} each) "
+        f"paths={paths}")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1728,6 +1826,7 @@ def phase_moe_train(cfg):
                 "flash_attention_bwd": (flash_attention_bwd, "launches")}
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
+    _reset_k1_counters()
     losses, auxes, walls = [], [], []
     for i in range(MOE_STEPS):
         t0 = time.perf_counter()
@@ -1740,6 +1839,7 @@ def phase_moe_train(cfg):
             "flash_attention": cfg.num_layers * MOE_STEPS,
             "flash_attention_bwd": cfg.num_layers * MOE_STEPS}
     assert launches == want, (launches, want)
+    paths = _k1_paths(cfg, want["flash_attention"])
     assert all(np.isfinite(losses)) and all(np.isfinite(auxes)), losses
     peak = torch.cuda.max_memory_allocated()
     steady = statistics.median(walls[1:])
@@ -1749,7 +1849,8 @@ def phase_moe_train(cfg):
         f"steady_step_s={steady:.3f} tok_per_s="
         f"{MOE_BATCH * MOE_SEQ / steady:.1f} max_memory_allocated_GB="
         f"{peak / 1e9:.2f} launches={launches} (want {want}: K4 "
-        f"{6 * cfg.num_layers} a step, 3 forward and 3 dX a layer)")
+        f"{6 * cfg.num_layers} a step, 3 forward and 3 dX a layer) "
+        f"paths={paths}")
     weight_grad, dw_events = moe_gmm.weight_grad, []
 
     def timed_weight_grad(*a, **k):  # the dW GEMMs between CUDA events
@@ -1923,6 +2024,7 @@ def main() -> int:
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/flash_attention.py:115",
              launches=launches["flash_attention"], **k1),
         dict(name="paged_attention", route="cuda",
@@ -1935,6 +2037,7 @@ def main() -> int:
              launches=k3_launches, **k3),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/flash_xla.py:99",
              launches=train_launches["flash_attention_bwd"], **k1_bwd),
         dict(name="mlstm_scan", route="cuda",

@@ -37,8 +37,10 @@ _SIGNATURES = {
     # causal, window, q_offset, dtype, stream
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4
                                  + [_P],
-    # D -> bytes of shared memory the backward's larger kernel needs
+    # D -> bytes of shared memory the backward's larger FMA kernel needs
     "repro_flash_attention_bwd_smem": [_I],
+    # D, dtype -> 1 when K1 and K1-bwd run on the tensor cores
+    "repro_flash_attention_tensor_cores": [_I, _I],
     # q, k_pool, v_pool, page_table, kv_len, out, B, KH, G, D, P, page,
     # max_pages, scale, dtype, stream
     "repro_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

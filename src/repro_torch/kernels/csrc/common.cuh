@@ -1,5 +1,6 @@
-// Device helpers shared by the port's attention kernels: element-type
-// conversion to and from float32, and 16-byte vector loads of 8 elements.
+// Device helpers shared by the port's attention kernels: the mask,
+// element-type conversion to and from float32, and 16-byte vector loads
+// of 8 elements.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,6 +9,16 @@
 namespace repro {
 
 constexpr float NEG_INF = -1e30f;  // masked score, as in the reference
+constexpr float LOG2E = 1.4426950408889634f;
+
+// whether query position qpos sees key position kpos under the masks
+__device__ __forceinline__ bool live(int qpos, int kpos, int Tlen, int causal,
+                                     int window) {
+    bool ok = kpos < Tlen;
+    if (causal) ok = ok && qpos >= kpos;
+    if (window > 0) ok = ok && qpos - kpos < window;
+    return ok;
+}
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {

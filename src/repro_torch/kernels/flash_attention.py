@@ -12,6 +12,14 @@ kernel takes the reference layout as it is — q ``(B, S, H, D)``, k/v
 ``(B, T, KH, D)`` — with ``D`` unpadded and ``S``/``T`` ragged, so the
 wrapper neither transposes nor pads.
 
+Two paths, one rule (:func:`tensor_core_path`, defined beside K1-bwd;
+the C entries check it as well): bf16 with a head dim that is a multiple
+of 16 in [64, 128] runs on the tensor cores (``wgmma`` fed by TMA);
+float32 and other head dims (e.g. 40) run the float32 FMA kernel.  Each
+path counts its launches (``tc_launches``, ``fma_launches``) beside
+``launches``; a chosen path that fails to launch raises, and nothing
+falls back to the other.
+
 For training, :class:`FlashAttention` joins K1 to its backward, K1-bwd
 (:mod:`repro_torch.kernels.flash_attention_bwd`): the forward also
 writes each row's log-sum-exp and saves ``(q, k, v, out, lse)``, the
@@ -29,12 +37,15 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build, flash_attention_bwd, ref
+from repro_torch.kernels.flash_attention_bwd import tensor_core_path
 
 plain = ref.attention
 
-# kernel launches since the last reset (a run resets it to 0 and reads it
-# to show that its path went through the kernel)
+# kernel launches since the last reset (a run resets them to 0 and reads
+# them to show that its path went through the kernel): all, and by path
 launches = 0
+tc_launches = 0
+fma_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,7 +58,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row's log-sum-exp of its scaled, masked scores).  Raises on anything
     it does not take: tensors off the card, mixed or unsupported dtypes,
     bad shapes, non-contiguous inputs."""
-    global launches
+    global launches, tc_launches, fma_launches
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
             raise ValueError(f"flash_attention_cuda needs CUDA tensors; "
@@ -87,6 +98,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "repro_flash_attention")
     launches += 1
+    if tensor_core_path(q.dtype, D):
+        tc_launches += 1
+    else:
+        fma_launches += 1
     return out if lse is None else (out, lse)
 
 

@@ -13,7 +13,11 @@ takes the plain version, a CUDA tensor launches the kernel (or raises).
 The kernel reads the reference layout as it is — q, out, dO
 ``(B, S, H, D)``, k/v ``(B, T, KH, D)``, lse ``(B, S, H)`` float32 — and
 returns dq, dk, dv in the input dtype.  It is deterministic: no atomics,
-every sum in a fixed order.
+every sum in a fixed order.  It takes the forward's path, by the one rule
+both use (:func:`tensor_core_path`, here because K1's module imports this
+one): bf16 at a head dim that is a multiple of 16 in [64, 128] on the
+tensor cores, the rest on the float32 FMA kernels; ``tc_launches`` and
+``fma_launches`` count each path beside ``launches``.
 """
 from __future__ import annotations
 
@@ -25,16 +29,30 @@ from repro_torch.kernels import build, ref
 
 plain = ref.attention_bwd
 
-# kernel launches since the last reset (one per backward call)
+# kernel launches since the last reset (one per backward call): all, and
+# by path
 launches = 0
+tc_launches = 0
+fma_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-BQ, BK = 32, 64      # the kernels' q and kv tiles
+BQ, BK = 32, 64      # the FMA kernels' q and kv tiles
+
+
+def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
+    """True when K1 and K1-bwd run on the tensor cores for this dtype and
+    head dim: bf16, and a head dim that is a multiple of 16 in [64, 128]
+    (every head dim of the repo's configs: 64, 96, 128).  float32 stays
+    on the FMA kernels (TF32 products would break its bounds), as do the
+    other head dims.  ``repro_flash_attention_tensor_cores`` in the CUDA
+    source is the same rule."""
+    return (dtype == torch.bfloat16 and head_dim % 16 == 0
+            and 64 <= head_dim <= 128)
 
 
 def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of the larger (dK/dV) kernel at ``head_dim``:
+    """Dynamic shared memory of the larger FMA (dK/dV) kernel at ``head_dim``:
     K, V, Q and dO tiles as float32 rows of ``D + 4``, the P and dS tiles,
     and the tile's lse and delta (``smem_bytes`` in the CUDA source)."""
     return 4 * (2 * BK * (head_dim + 4) + 2 * BQ * (head_dim + 4)
@@ -53,7 +71,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dtypes, bad shapes, non-contiguous or misaligned inputs, a head dim
     outside [8, 256] or not a multiple of 8, a shared-memory layout over
     what a block may use."""
-    global launches
+    global launches, tc_launches, fma_launches
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("do", do),
                     ("lse", lse)):
         if x.device.type != "cuda":
@@ -109,6 +127,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "repro_flash_attention_bwd")
     launches += 1
+    if tensor_core_path(q.dtype, D):
+        tc_launches += 1
+    else:
+        fma_launches += 1
     return dq, dk, dv
 
 

@@ -262,14 +262,23 @@ def _mlstm_padded(chunk, S, *xs):
     return out
 
 
+def _mlstm_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype the chunked mLSTM computes in: float64 for float64 inputs
+    (the oracle ``chip_smoke.py`` holds the float32 kernels against),
+    float32 for every other input, as the kernels do."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _mlstm_gates(i_pre, f_pre, chunk):
-    """float32 ``log_i`` and ``log_f`` ``(B, H, S_pad)`` with the ragged
-    edge masked as the kernel masks it: past S the input gate is
-    ``NEG_INF`` (no contribution) and ``log_f`` is 0 (the state is kept)."""
+    """``log_i`` and ``log_f`` ``(B, H, S_pad)`` in :func:`_mlstm_dtype`
+    with the ragged edge masked as the kernel masks it: past S the input
+    gate is ``NEG_INF`` (no contribution) and ``log_f`` is 0 (the state is
+    kept)."""
     S = i_pre.shape[-1]
     pad = -S % chunk
-    log_i = F.pad(i_pre.float(), (0, pad), value=NEG_INF)
-    log_f = F.pad(F.logsigmoid(f_pre.float()), (0, pad), value=0.0)
+    cd = _mlstm_dtype(i_pre)
+    log_i = F.pad(i_pre.to(cd), (0, pad), value=NEG_INF)
+    log_f = F.pad(F.logsigmoid(f_pre.to(cd)), (0, pad), value=0.0)
     return log_i, log_f
 
 
@@ -311,12 +320,13 @@ def mlstm_scan_chunked(
     B, H, S, D = q.shape
     DV = v.shape[-1]
     scale = D ** -0.5
-    qf, kf, vf = _mlstm_padded(chunk, S, q.float() * scale, k.float(),
-                               v.float())
+    cd = _mlstm_dtype(q)
+    qf, kf, vf = _mlstm_padded(chunk, S, q.to(cd) * scale, k.to(cd),
+                               v.to(cd))
     log_i, log_f = _mlstm_gates(i_pre, f_pre, chunk)
-    C = torch.zeros((B, H, D, DV), dtype=torch.float32, device=q.device)
-    n = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
-    m_prev = torch.full((B, H), NEG_INF, dtype=torch.float32, device=q.device)
+    C = torch.zeros((B, H, D, DV), dtype=cd, device=q.device)
+    n = torch.zeros((B, H, D), dtype=cd, device=q.device)
+    m_prev = torch.full((B, H), NEG_INF, dtype=cd, device=q.device)
     hs, ms, qns = [], [], []
     for c0 in range(0, qf.shape[2], chunk):
         rows = slice(c0, c0 + chunk)
@@ -370,23 +380,25 @@ def mlstm_scan_bwd(
         log_i_j - m_t)`` (``B`` the cumulative log-forget): ``d log_i_j
         = k_j . dk_j``, ``d B_t = q_t . dq_t - k_t . dk_t``, ``d log_f``
         the reverse cumulative sum of ``d B``, and ``d f_pre = d log_f *
-        sigmoid(-f_pre)``."""
+        sigmoid(-f_pre)``.
+
+    float64 inputs (stats included) run, and return, in float64."""
     B, H, S, D = q.shape
     DV = v.shape[-1]
     scale = D ** -0.5
-    qf, kf, vf, dhf = _mlstm_padded(chunk, S, q.float() * scale, k.float(),
-                                    v.float(), dh.float())
+    cd = _mlstm_dtype(q)
+    qf, kf, vf, dhf = _mlstm_padded(chunk, S, q.to(cd) * scale, k.to(cd),
+                                    v.to(cd), dh.to(cd))
     log_i, log_f = _mlstm_gates(i_pre, f_pre, chunk)
     den = torch.maximum(qn.abs(), torch.exp(-m))
-    delta = (dh.float() * h.float()).sum(-1)
+    delta = (dh.to(cd) * h.to(cd)).sum(-1)
     sgn = torch.where(qn.abs() > torch.exp(-m), torch.sign(qn), 0.0)
     dqn, rden = _mlstm_padded(chunk, S, -delta / den * sgn, 1.0 / den)
     do = dhf * rden[..., None]
     Sp = qf.shape[2]
     starts = range(0, Sp, chunk)
-    m_prevs = [torch.full((B, H), NEG_INF, dtype=torch.float32,
-                          device=q.device)]
-    m_prevs += [m[..., c0 - 1].float() for c0 in starts if c0]
+    m_prevs = [torch.full((B, H), NEG_INF, dtype=cd, device=q.device)]
+    m_prevs += [m[..., c0 - 1].to(cd) for c0 in starts if c0]
     weights = [_mlstm_chunk_weights(log_i[..., c0:c0 + chunk],
                                     log_f[..., c0:c0 + chunk], mp)
                for c0, mp in zip(starts, m_prevs)]
@@ -394,8 +406,8 @@ def mlstm_scan_bwd(
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
     # forward walk: dq
-    C = torch.zeros((B, H, D, DV), dtype=torch.float32, device=q.device)
-    n = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
+    C = torch.zeros((B, H, D, DV), dtype=cd, device=q.device)
+    n = torch.zeros((B, H, D), dtype=cd, device=q.device)
     for c0, (_, inter_w, w, wk, c_decay) in zip(starts, weights):
         rows = slice(c0, c0 + chunk)
         kc, vc, doc, dqnc = kf[:, :, rows], vf[:, :, rows], do[:, :, rows], \
@@ -409,8 +421,8 @@ def mlstm_scan_bwd(
         C = c_decay[..., None, None] * C + kw.transpose(-1, -2) @ vc
         n = c_decay[..., None] * n + kw.sum(-2)
     # reverse walk: dk, dv
-    dC = torch.zeros((B, H, D, DV), dtype=torch.float32, device=q.device)
-    dn = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
+    dC = torch.zeros((B, H, D, DV), dtype=cd, device=q.device)
+    dn = torch.zeros((B, H, D), dtype=cd, device=q.device)
     for c0, (_, inter_w, w, wk, c_decay) in reversed(list(zip(starts,
                                                             weights))):
         rows = slice(c0, c0 + chunk)
@@ -429,7 +441,7 @@ def mlstm_scan_bwd(
     kdk = (kf * dk).sum(-1)
     d_b = (qf * dq).sum(-1) - kdk
     d_logf = torch.flip(torch.cumsum(torch.flip(d_b, [-1]), -1), [-1])
-    d_f = d_logf[..., :S] * torch.sigmoid(-f_pre.float())
+    d_f = d_logf[..., :S] * torch.sigmoid(-f_pre.to(cd))
     return ((dq[:, :, :S] * scale).to(q.dtype), dk[:, :, :S].to(k.dtype),
             dv[:, :, :S].to(v.dtype), kdk[..., :S].to(i_pre.dtype),
             d_f.to(f_pre.dtype))

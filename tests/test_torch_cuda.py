@@ -5,7 +5,9 @@ inside the fixture, never at import).  Run on a machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 2e-5 (the kernel and the plain version sum in other
-orders), bfloat16 2e-2 (outputs rounded to bfloat16); K1-bwd's float32
+orders), bfloat16 2e-2 (outputs rounded to bfloat16; K1 and K1-bwd on
+the tensor cores also round P, P^T, dS^T and dS to bfloat16 before their
+products); K1-bwd's float32
 gradients 2e-4 (the reference's own tolerance for its flash VJP, sums
 over whole sequences in other orders); K6-bwd's gradients 1e-4 (float32)
 and 2e-2 (bfloat16) of each gradient's max |g| (the same algorithm summed
@@ -335,6 +337,88 @@ def test_flash_bwd_refuses_what_it_does_not_take(dev):
     for d in (8, 64, 128, 256):
         assert (lib.repro_flash_attention_bwd_smem(d)
                 == flash_attention_bwd.smem_bytes(d))
+
+
+# K1 and K1-bwd on the tensor cores (bf16, head dims 64, 96, 128): S and T
+# off the tile edges, windows of 64 and 2048, a q_offset continuation,
+# non-causal, G = 1, 5 and 6, and the 64-row tiles of a short prefill
+# (B, S, T, H, KH, D, causal, window, q_offset)
+TC_CASES = [
+    (1, 33, 100, 4, 4, 64, False, 0, 0),
+    (1, 200, 200, 12, 2, 128, True, 0, 0),
+    (1, 1000, 1000, 10, 2, 64, True, 64, 0),
+    (1, 1000, 1000, 12, 2, 96, True, 0, 0),
+    (1, 2100, 2100, 5, 1, 64, True, 2048, 0),
+    (2, 72, 200, 12, 2, 128, True, 0, 128),
+    (8, 64, 64, 12, 2, 128, True, 0, 0),
+    (2, 48, 48, 6, 6, 96, True, 0, 0),
+]
+TC_IDS = ["cross-G1", "ragged-G6", "window64-G5", "D96", "window2048",
+          "offset", "short-prefill", "short-D96"]
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=TC_IDS)
+def test_flash_tensor_core_pair_matches_plain(dev, case):
+    B, S, T, H, KH, D, causal, window, q_offset = case
+    dtype = torch.bfloat16
+    assert flash_attention.tensor_core_path(dtype, D)
+    q, k, v, do = _train_inputs(dev, dtype, B, S, T, H, KH, D, seed=5)
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    n0 = (flash_attention.tc_launches, flash_attention_bwd.tc_launches)
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, with_lse=True,
+                                                    **mask)
+    got = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                       **mask)
+    torch.cuda.synchronize()
+    assert (flash_attention.tc_launches, flash_attention_bwd.tc_launches) \
+        == (n0[0] + 1, n0[1] + 1)
+    want_out, want_lse = ref.attention_fwd(q, k, v, **mask)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, atol=TOL[dtype], rtol=TOL[dtype])
+    # without the LSE the output is the same, bit for bit
+    torch.testing.assert_close(
+        flash_attention.flash_attention_cuda(q, k, v, **mask), out, rtol=0,
+        atol=0)
+    want = ref.attention_bwd(q, k, v, out, lse, do, **mask)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=GRAD_TOL[dtype],
+                                   rtol=GRAD_TOL[dtype], msg=name)
+
+
+def test_flash_tensor_core_bwd_is_deterministic(dev):
+    q, k, v, do = _train_inputs(dev, torch.bfloat16, 2, 700, 700, 12, 2, 128,
+                                seed=4)
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, with_lse=True)
+    first = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    for _ in range(3):
+        again = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                             do)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,D,tc", [(torch.bfloat16, 128, True),
+                                        (torch.bfloat16, 64, True),
+                                        (torch.bfloat16, 40, False),
+                                        (torch.float32, 128, False)])
+def test_flash_path_counters(dev, dtype, D, tc):
+    q, k, v, do = _train_inputs(dev, dtype, 1, 80, 80, 4, 2, D)
+    mods = (flash_attention, flash_attention_bwd)
+    before = [(m.launches, m.tc_launches, m.fma_launches) for m in mods]
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.autograd.grad(ops.flash_attention(*xs), xs, do)
+    for m, (n, n_tc, n_fma) in zip(mods, before):
+        assert (m.launches, m.tc_launches, m.fma_launches) == (
+            n + 1, n_tc + tc, n_fma + (not tc))
+
+
+def test_flash_path_rule_is_the_library_s(dev):
+    lib = build.library()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for D in range(8, 264, 8):
+            assert bool(lib.repro_flash_attention_tensor_cores(D, code)) == \
+                flash_attention.tensor_core_path(dtype, D), (dtype, D)
 
 
 # K6 and K6-bwd: (B, H, S, D, DV) — the training head width at a short S,
