@@ -84,21 +84,24 @@ them, and on any mismatch.  Phases, one or more lines each:
      path (autodiff through the sequential scan and the plain
      attention), in float32 compute;
  21. hymba resume is exact at full width, the same 2-layer cut, seq 4096;
- 22. K4 (the grouped expert matmul) against its plain version: ragged and
-     empty groups, rows past sum(sizes) (zero in K4), the transposed-W
-     read, bf16 and float32, phi3.5-moe's layer shapes at batch 2 (M =
-     20480, D = 4096, F = 6400, E = 16: the three forward products and
-     the three dX products) and qwen3-moe's (E = 128, groups of 640 rows,
-     F = 1536), with reruns bit for bit, beside ``torch.bmm`` on the
-     equal-group layout (the library yardstick);
+ 22. K4 (the grouped expert matmul) against its plain version, with the
+     path each case took (bf16 on the tensor cores: wgmma fed by TMA, a
+     persistent walk of 128 x 256 tiles; float32 and unaligned widths on
+     FMAs): ragged and empty groups, rows past sum(sizes) (zero in K4),
+     the transposed-W read, K and N off the tile edges, bf16 and float32,
+     phi3.5-moe's layer shapes at batch 2 (M = 20480, D = 4096, F = 6400,
+     E = 16: the forward products and the dX products) and qwen3-moe's
+     (E = 128, groups of 640 rows, F = 1536), with reruns bit for bit,
+     beside ``torch.bmm`` on the equal-group layout (the library
+     yardstick);
  23. ``MoeGmm`` (K4, K4 on the transposed weights for dX, dW by bmm)
      against autograd of the plain version at phi3.5-moe's shapes;
  24. MoE training main path: phi3.5-moe at full width, depth cut to 2 of
      its 32 layers, seq 4096, batch 2, through ``make_train_step`` (launch
      counters reset just before four steps, read just after: K4 12 a
-     step, K1 and K1-bwd all on the tensor cores), then one profiled
-     step's device-time split (K4, K4's dX, the
-     dW GEMMs, K1, K1-bwd, GEMMs, rest);
+     step, all on the tensor cores, and K1 and K1-bwd all on the tensor
+     cores), then one profiled step's device-time split (K4, K4's dX,
+     the dW GEMMs, K1, K1-bwd, GEMMs, rest);
  25. one MoE step's loss, aux loss and every gradient leaf at the same
      2-layer cut, batch 1, kernel path vs plain path, in float32 compute
      (a bf16 rounding upstream can flip a routing choice);
@@ -140,6 +143,7 @@ from repro_torch.kernels import build, flash_attention, ops  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd, mlstm_scan  # noqa: E402
 from repro_torch.kernels import paged_attention, paged_attention_mq  # noqa: E402
 from repro_torch.kernels import moe_gmm, ref, ssm_scan  # noqa: E402
+from repro_torch.kernels.timing import time_ms  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe, recurrent  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, smoke_serve  # noqa: E402
@@ -197,7 +201,7 @@ SSM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # exponentials a second on the special-function units: 16 a clock on each
 # of the 132 SMs at the 1980 MHz boost clock (H100 SXM)
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
-# the tensor-core building blocks K1 and K1-bwd include (wgmma, TMA,
+# the tensor-core building blocks K1, K1-bwd and K4 include (wgmma, TMA,
 # mbarriers), named beside their sources in the kernel table
 HOPPER_COMMON = "src/repro_torch/kernels/csrc/hopper_common.cuh"
 # phi3.5-moe training: train_4k's length, its global batch of 256 cut to
@@ -214,36 +218,6 @@ MOE_LEAF_BOUND = 1e-3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def time_ms(fn, reps: int = 15, inner: int = 20) -> float:
-    """Device time of one call of ``fn``: ``inner`` calls are captured in a
-    CUDA graph, so the host's launch overhead is not counted; the graph is
-    replayed ``reps`` times between CUDA events, and the median per call is
-    returned.  Inputs stay in the 50 MB L2 between calls, as they do when
-    the serving loop calls the kernel once per layer."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):  # warm up outside the capture
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
 
 
 def bound_ms(nbytes: float, flops: float, peak: float):
@@ -280,7 +254,8 @@ def phase_build() -> None:
 
 
 def _path(tc_launches: int) -> str:
-    """The K1 / K1-bwd path one launch took, by its tensor-core count."""
+    """The K1 / K1-bwd / K4 path one launch took, by its tensor-core
+    count."""
     return "tensor-cores" if tc_launches == 1 else "fma"
 
 
@@ -1659,7 +1634,9 @@ def _k4_case(name, dtype, M, K, N, sizes, gen, transpose_w=False,
     w = (torch.randn(wshape, generator=gen, device=dev) * K ** -0.5
          ).to(dtype)
     s = torch.tensor(sizes, dtype=torch.int32).to(dev)
+    n_tc = moe_gmm.tc_launches
     got = moe_gmm.moe_gmm_cuda(x, s, w, transpose_w=transpose_w)
+    path = _path(moe_gmm.tc_launches - n_tc)
     want = moe_gmm.plain(x, sizes, w, transpose_w=transpose_w)
     torch.cuda.synchronize()
     n = min(sum(sizes), M)
@@ -1670,8 +1647,6 @@ def _k4_case(name, dtype, M, K, N, sizes, gen, transpose_w=False,
     torch.cuda.synchronize()
     assert torch.equal(got, again), "K4 is not deterministic"
     del again
-    tc = build.library().repro_moe_gmm_tensor_cores(K, N, int(
-        dtype == torch.bfloat16))
     bms, by = _gmm_bound(dtype, n, M, K, N, E)
     r = dict(max_abs_err=err, bound_ms=bms, bound_by=by, ms=None,
              plain_ms=None, library_ms=None)
@@ -1693,7 +1668,7 @@ def _k4_case(name, dtype, M, K, N, sizes, gen, transpose_w=False,
     fmt = (lambda v: "null" if v is None else f"{v:.4f}")
     how = "abs+rel" if dtype == torch.bfloat16 else "of max |y|"
     log(f"[22 K4] {name} {str(dtype)[6:]} M={M} K={K} N={N} E={E} "
-        f"live_rows={n} transposed_w={transpose_w} tensor_cores={bool(tc)}: "
+        f"live_rows={n} transposed_w={transpose_w} path={path}: "
         f"max_abs_err={err:.3g} ({how} tol {GMM_TOL[dtype]:g}) "
         f"rows_past_sum_zero=True deterministic=True "
         f"ms={fmt(r['ms'])} plain_ms={fmt(r['plain_ms'])} library_ms="
@@ -1718,6 +1693,10 @@ def phase_k4(gen, cfg, qcfg) -> dict:
                  [600, 0, 1000, 448], gen, transpose_w=True, timed=False)
         _k4_case("unaligned widths", dtype, 999, 1000, 900,
                  [300, 0, 333, 366], gen, timed=False)
+        # K off the 64-deep stage, N off the 256-wide tile, a ragged tile
+        # whose x box reaches into the next group's rows
+        _k4_case("K 1000, N 904", dtype, 1500, 1000, 904,
+                 [200, 700, 0, 550], gen, timed=False)
         torch.cuda.empty_cache()
     # phi3.5-moe at batch 2: 16 groups of B C = 2 x 640 rows
     E, D, F_ = cfg.num_experts, cfg.d_model, cfg.d_ff
@@ -1788,8 +1767,8 @@ def phase_moe_gmm_bwd(gen, cfg) -> None:
 
 
 # K4's transposed-weight launches are the backward's dX
-MOE_KINDS = dict(K1_KINDS, **{"K4 dX": ("gmm_tc_kernel<true>",),
-                              "K4": ("gmm_tc_kernel", "schedule_kernel")})
+MOE_KINDS = dict(K1_KINDS, **{"K4 dX": ("gmm_wgmma_kernel<true>",),
+                              "K4": ("gmm_wgmma_kernel", "schedule_kernel")})
 
 
 def _moe_cut(cfg, **over):
@@ -1827,6 +1806,7 @@ def phase_moe_train(cfg):
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     _reset_k1_counters()
+    moe_gmm.tc_launches = moe_gmm.fma_launches = 0
     losses, auxes, walls = [], [], []
     for i in range(MOE_STEPS):
         t0 = time.perf_counter()
@@ -1840,6 +1820,12 @@ def phase_moe_train(cfg):
             "flash_attention_bwd": cfg.num_layers * MOE_STEPS}
     assert launches == want, (launches, want)
     paths = _k1_paths(cfg, want["flash_attention"])
+    # every K4 launch of the step (bf16, 8-aligned widths) on the tensor
+    # cores
+    paths["moe_gmm_tc"] = moe_gmm.tc_launches
+    paths["moe_gmm_fma"] = moe_gmm.fma_launches
+    assert (moe_gmm.tc_launches, moe_gmm.fma_launches) == (
+        want["moe_gmm"], 0), paths
     assert all(np.isfinite(losses)) and all(np.isfinite(auxes)), losses
     peak = torch.cuda.max_memory_allocated()
     steady = statistics.median(walls[1:])
@@ -1849,7 +1835,8 @@ def phase_moe_train(cfg):
         f"steady_step_s={steady:.3f} tok_per_s="
         f"{MOE_BATCH * MOE_SEQ / steady:.1f} max_memory_allocated_GB="
         f"{peak / 1e9:.2f} launches={launches} (want {want}: K4 "
-        f"{6 * cfg.num_layers} a step, 3 forward and 3 dX a layer) "
+        f"{6 * cfg.num_layers} a step, 3 forward and 3 dX a layer, all on "
+        f"the tensor cores) "
         f"paths={paths}")
     weight_grad, dw_events = moe_gmm.weight_grad, []
 
@@ -2058,6 +2045,7 @@ def main() -> int:
              launches=hy_launches["ssm_scan_bwd"], **k5_bwd),
         dict(name="moe_gmm", route="cuda",
              source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+             includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/moe_gmm.py:65",
              launches=moe_launches["moe_gmm"], **k4),
     ]

@@ -70,10 +70,14 @@ _SIGNATURES = {
     "repro_ssm_scan_bwd": [_P] * 18 + [_I] * 5 + [_P],
     # () -> channels a block of K5 and K5-bwd covers
     "repro_ssm_scan_channels_per_block": [],
-    # x, sizes, w, out, sched, M, K, N, E, trans, dtype, stream
-    "repro_moe_gmm": [_P] * 5 + [_I] * 6 + [_P],
+    # x, sizes, w, out, sched, M, K, N, E, trans, dtype, stream,
+    # tensor_cores (host int: 1 when the tensor-core kernel launched)
+    "repro_moe_gmm": [_P] * 5 + [_I] * 6 + [_P, _P],
     # K, N, dtype -> 1 when K4 runs on the tensor cores
     "repro_moe_gmm_tensor_cores": [_I, _I, _I],
+    # sizes, sched, tiles, M, N, E, blocks, max_steps, stream -> the
+    # tensor-core path's walk written out
+    "repro_moe_gmm_walk": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,9 +1,15 @@
 // Building blocks of the port's Hopper (sm_90a) kernels that run on the
 // tensor cores: `wgmma` (bf16 inputs, float32 sums) with its shared-memory
 // matrix descriptors for 128-byte-swizzled tiles, `mbarrier` waits and
-// arrivals, TMA tile loads, the register hand-over between a producer and
-// its consumer warpgroups, and the host-side encoding of a tensor map.
+// arrivals, TMA tile loads and stores (with their bulk-group waits, the
+// proxy fence and named barriers a store needs), the register hand-over
+// between a producer and its consumer warpgroups, and the host-side
+// encoding of a tensor map.
 // Raw PTX through inline asm; nothing is linked beyond the CUDA runtime.
+// The wgmma forms: m64n64k16 and m64n128k16 with A from shared memory (SS)
+// or registers (RS), and m64n256k16 SS (K4's 64 x 256 warpgroup tile), each
+// with the trans-b bit as a template argument.  K1, K1-bwd and K4 include
+// this header.
 //
 // The tile layout every user of this header shares: a tile of R rows of a
 // bf16 matrix with 64-column panels, each panel R rows of 128 bytes, as TMA
@@ -99,6 +105,52 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
         : "memory");
+}
+
+// one box of shared memory at `src` (1024-byte aligned, laid out as a load
+// of the same box would lay it) out to a 4-D tensor map; the elements
+// outside the tensor are not written.  Asynchronous: commit with
+// bulk_commit, and wait with bulk_wait_read before `src` is written again.
+// The generic-proxy writes that filled `src` must be made visible to the
+// copy first (fence_proxy_async, then a barrier of the writing threads).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+        "[%0, {%2, %3, %4, %5}], [%1];"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+           "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until at most N committed groups of stores still read their
+// shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
+}
+
+// wait until at most N committed groups of stores are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+    asm volatile("cp.async.bulk.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// order this thread's generic-proxy shared-memory writes before later
+// asynchronous-proxy accesses (a TMA store, a wgmma read)
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// a barrier of `threads` threads (a multiple of 32) on hardware barrier
+// `id` (1-15: 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+    asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -293,6 +345,59 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
           "r"(scale_d), "n"(TRANS_B));
+}
+
+// D (64 x 256, float32) += A (64 x 16) * B (16 x 256), A and B from shared
+// memory through their descriptors (an MN-major B spans four 64-column
+// panels, a K-major B 256 rows)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+        "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+        "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+        "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127 "
+        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+          "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
 // --- host: tensor maps ------------------------------------------------------

@@ -15,17 +15,28 @@ with ``transpose_w``.  The two versions differ on the rows past
 does), the plain version the last expert's product (as the reference's
 oracle does).
 
+Two paths, chosen by the C entry alone (``repro_moe_gmm_tensor_cores``
+plus 16-byte-aligned pointers): bf16 with K and N multiples of 8 runs on
+the tensor cores — ``wgmma`` fed by TMA, one persistent block an SM
+walking 128 x 256 output tiles in the order :func:`tile_order` gives;
+float32 and other widths run the float32 FMA kernel.  The entry reports
+the path it launched, and the wrapper counts it (``tc_launches``,
+``fma_launches``) beside ``launches``; a launch that fails raises, and
+nothing falls back to the other path.
+
 :class:`MoeGmm` gives K4 a backward; the reference has none and lets XLA
 differentiate its einsum.  dX is K4 again, on dY with each ``W_e`` read
 transposed (one launch); dW_e = X_eᵀ dY_e is a plain product — one
 ``torch.bmm`` on the equal-group layout of the MoE layer's capacity
 buffer, a loop over the groups in expert order otherwise.  Both are
-deterministic: K4 sums every output element in one thread in a fixed
-order, and no gradient is scattered with atomics.
+deterministic: K4 sums every output element in one warpgroup (or one
+thread) in a fixed order, and no gradient is scattered with atomics.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import bisect
+import ctypes
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -34,11 +45,67 @@ from repro_torch.kernels import build, ref
 plain = ref.moe_gmm
 
 # kernel launches since the last reset (the forward's and the backward's
-# dX products alike)
+# dX products alike): all, and by path
 launches = 0
+tc_launches = 0
+fma_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Sizes = Union[torch.Tensor, Sequence[int]]
+
+# The tensor-core path's tiling (``csrc/moe_gmm.cu``, namespace ``tc``):
+# rows and columns of an output tile, and row tiles of a raster band
+BM, BN, BAND = 128, 256, 16
+Tile = Tuple[int, int, int, int]  # (group, row0, row_end, n0)
+
+
+def schedule(sizes: Sequence[int], M: int) -> Tuple[List[int], List[int]]:
+    """The schedule kernel's output: ``row_start`` and ``tile_start``, each
+    ``E + 2`` long.  Group ``g < E`` is expert g's rows, group ``E`` the
+    rows past ``sum(sizes)`` (clamped to M); ``row_start[E + 1]`` is M and
+    ``tile_start[E + 1]`` the number of row tiles of ``BM`` rows."""
+    row_start, tile_start = [], []
+    rows = tiles = 0
+    for size in sizes:
+        lo = min(rows, M)
+        rows += max(int(size), 0)
+        row_start.append(lo)
+        tile_start.append(tiles)
+        tiles += -(-(min(rows, M) - lo) // BM)
+    lo = min(rows, M)
+    return (row_start + [lo, M],
+            tile_start + [tiles, tiles + -(-(M - lo) // BM)])
+
+
+def _tile_at(row_start, tile_start, n_ct: int, t: int) -> Tile:
+    """The ``t``-th tile of the walk (the kernel's ``tile_at``)."""
+    E = len(row_start) - 2
+    # the largest g with tile_start[g] <= t // n_ct: empty groups are skipped
+    g = bisect.bisect_right(tile_start, t // n_ct, 0, E + 1) - 1
+    first = tile_start[g]
+    rows = tile_start[g + 1] - first
+    u = t - first * n_ct
+    b = u // (BAND * n_ct)
+    in_band = min(BAND, rows - b * BAND)
+    r = u - b * BAND * n_ct
+    row0 = row_start[g] + (b * BAND + r % in_band) * BM
+    return g, row0, min(row0 + BM, row_start[g + 1]), (r // in_band) * BN
+
+
+def tile_order(sizes: Sequence[int], M: int, N: int,
+               blocks: int) -> List[List[Tile]]:
+    """For each of ``blocks`` blocks, the ``(group, row0, row_end, n0)``
+    output tiles it takes, in the order it takes them: block b takes
+    tiles b, b + blocks, ... of one walk.  The walk goes group by group
+    (the tail group E, the rows past ``sum(sizes)``, last); inside a group
+    in bands of ``BAND`` row tiles, the row tile fastest inside a band and
+    the column tile next.  A tile never straddles two groups; group g's
+    tiles cover its rows ``[row_start[g], row_start[g + 1])``."""
+    row_start, tile_start = schedule(sizes, M)
+    n_ct = -(-N // BN)
+    total = tile_start[-1] * n_ct
+    return [[_tile_at(row_start, tile_start, n_ct, t)
+             for t in range(b, total, blocks)] for b in range(blocks)]
 
 
 def _sizes_tensor(group_sizes: Sizes, device: torch.device) -> torch.Tensor:
@@ -56,8 +123,9 @@ def _sizes_tensor(group_sizes: Sizes, device: torch.device) -> torch.Tensor:
 def moe_gmm_cuda(tokens: torch.Tensor, group_sizes: Sizes, w: torch.Tensor,
                  *, transpose_w: bool = False) -> torch.Tensor:
     """Launch K4 on the current stream.  Raises on anything it does not
-    take."""
-    global launches
+    take.  Without rows, columns, depth or experts (M, N, K or E 0) the
+    product is zeros and nothing launches."""
+    global launches, tc_launches, fma_launches
     for name, x in (("tokens", tokens), ("w", w)):
         if x.device.type != "cuda":
             raise ValueError(f"moe_gmm_cuda needs CUDA tensors; {name} is "
@@ -89,19 +157,47 @@ def moe_gmm_cuda(tokens: torch.Tensor, group_sizes: Sizes, w: torch.Tensor,
     if sizes.shape != (E,):
         raise ValueError(f"group_sizes must be ({E},), got "
                          f"{tuple(sizes.shape)}")
-    if M == 0 or N == 0:
+    if M == 0 or N == 0 or K == 0 or E == 0:
         return torch.zeros((M, N), dtype=tokens.dtype, device=tokens.device)
     out = torch.empty((M, N), dtype=tokens.dtype, device=tokens.device)
     sched = torch.empty((2 * (E + 2),), dtype=torch.int32,
                         device=tokens.device)
+    tc = ctypes.c_int(-1)  # the path the library launched
     err = build.library().repro_moe_gmm(
         tokens.data_ptr(), sizes.data_ptr(), w.data_ptr(), out.data_ptr(),
         sched.data_ptr(), M, K, N, E, int(transpose_w),
         _DTYPES[tokens.dtype],
-        torch.cuda.current_stream(tokens.device).cuda_stream)
+        torch.cuda.current_stream(tokens.device).cuda_stream,
+        ctypes.addressof(tc))
     build.check(err, "repro_moe_gmm")
     launches += 1
+    if tc.value == 1:
+        tc_launches += 1
+    else:
+        fma_launches += 1
     return out
+
+
+def tile_order_cuda(sizes: torch.Tensor, M: int, N: int,
+                    blocks: int) -> List[List[Tile]]:
+    """The tensor-core path's walk as the card runs it (the kernel's own
+    schedule and ``tile_at``, in a kernel of ``blocks`` blocks that only
+    writes the tiles out): the card tests hold it against
+    :func:`tile_order`."""
+    E = sizes.numel()
+    sizes = sizes.to(dtype=torch.int32).contiguous()
+    n_tiles = (-(-M // BM) + E) * -(-N // BN)  # at most
+    steps = -(-n_tiles // blocks)
+    sched = torch.empty((2 * (E + 2),), dtype=torch.int32,
+                        device=sizes.device)
+    tiles = torch.empty((blocks, steps, 4), dtype=torch.int32,
+                        device=sizes.device)
+    err = build.library().repro_moe_gmm_walk(
+        sizes.data_ptr(), sched.data_ptr(), tiles.data_ptr(), M, N, E,
+        blocks, steps, torch.cuda.current_stream(sizes.device).cuda_stream)
+    build.check(err, "repro_moe_gmm_walk")
+    return [[tuple(t) for t in block if t[0] >= 0]
+            for block in tiles.tolist()]
 
 
 def moe_gmm(tokens: torch.Tensor, group_sizes: Sizes, w: torch.Tensor, *,

@@ -682,13 +682,24 @@ def test_ssm_kernels_refuse_what_they_do_not_take(dev):
     assert lib.repro_ssm_scan_channels_per_block() == ssm_scan.CHANNELS
 
 
-# K4: (name, M, K, N, sizes); None sizes: equal groups of M / 4
+# K4: (name, M, K, N, sizes); None sizes: equal groups of M / 4.  In bf16
+# the aligned cases run the tensor-core walk (128 x 256 tiles, 64 deep)
 GMM_CASES = [
     ("equal", 1024, 512, 640, None),
     ("ragged-empty", 1000, 256, 384, [300, 0, 211, 489, 0]),
     ("rows-past-sum", 700, 128, 136, [0, 250, 0, 313]),
     ("unaligned", 333, 100, 90, [100, 0, 200, 33]),  # not 8-aligned widths
     ("one-row-groups", 9, 64, 64, [1, 1, 0, 1, 5, 0]),
+    # group 0's last tile (rows 128-199): its x box reads group 1's rows
+    ("box-reads-next-group", 600, 256, 512, [200, 270, 130]),
+    ("m-under-128", 72, 128, 256, [30, 0, 42]),
+    ("k-1000", 640, 1000, 512, [256, 384]),       # K off the 64-deep stage
+    ("n-904", 512, 256, 904, [128, 384]),         # N off the 256-wide tile
+    ("empty-first-and-last", 700, 192, 264, [0, 300, 400, 0]),
+    ("sum-past-m", 500, 128, 256, [300, 400]),    # sizes clamped to M
+    ("e128-groups-640", 81920, 256, 384, [640] * 128),  # qwen3-moe's groups
+    # 256 tiles: every block of the walk takes one or two
+    ("more-tiles-than-blocks", 4096, 256, 2048, [1000, 1096, 0, 2000]),
 ]
 
 
@@ -781,3 +792,98 @@ def test_moe_gmm_kernel_refuses_what_it_does_not_take(dev):
     assert lib.repro_moe_gmm_tensor_cores(4096, 6400, 1) == 1
     assert lib.repro_moe_gmm_tensor_cores(4096, 6400, 0) == 0
     assert lib.repro_moe_gmm_tensor_cores(100, 90, 1) == 0
+
+
+# the sizes the walk is checked at: equal, ragged with empty groups and a
+# tail, sum(sizes) past M, qwen3-moe's 128 groups, one group of every row
+WALK_CASES = [
+    ([1280] * 16, 20480, 6400),
+    ([300, 0, 211, 489, 0], 1100, 904),
+    ([0, 700, 0, 500], 1000, 256),
+    ([640] * 128, 81920, 1536),
+    ([5000], 5000, 8),
+]
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=lambda c: f"E{len(c[0])}")
+def test_moe_gmm_walk_matches_tile_order(dev, case):
+    """The tensor-core kernel's schedule and tile walk, run on the card,
+    are the Python mirror's, at one block an SM (as the kernel launches
+    where there are enough tiles) and at 7."""
+    sizes, M, N = case
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    for n in (sms, 7):
+        assert moe_gmm.tile_order_cuda(s, M, N, n) == \
+            moe_gmm.tile_order(sizes, M, N, n)
+
+
+@pytest.mark.parametrize("dtype,K,N,offset,tc", [
+    (torch.bfloat16, 256, 512, 0, True),
+    (torch.bfloat16, 100, 512, 0, False),   # K not 8-aligned
+    (torch.bfloat16, 256, 90, 0, False),    # N not 8-aligned
+    (torch.bfloat16, 256, 512, 1, False),   # x not 16-byte aligned
+    (torch.float32, 256, 512, 0, False),
+])
+def test_moe_gmm_path_counters(dev, dtype, K, N, offset, tc):
+    """Each launch counts on the path the library reports it took; the
+    forward and dX of ``MoeGmm`` both count."""
+    M, sizes = 300, [100, 0, 150, 50]
+    x, s, w = _gmm_inputs(dev, dtype, M, K, N, sizes, False, seed=3)
+    if offset:  # the same values one element into a larger buffer
+        buf = torch.empty(M * K + offset, dtype=dtype, device=dev)
+        buf[offset:] = x.reshape(-1)
+        x = buf[offset:].view(M, K)
+    before = (moe_gmm.launches, moe_gmm.tc_launches, moe_gmm.fma_launches)
+    got = moe_gmm.moe_gmm_cuda(x, s, w)
+    torch.cuda.synchronize()
+    assert (moe_gmm.launches, moe_gmm.tc_launches, moe_gmm.fma_launches) \
+        == (before[0] + 1, before[1] + tc, before[2] + (not tc))
+    _gmm_close(got, ref.moe_gmm(x, s, w), dtype)
+    if offset:  # the backward's tensors are the wrapper's own, aligned
+        return
+    tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = (moe_gmm.tc_launches, moe_gmm.fma_launches)
+    torch.autograd.grad(ops.moe_gmm(tx, sizes, tw).float().sum(), (tx, tw))
+    assert (moe_gmm.tc_launches, moe_gmm.fma_launches) == (
+        before[0] + 2 * tc, before[1] + 2 * (not tc))
+
+
+def test_moe_gmm_launched_path_is_the_library_rule(dev):
+    """On aligned tensors, the path each launch counts is the one
+    ``repro_moe_gmm_tensor_cores`` gives for its K, N and dtype."""
+    lib = build.library()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for K in range(1, 80):
+            for N in (8, 12, 64, 904):
+                x, s, w = _gmm_inputs(dev, dtype, 40, K, N, [16, 0, 24],
+                                      False)
+                before = moe_gmm.tc_launches
+                moe_gmm.moe_gmm_cuda(x, s, w)
+                assert moe_gmm.tc_launches - before == \
+                    lib.repro_moe_gmm_tensor_cores(K, N, code), (dtype, K, N)
+
+
+def test_moe_gmm_tensor_cores_are_deterministic_at_phi35_shape(dev):
+    """phi3.5-moe's gate projection at batch 2 (16 groups of 1280 rows,
+    K 4096, N 6400) and its dX: 4000 tiles over the card's blocks, the
+    same bits on every rerun, within the bf16 bound of the plain version
+    on the first and last groups."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    M, K, N, E = 20480, 4096, 6400, 16
+    x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
+    s = torch.full((E,), M // E, dtype=torch.int32, device=dev)
+    for transpose_w in (False, True):
+        shape = (E, N, K) if transpose_w else (E, K, N)
+        w = (torch.randn(shape, generator=gen, device=dev)
+             * K ** -0.5).bfloat16()
+        first = moe_gmm.moe_gmm_cuda(x, s, w, transpose_w=transpose_w)
+        for _ in range(2):
+            assert torch.equal(
+                moe_gmm.moe_gmm_cuda(x, s, w, transpose_w=transpose_w), first)
+        for e in (0, E - 1):
+            rows = slice(e * (M // E), (e + 1) * (M // E))
+            we = w[e].float()
+            want = x[rows].float() @ (we.t() if transpose_w else we)
+            _gmm_close(first[rows], want.bfloat16(), torch.bfloat16)
+        del w, first
