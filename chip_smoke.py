@@ -50,14 +50,17 @@ them, and on any mismatch.  Phases, one or more lines each:
      algorithms on), bit for bit;
  13. K6 (the chunkwise mLSTM, with its stats) and K6-bwd against their
      plain versions at xlstm-125m's training shape, at S = 1000 and at
-     D = 64, with a check that both are deterministic bit for bit; in
-     float32 against the plain version run in float64, within 4 times
-     the float32 plain version's own error (at least the float32 TOL and
-     MLSTM_GRAD_TOL);
+     D = 64, with the path each took (bf16 on the tensor cores, in
+     chunks of 64 rows, held against the plain versions at that chunk;
+     float32 on FMAs) and a check that both are deterministic bit for
+     bit; in float32 against the plain version run in float64, within 4
+     times the float32 plain version's own error (at least the float32
+     TOL and MLSTM_GRAD_TOL);
  14. xLSTM training main path: xlstm-125m at full width and full depth,
      seq 4096, batch 8, through ``make_train_step`` (launch counters
-     reset just before four steps, read just after), then one profiled
-     step's device-time split (K6, K6-bwd, the sLSTM loop, GEMMs, rest);
+     reset just before four steps, read just after: every K6 and K6-bwd
+     launch on the tensor cores), then one profiled step's device-time
+     split (K6, K6-bwd, the sLSTM loop, GEMMs, rest);
  15. one xLSTM step's loss and gradient norm at full width, kernel path
      vs plain path (``mlstm_scan_chunked`` under autograd), bounded in
      float32 compute; in bf16 logged beside the plain path with h moved
@@ -179,6 +182,11 @@ XL_SEQ, XL_BATCH, XL_STEPS, XL_MICROBATCH = 4096, 8, 4, 1
 # K6-bwd against its plain version: max |diff| over each gradient's max
 # |g| (the same algorithm summed in other orders; bf16 outputs rounded)
 MLSTM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the chunk length phase 13's bounds count the work at: a property of the
+# chunkwise algorithm, not of the kernel that runs it (the FMA path's 32
+# rows; the tensor-core path's 64), so the bound row stays the same
+# whatever implements K6
+K6_BOUND_CHUNK = 32
 # device kernels counted as GEMMs in a profiled step's split (cuBLAS and
 # CUTLASS names)
 GEMM_KERNELS = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")
@@ -201,9 +209,11 @@ SSM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # exponentials a second on the special-function units: 16 a clock on each
 # of the 132 SMs at the 1980 MHz boost clock (H100 SXM)
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
-# the tensor-core building blocks K1, K1-bwd and K4 include (wgmma, TMA,
-# mbarriers), named beside their sources in the kernel table
+# the tensor-core building blocks K1, K1-bwd, K4, K6 and K6-bwd include
+# (wgmma, TMA, mbarriers), and K6's and K6-bwd's shared chunk walk, named
+# beside their sources in the kernel table
 HOPPER_COMMON = "src/repro_torch/kernels/csrc/hopper_common.cuh"
+MLSTM_TC = "src/repro_torch/kernels/csrc/mlstm_tc.cuh"
 # phi3.5-moe training: train_4k's length, its global batch of 256 cut to
 # 2, its 32 layers cut to 2 (2.86 B parameters: 45.8 GB of float32
 # weights, gradients and moments)
@@ -254,8 +264,8 @@ def phase_build() -> None:
 
 
 def _path(tc_launches: int) -> str:
-    """The K1 / K1-bwd / K4 path one launch took, by its tensor-core
-    count."""
+    """The path one launch of K1, K1-bwd, K4, K6 or K6-bwd took, by its
+    tensor-core count."""
     return "tensor-cores" if tc_launches == 1 else "fma"
 
 
@@ -1049,6 +1059,7 @@ def _grad_err(got, want, tol: float) -> float:
 
 def _k6_case(name, dtype, B, H, S, D, DV, gen):
     dev = torch.device("cuda")
+    chunk = mlstm_scan.kernel_chunk(dtype, D, DV)  # the plain versions' too
     q, k = (torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype)
             for _ in range(2))
     v, dh = (torch.randn((B, H, S, DV), generator=gen, device=dev).to(dtype)
@@ -1056,8 +1067,10 @@ def _k6_case(name, dtype, B, H, S, D, DV, gen):
     i_pre = torch.randn((B, H, S), generator=gen, device=dev).to(dtype)
     f_pre = (torch.randn((B, H, S), generator=gen, device=dev) + 1).to(dtype)
     xs = (q, k, v, i_pre, f_pre)
+    tc0 = (mlstm_scan.tc_launches, mlstm_scan.bwd_tc_launches)
     h, m, qn = mlstm_scan.mlstm_scan_cuda(*xs, with_stats=True)
-    want = ref.mlstm_scan_chunked(*xs, with_stats=True)
+    path = _path(mlstm_scan.tc_launches - tc0[0])
+    want = ref.mlstm_scan_chunked(*xs, with_stats=True, chunk=chunk)
     torch.cuda.synchronize()
     if dtype == torch.float32:
         # float32 against float64: the plain version on the same inputs in
@@ -1067,7 +1080,7 @@ def _k6_case(name, dtype, B, H, S, D, DV, gen):
         # times the float32 plain version's own error, and never less than
         # the float32 TOL
         x64 = tuple(x.double() for x in xs)
-        want64 = ref.mlstm_scan_chunked(*x64, with_stats=True)
+        want64 = ref.mlstm_scan_chunked(*x64, with_stats=True, chunk=chunk)
         plain_fwd = max(_abs_rel_err(w, o) for w, o in zip(want, want64))
         fwd_bound = max(TOL[dtype], 4 * plain_fwd)
         err_fwd = max(max_err(g, o, dtype, fwd_bound)
@@ -1085,15 +1098,16 @@ def _k6_case(name, dtype, B, H, S, D, DV, gen):
         fwd_note = f"(tol {TOL[dtype]:g} abs+rel, h, m, qn)"
     again = mlstm_scan.mlstm_scan_cuda(*xs, with_stats=True)
     got = mlstm_scan.mlstm_scan_bwd_cuda(*xs, h, m, qn, dh)
+    bwd_path = _path(mlstm_scan.bwd_tc_launches - tc0[1])
     if dtype == torch.float32:
-        want64 = ref.mlstm_scan_bwd(*x64, *want64, dh.double())
-        plain = ref.mlstm_scan_bwd(*xs, *want, dh)
+        want64 = ref.mlstm_scan_bwd(*x64, *want64, dh.double(), chunk=chunk)
+        plain = ref.mlstm_scan_bwd(*xs, *want, dh, chunk=chunk)
         plain_bwd = max(_grad_err(w, o, float("inf"))
                         for w, o in zip(plain, want64))
         bwd_bound = max(MLSTM_GRAD_TOL[dtype], 4 * plain_bwd)
         err = max(_grad_err(g, o, bwd_bound) for g, o in zip(got, want64))
         del plain, want
-        want = ref.mlstm_scan_bwd(*xs, h, m, qn, dh)
+        want = ref.mlstm_scan_bwd(*xs, h, m, qn, dh, chunk=chunk)
         vs_plain = max(_grad_err(g, w, float("inf"))
                        for g, w in zip(got, want))
         bwd_note = (f"against float64: {err:.3g} (bound {bwd_bound:.3g} = "
@@ -1103,7 +1117,7 @@ def _k6_case(name, dtype, B, H, S, D, DV, gen):
         del want64, x64
     else:
         del want
-        want = ref.mlstm_scan_bwd(*xs, h, m, qn, dh)
+        want = ref.mlstm_scan_bwd(*xs, h, m, qn, dh, chunk=chunk)
         err = max(_grad_err(g, w, MLSTM_GRAD_TOL[dtype])
                   for g, w in zip(got, want))
         bwd_note = (f"(tol {MLSTM_GRAD_TOL[dtype]:g} of each gradient's max, "
@@ -1122,17 +1136,19 @@ def _k6_case(name, dtype, B, H, S, D, DV, gen):
     bwd_ms = time_ms(lambda: mlstm_scan.mlstm_scan_bwd_cuda(*xs, h, m, qn,
                                                             dh),
                      reps=5, inner=3)
-    plain_ms = time_ms(lambda: ref.mlstm_scan_chunked(*xs, with_stats=True),
+    plain_ms = time_ms(lambda: ref.mlstm_scan_chunked(*xs, with_stats=True,
+                                                      chunk=chunk),
                        reps=3, inner=1)
-    plain_bwd_ms = time_ms(lambda: ref.mlstm_scan_bwd(*xs, h, m, qn, dh),
+    plain_bwd_ms = time_ms(lambda: ref.mlstm_scan_bwd(*xs, h, m, qn, dh,
+                                                      chunk=chunk),
                            reps=3, inner=1)
     # bounds: each input read once, each output written once; the
-    # products of 32-row chunks, per row: K6 2 L (D + DV) (scores and
-    # their product with v) + 4 D DV (q C and the state update); K6-bwd
-    # 2 L (3 D + 2 DV) (S, dS and the three intra-chunk products) +
-    # 10 D DV (the state recomputed, q's and k's inter-chunk products, dC
-    # and v's inter-chunk product)
-    L, rows = mlstm_scan.CHUNK, B * H * S
+    # products of chunks of K6_BOUND_CHUNK rows, per row: K6 2 L (D + DV)
+    # (scores and their product with v) + 4 D DV (q C and the state
+    # update); K6-bwd 2 L (3 D + 2 DV) (S, dS and the three intra-chunk
+    # products) + 10 D DV (the state recomputed, q's and k's inter-chunk
+    # products, dC and v's inter-chunk product)
+    L, rows = K6_BOUND_CHUNK, B * H * S
     size = torch.finfo(dtype).bits // 8
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     fbytes = rows * (size * (2 * D + 2 * DV) + 2 * size + 8)
@@ -1142,11 +1158,12 @@ def _k6_case(name, dtype, B, H, S, D, DV, gen):
     bbms, bby = bound_ms(bbytes, rows * (2.0 * L * (3 * D + 2 * DV)
                                          + 10.0 * D * DV), peak)
     shape = f"B={B} H={H} S={S} D={D} DV={DV}"
-    log(f"[13 K6] {name} {str(dtype)[6:]} {shape}: max_abs_err={err_fwd:.3g} "
-        f"{fwd_note} deterministic=True "
+    log(f"[13 K6] {name} {str(dtype)[6:]} {shape} path={path} chunk={chunk}: "
+        f"max_abs_err={err_fwd:.3g} {fwd_note} deterministic=True "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
         f"bound_ms={bms:.5f} ({by})")
-    log(f"[13 K6-bwd] {name} {str(dtype)[6:]} {shape}: max_err_of_max="
+    log(f"[13 K6-bwd] {name} {str(dtype)[6:]} {shape} path={bwd_path}: "
+        f"max_err_of_max="
         f"{err:.3g} {bwd_note} deterministic=True ms={bwd_ms:.4f} plain_ms="
         f"{plain_bwd_ms:.4f} library_ms=None bound_ms={bbms:.5f} ({bby})")
     return (dict(max_abs_err=err_fwd, ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -1170,8 +1187,15 @@ def phase_k6(gen, cfg):
 
 
 _SLSTM_LOOP = recurrent.slstm_loop
+# K6's and K6-bwd's kernels by name, both paths: the tensor cores'
+# (mlstm_fwd_tc_kernel; mlstm_dv_tc_kernel, mlstm_dq_tc_kernel,
+# mlstm_dk_tc_kernel) and the FMAs' (mlstm_fwd_kernel; mlstm_dv_kernel,
+# mlstm_dqdk_kernel), and the backward's prologue and gate epilogue, which
+# both paths run
+K6_KERNELS = ("mlstm_fwd_kernel", "mlstm_fwd_tc_kernel")
 K6_BWD_KERNELS = ("mlstm_prep_kernel", "mlstm_dv_kernel", "mlstm_dqdk_kernel",
-                  "mlstm_gates_kernel")
+                  "mlstm_dv_tc_kernel", "mlstm_dq_tc_kernel",
+                  "mlstm_dk_tc_kernel", "mlstm_gates_kernel")
 
 
 def _mark(grad=None):
@@ -1211,7 +1235,7 @@ def _xlstm_split(prof, n_slstm: int):
             inside, markers = not inside, markers + 1
             continue
         low = name.lower()
-        if "mlstm_fwd_kernel" in name:
+        if any(k in name for k in K6_KERNELS):
             kind = "K6"
         elif any(k in name for k in K6_BWD_KERNELS):
             kind = "K6-bwd"
@@ -1252,8 +1276,9 @@ def phase_xlstm_train(cfg):
         f"microbatch {XL_MICROBATCH}, remat {plan.remat}; init "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    mlstm_scan.launches = 0
-    mlstm_scan.bwd_launches = 0
+    for counter in ("launches", "bwd_launches", "tc_launches",
+                    "bwd_tc_launches"):
+        setattr(mlstm_scan, counter, 0)
     losses, walls = [], []
     for i in range(XL_STEPS):
         t0 = time.perf_counter()
@@ -1262,9 +1287,13 @@ def phase_xlstm_train(cfg):
         walls.append(time.perf_counter() - t0)
     launches = {"mlstm_scan": mlstm_scan.launches,
                 "mlstm_scan_bwd": mlstm_scan.bwd_launches}
+    tc_launches = {"mlstm_scan": mlstm_scan.tc_launches,
+                   "mlstm_scan_bwd": mlstm_scan.bwd_tc_launches}
     want = n_m * XL_STEPS * XL_MICROBATCH
     assert launches == {"mlstm_scan": want, "mlstm_scan_bwd": want}, \
         (launches, want)
+    # every bf16 launch at xlstm-125m's head width (384) on the tensor cores
+    assert tc_launches == launches, (tc_launches, launches)
     assert all(np.isfinite(losses)), losses
     peak = torch.cuda.max_memory_allocated()
     steady = statistics.median(walls[1:])
@@ -1272,7 +1301,8 @@ def phase_xlstm_train(cfg):
         f"step_wall_s={[round(x, 3) for x in walls]} (the first includes "
         f"set-up) steady_step_s={steady:.3f} tok_per_s="
         f"{XL_BATCH * XL_SEQ / steady:.1f} max_memory_allocated_GB="
-        f"{peak / 1e9:.2f} launches={launches} (want {want} each)")
+        f"{peak / 1e9:.2f} launches={launches} (want {want} each; on the "
+        f"tensor cores {tc_launches})")
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with mock.patch.object(recurrent, "slstm_loop", _marked_slstm_loop), \
             torch.profiler.profile(activities=acts) as prof:
@@ -2029,10 +2059,12 @@ def main() -> int:
              launches=train_launches["flash_attention_bwd"], **k1_bwd),
         dict(name="mlstm_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
+             includes=[MLSTM_TC, HOPPER_COMMON],
              replaces="src/repro/kernels/mlstm_scan.py:117",
              launches=xl_launches["mlstm_scan"], **k6),
         dict(name="mlstm_scan_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/mlstm_scan_bwd.cu",
+             includes=[MLSTM_TC, HOPPER_COMMON],
              replaces="src/repro/kernels/ref.py:207",
              launches=xl_launches["mlstm_scan_bwd"], **k6_bwd),
         dict(name="ssm_scan", route="cuda",

@@ -52,14 +52,19 @@ _SIGNATURES = {
     # rows = T * G, D -> query rows of one of K3's row tiles
     "repro_paged_attention_mq_tile_rows": [_I, _I],
     # q, k, v, i_pre, f_pre, h, m (nullable), qn (nullable), B, H, S, D,
-    # DV, scale, dtype, stream
-    "repro_mlstm_scan": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
-    # D -> bytes of shared memory K6 needs
+    # DV, scale, dtype, stream, tensor_cores (host int: 1 when the
+    # tensor-core kernel launched)
+    "repro_mlstm_scan": [_P] * 8 + [_I] * 5 + [_F, _I, _P, _P],
+    # D, DV, dtype -> 1 when K6 and K6-bwd run on the tensor cores
+    "repro_mlstm_scan_tensor_cores": [_I, _I, _I],
+    # D -> bytes of shared memory K6's FMA kernel needs
     "repro_mlstm_scan_smem": [_I],
+    # () -> bytes of shared memory of the tensor-core walks
+    "repro_mlstm_scan_tc_smem": [],
     # q, k, v, i_pre, f_pre, h, m, qn, dh, rden, dqn, qdq, kdk, dq, dk, dv,
-    # d i_pre, d f_pre, B, H, S, D, DV, scale, dtype, stream
-    "repro_mlstm_scan_bwd": [_P] * 18 + [_I] * 5 + [_F, _I, _P],
-    # D, DV -> bytes of shared memory K6-bwd's larger walk needs
+    # d i_pre, d f_pre, B, H, S, D, DV, scale, dtype, stream, tensor_cores
+    "repro_mlstm_scan_bwd": [_P] * 18 + [_I] * 5 + [_F, _I, _P, _P],
+    # D, DV -> bytes of shared memory K6-bwd's larger FMA walk needs
     "repro_mlstm_scan_bwd_smem": [_I, _I],
     # x, dt, A, B, C, D, y, ckpt (nullable), B, S, Din, N, dtype, stream
     "repro_ssm_scan": [_P] * 8 + [_I] * 5 + [_P],

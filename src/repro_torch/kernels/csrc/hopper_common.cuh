@@ -8,8 +8,8 @@
 // Raw PTX through inline asm; nothing is linked beyond the CUDA runtime.
 // The wgmma forms: m64n64k16 and m64n128k16 with A from shared memory (SS)
 // or registers (RS), and m64n256k16 SS (K4's 64 x 256 warpgroup tile), each
-// with the trans-b bit as a template argument.  K1, K1-bwd and K4 include
-// this header.
+// with the trans-b bit as a template argument; m64n64k16 SS also with the
+// trans-a bit.  K1, K1-bwd, K4, K6 and K6-bwd include this header.
 //
 // The tile layout every user of this header shares: a tile of R rows of a
 // bf16 matrix with 64-column panels, each panel R rows of 128 bytes, as TMA
@@ -153,6 +153,19 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
     asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
 }
 
+// arrive at named barrier `id` without waiting: the producer's half of a
+// hand-over whose consumers wait with named_barrier(id, threads)
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+// byte offset of element (r, c) of a 64-column bf16 panel in the 128-byte
+// swizzle (the 16-byte chunks of row r XOR-ed with r % 8), for threads
+// that read or write such a tile themselves
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+    return (uint32_t)(r * 128 + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1));
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
     asm volatile("prefetch.tensormap [%0];"
                  :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -238,8 +251,10 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N],
 }
 
 // D (64 x 64, float32) += A (64 x 16) * B (16 x 64), A and B from shared
-// memory through their descriptors
-template <int TRANS_B>
+// memory through their descriptors.  TRANS_A 1 reads A MN-major (the M
+// rows run along a row of the tile, the 16 k of a step down 16 of its
+// rows), by the same layout rule as an MN-major B
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
     asm volatile(
@@ -248,7 +263,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
         "%26, %27, %28, %29, %30, %31 "
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -257,7 +272,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B),
+          "n"(TRANS_A));
 }
 
 // D (64 x 64, float32) += A (64 x 16, bf16 in registers) * B (16 x 64)
@@ -429,19 +445,20 @@ static inline EncodeTiledFn encode_tiled() {
 }
 
 // A contiguous bf16 tensor (n3, n2, n1, n0) — n0 innermost, 16-byte
-// aligned, n0 a multiple of 8 — as a 4-D map read in boxes of 64 x 1 x
-// `rows` x 1 elements with the 128-byte swizzle.  Box elements past an
-// edge (n0 past the head dim, n2 past a ragged length) arrive as zeros.
-static inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base,
-                                        int n3, int n2, int n1, int n0,
-                                        int rows) {
+// aligned, n0 a multiple of 8 — as a 4-D map read in boxes of 64 x box1 x
+// box2 x 1 elements with the 128-byte swizzle.  Box elements past an edge
+// arrive as zeros.
+static inline cudaError_t make_map_bf16_box(CUtensorMap* map,
+                                            const void* base, int n3,
+                                            int n2, int n1, int n0,
+                                            int box1, int box2) {
     const EncodeTiledFn enc = encode_tiled();
     if (enc == nullptr) return cudaErrorNotSupported;
     const cuuint64_t e = sizeof(__nv_bfloat16);
     const cuuint64_t dims[4] = {(cuuint64_t)n0, (cuuint64_t)n1,
                                 (cuuint64_t)n2, (cuuint64_t)n3};
     const cuuint64_t strides[3] = {e * n0, e * n0 * n1, e * n0 * n1 * n2};
-    const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+    const cuuint32_t box[4] = {64, (cuuint32_t)box1, (cuuint32_t)box2, 1};
     const cuuint32_t step[4] = {1, 1, 1, 1};
     const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                            const_cast<void*>(base), dims, strides, box, step,
@@ -450,6 +467,25 @@ static inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base,
                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// boxes of 64 x 1 x `rows` x 1 (64 columns of `rows` along n2: the
+// (B, S, H, D) layout read a tile of S at a time for one head); a box past
+// the head dim or a ragged length reads zeros
+static inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base,
+                                        int n3, int n2, int n1, int n0,
+                                        int rows) {
+    return make_map_bf16_box(map, base, n3, n2, n1, n0, 1, rows);
+}
+
+// boxes of 64 x `rows` x 1 x 1 (64 columns of `rows` along n1: the
+// (B, H, S, W) layout read a chunk of S at a time); a box past a ragged
+// length reads zeros
+static inline cudaError_t make_map_bf16_rows(CUtensorMap* map,
+                                             const void* base, int n3,
+                                             int n2, int n1, int n0,
+                                             int rows) {
+    return make_map_bf16_box(map, base, n3, n2, n1, n0, rows, 1);
 }
 
 }  // namespace hopper

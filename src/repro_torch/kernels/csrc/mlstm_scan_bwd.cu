@@ -25,19 +25,37 @@
 // What bounds it on the H100: at the training shape (B = 8, H = 4,
 // S = 4096, D = DV = 384, bf16) it reads q, k, v, h, dh and writes dq, dk,
 // dv, about 806 MB (0.24 ms at 3.35 TB/s); its products, 2 L (3 D +
-// 2 DV) + 10 D DV flops a row, are 209 GFLOP (0.21 ms on the tensor
-// cores).  This first version runs float32 FMAs out of shared memory,
-// far above that.  What the design does:
-//   * four kernels on the caller's stream: a prologue writes each row's
-//     1 / den and dqn (one warp a row, dh . h over DV); the dv walk, one
-//     block per (DV tile of 64, head, batch), walks the chunks in reverse
-//     carrying its (D, 64) slice of dC (K6's walk, with the roles of q and
-//     k swapped); the dq and dk walks, one block per (D tile of 64 rows,
-//     head, batch) and direction, carry a (64, DV) slice of C (forward) or
-//     dC (reverse) with its slice of n or dn, so that dq and dk are whole
-//     in their block and need no sum over tiles; an epilogue, one block
-//     per (batch, head), sums the walks' per-tile partials of q . dq and
-//     k . dk in a fixed order and takes the reverse cumulative sum;
+// 2 DV) + 10 D DV flops a row, are 209 GFLOP at L = 32 (0.21 ms on the
+// tensor cores).  Kernels on the caller's stream: a prologue writes each row's 1 / den and dqn (one warp a row, dh . h over
+// DV); the walks: dv, one block per (DV tile of 64, head, batch), walks
+// the chunks in reverse carrying its 64 columns of dC (K6's walk, with the
+// roles of q and k swapped); dq and dk, one block per (D tile of 64 rows,
+// head, batch) and direction, carry 64 rows of C (forward) or dC
+// (reverse) with their slice of n or dn, so that dq and dk are whole in
+// their block and need no sum over tiles; an epilogue, one block per
+// (batch, head), sums the walks' per-tile partials of q . dq and k . dk in
+// a fixed order and takes the reverse cumulative sum.  The walks take one
+// of two paths, chosen by `repro_mlstm_scan_tensor_cores` (mlstm_scan.cu);
+// the prologue and the epilogue are the same on both (0.13 ms of the
+// backward at the training shape):
+//
+// The tensor-core path (bf16, D and DV multiples of 64 in [64, 384]):
+// `mlstm_dv_tc_kernel`, `mlstm_dq_tc_kernel` and `mlstm_dk_tc_kernel`, one
+// after the other, 192 blocks each at the training shape (a (head, batch)
+// gets DV/64 dv blocks and D/64 dq and dk blocks), the walk of
+// mlstm_tc.cuh in its DV, DQ and DK modes, each compiled for its number of
+// 64-column panels (D/64 for dv, DV/64 for dq and dk): chunks of 64 rows,
+// every product on wgmma, the block's slice of the state in float32
+// registers, the operands streamed by TMA; dS = dO v^T + dqn and its
+// product with W in float32, going to the tensor cores (like the state's
+// copy and Z) as a hi/lo pair of bf16.  The partials of q . dq and k . dk
+// come from the float32 accumulators before dq and dk are rounded.
+//
+// The FMA path (float32, and bf16 at other widths): `mlstm_dv_kernel` and
+// `mlstm_dqdk_kernel`, float32 FMAs out of shared memory over chunks of 32
+// rows.
+//
+// On both paths:
 //   * the states are recomputed, not saved: the forward writes only each
 //     row's m and qn (two floats), and every walk recomputes its chunk's
 //     weights from the gates and the saved m at the chunk's start, with
@@ -46,6 +64,7 @@
 //     a fixed order, so the result is the same bit for bit from run to run
 //     (exact resume needs that).
 #include "mlstm_common.cuh"
+#include "mlstm_tc.cuh"
 
 namespace {
 
@@ -289,6 +308,152 @@ mlstm_gates_kernel(const float* __restrict__ fp, const float* __restrict__ qdq,
     }
 }
 
+// the tensor-core walks, one kernel each (a dq walk beside a dk walk on
+// the card ran its chunks 1.6x slower than beside another dq walk), each
+// over P panels: dv one block per DV tile, dq and dk one per D tile
+template <int P>
+__global__ void __launch_bounds__(tc::THREADS, 1)
+mlstm_dv_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                   const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mdh,
+                   const tc::Params p) {
+    extern __shared__ __align__(16) uint8_t tc_smem[];
+    tc::walk<tc::DV, P>(tc_smem, &mk, &mq, &mdh, p, blockIdx.x);
+}
+
+template <int P>
+__global__ void __launch_bounds__(tc::THREADS, 1)
+mlstm_dq_tc_kernel(const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv,
+                   const __grid_constant__ CUtensorMap mdh,
+                   const tc::Params p) {
+    extern __shared__ __align__(16) uint8_t tc_smem[];
+    tc::walk<tc::DQ, P>(tc_smem, &mdh, &mv, &mk, p, blockIdx.x);
+}
+
+template <int P>
+__global__ void __launch_bounds__(tc::THREADS, 1)
+mlstm_dk_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                   const __grid_constant__ CUtensorMap mv,
+                   const __grid_constant__ CUtensorMap mdh,
+                   const tc::Params p) {
+    extern __shared__ __align__(16) uint8_t tc_smem[];
+    tc::walk<tc::DK, P>(tc_smem, &mv, &mdh, &mq, p, blockIdx.x);
+}
+
+// one walk's launch: `kern` over (tiles, H, B) with three tensor maps
+template <typename Kernel>
+cudaError_t launch_walk(Kernel kern, const CUtensorMap& m0,
+                        const CUtensorMap& m1, const CUtensorMap& m2,
+                        const tc::Params& p, int tiles, int H, int B,
+                        cudaStream_t stream) {
+    kern<<<dim3(tiles, H, B), tc::THREADS, tc::SMEM, stream>>>(m0, m1, m2, p);
+    return cudaGetLastError();
+}
+
+// the three walks at P panels for dv (P = D / 64) or for dq and dk (P =
+// DV / 64): `which` 0 launches dv, 1 dq and dk
+template <int P>
+cudaError_t launch_walks_p(int which, const CUtensorMap& mq,
+                           const CUtensorMap& mk, const CUtensorMap& mv,
+                           const CUtensorMap& mdh, const tc::Params& pdv,
+                           const tc::Params& pdq, const tc::Params& pdk,
+                           int B, int H, int D, int DV, cudaStream_t stream) {
+    // once per instance (not per launch, so that launches can be captured
+    // in a graph)
+    static const cudaError_t attr[3] = {
+        cudaFuncSetAttribute(mlstm_dv_tc_kernel<P>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tc::SMEM),
+        cudaFuncSetAttribute(mlstm_dq_tc_kernel<P>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tc::SMEM),
+        cudaFuncSetAttribute(mlstm_dk_tc_kernel<P>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tc::SMEM)};
+    for (const cudaError_t e : attr)
+        if (e != cudaSuccess) return e;
+    if (which == 0)
+        return launch_walk(mlstm_dv_tc_kernel<P>, mq, mk, mdh, pdv, DV / 64,
+                           H, B, stream);
+    cudaError_t err = launch_walk(mlstm_dq_tc_kernel<P>, mk, mv, mdh, pdq,
+                                  D / 64, H, B, stream);
+    if (err != cudaSuccess) return err;
+    return launch_walk(mlstm_dk_tc_kernel<P>, mq, mv, mdh, pdk, D / 64, H, B,
+                       stream);
+}
+
+cudaError_t launch_walks(int which, int P, const CUtensorMap& mq,
+                         const CUtensorMap& mk, const CUtensorMap& mv,
+                         const CUtensorMap& mdh, const tc::Params& pdv,
+                         const tc::Params& pdq, const tc::Params& pdk, int B,
+                         int H, int D, int DV, cudaStream_t stream) {
+    switch (P) {
+        case 1: return launch_walks_p<1>(which, mq, mk, mv, mdh, pdv, pdq,
+                                         pdk, B, H, D, DV, stream);
+        case 2: return launch_walks_p<2>(which, mq, mk, mv, mdh, pdv, pdq,
+                                         pdk, B, H, D, DV, stream);
+        case 3: return launch_walks_p<3>(which, mq, mk, mv, mdh, pdv, pdq,
+                                         pdk, B, H, D, DV, stream);
+        case 4: return launch_walks_p<4>(which, mq, mk, mv, mdh, pdv, pdq,
+                                         pdk, B, H, D, DV, stream);
+        case 5: return launch_walks_p<5>(which, mq, mk, mv, mdh, pdv, pdq,
+                                         pdk, B, H, D, DV, stream);
+        default: return launch_walks_p<6>(which, mq, mk, mv, mdh, pdv, pdq,
+                                          pdk, B, H, D, DV, stream);
+    }
+}
+
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const float* ip, const float* fp, const void* h,
+                      const float* m, const float* qn, const void* dh,
+                      float* rden, float* dqn, float* qdq, float* kdk,
+                      void* dq, void* dk, void* dv, float* di, float* df,
+                      int B, int H, int S, int D, int DV, float scale,
+                      cudaStream_t stream) {
+    using repro::hopper::make_map_bf16_rows;
+    using bf16 = __nv_bfloat16;
+    CUtensorMap mq, mk, mv, mdh;
+    cudaError_t err = make_map_bf16_rows(&mq, q, B, H, S, D, tc::L);
+    if (err == cudaSuccess) err = make_map_bf16_rows(&mk, k, B, H, S, D, tc::L);
+    if (err == cudaSuccess) err = make_map_bf16_rows(&mv, v, B, H, S, DV, tc::L);
+    if (err == cudaSuccess)
+        err = make_map_bf16_rows(&mdh, dh, B, H, S, DV, tc::L);
+    if (err != cudaSuccess) return err;
+    const int rows = B * H * S;
+    mlstm_prep_kernel<bf16><<<(rows + THREADS / 32 - 1) / (THREADS / 32),
+                              THREADS, 0, stream>>>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(dh), m, qn,
+        rden, dqn, rows, DV);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int ntd = D / 64;
+    const tc::Params base{ip, fp, m, rden, dqn, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, S, 0, ntd, scale};
+    tc::Params pdv = base, pdq = base, pdk = base;
+    pdv.out = static_cast<bf16*>(dv);
+    pdv.Wout = DV;
+    pdq.out = static_cast<bf16*>(dq);
+    pdq.part = qdq;
+    pdq.u = static_cast<const bf16*>(q);
+    pdq.Wout = D;
+    pdk.out = static_cast<bf16*>(dk);
+    pdk.part = kdk;
+    pdk.u = static_cast<const bf16*>(k);
+    pdk.Wout = D;
+    // dv over q's and k's D / 64 panels, then dq and dk over dh's and v's
+    // DV / 64
+    err = launch_walks(0, D / 64, mq, mk, mv, mdh, pdv, pdq, pdk, B, H, D, DV,
+                       stream);
+    if (err != cudaSuccess) return err;
+    err = launch_walks(1, DV / 64, mq, mk, mv, mdh, pdv, pdq, pdk, B, H, D,
+                       DV, stream);
+    if (err != cudaSuccess) return err;
+    mlstm_gates_kernel<<<B * H, THREADS, 0, stream>>>(fp, qdq, kdk, di, df, S,
+                                                     ntd);
+    return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* ip, const float* fp, const void* h,
@@ -337,7 +502,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Bytes of dynamic shared memory the larger of K6-bwd's walks needs.
+// the path rule, mlstm_scan.cu's (the kernels link into one library)
+extern "C" int repro_mlstm_scan_tensor_cores(int D, int DV, int dtype);
+
+// Bytes of dynamic shared memory the larger of K6-bwd's FMA walks needs.
 extern "C" int repro_mlstm_scan_bwd_smem(int D, int DV) {
     const int a = vtile_floats(D), b = dtile_floats(DV);
     return (int)(sizeof(float) * (a > b ? a : b));
@@ -345,18 +513,26 @@ extern "C" int repro_mlstm_scan_bwd_smem(int D, int DV) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, h, dh, dq, dk, dv); gates,
 // m, qn, di, df float32.  Scratch (float32): rden and dqn (B, H, S), qdq
-// and kdk (B, H, S, ceil(D / 64)).  scale = D^-0.5.  Returns a
-// cudaError_t.
+// and kdk (B, H, S, ceil(D / 64)).  scale = D^-0.5.  *tensor_cores (host
+// memory) gets 1 when the tensor-core walks were launched, 0 when the FMA
+// walks were.  Returns a cudaError_t.
 extern "C" int repro_mlstm_scan_bwd(
         const void* q, const void* k, const void* v, const float* ip,
         const float* fp, const void* h, const float* m, const float* qn,
         const void* dh, float* rden, float* dqn, float* qdq, float* kdk,
         void* dq, void* dk, void* dv, float* di, float* df, int B, int H,
-        int S, int D, int DV, float scale, int dtype, void* stream) {
+        int S, int D, int DV, float scale, int dtype, void* stream,
+        int* tensor_cores) {
     if (B < 1 || H < 1 || S < 1 || D < 8 || D > MAXDIM || D % 8 != 0 ||
-        DV < 8 || DV > MAXDIM || DV % 8 != 0 || (dtype != 0 && dtype != 1))
+        DV < 8 || DV > MAXDIM || DV % 8 != 0 || (dtype != 0 && dtype != 1) ||
+        tensor_cores == nullptr)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    *tensor_cores = repro_mlstm_scan_tensor_cores(D, DV, dtype);
+    if (*tensor_cores)
+        return (int)launch_tc(q, k, v, ip, fp, h, m, qn, dh, rden, dqn, qdq,
+                              kdk, dq, dk, dv, di, df, B, H, S, D, DV, scale,
+                              st);
     if (dtype == 0)
         return (int)launch<float>(q, k, v, ip, fp, h, m, qn, dh, rden, dqn,
                                   qdq, kdk, dq, dk, dv, di, df, B, H, S, D,

@@ -19,6 +19,17 @@ masked in the kernel) and D, DV that are multiples of 8 up to 384.  The
 gates go to the kernels as float32 and their gradients come back in the
 gates' dtype.
 
+Two paths, chosen by the C entries alone (``repro_mlstm_scan_tensor_cores``,
+mirrored by :func:`tensor_core_path`): bf16 with D and DV multiples of 64
+in [64, 384] runs on the tensor cores (``wgmma`` fed by TMA, chunks of
+``TC_CHUNK`` rows, ``csrc/mlstm_tc.cuh``); float32 and other widths run
+float32 FMAs (chunks of ``CHUNK`` rows).  Each launch reports the path it
+took, and the wrapper counts it (``tc_launches``, ``fma_launches``,
+``bwd_tc_launches``, ``bwd_fma_launches``) beside ``launches`` and
+``bwd_launches``; a launch that fails raises, and nothing falls back to
+the other path.  :func:`kernel_chunk` is the chunk length a launch uses,
+which the card's checks pass to the plain versions.
+
 :class:`MLSTMScan` joins the pair for training: the forward also writes
 each row's stabiliser ``m`` and normaliser ``qn`` and saves them with its
 inputs and output; the backward recomputes the chunk states from them.
@@ -27,6 +38,7 @@ deterministic: no atomics, every sum in a fixed order.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -36,13 +48,35 @@ from repro_torch.kernels import build, ref
 plain = ref.mlstm_scan_chunked
 plain_bwd = ref.mlstm_scan_bwd
 
-# kernel launches since the last reset: K6 (forward) and K6-bwd
+# kernel launches since the last reset: K6 (forward) and K6-bwd, all and
+# by path (tensor cores or FMAs)
 launches = 0
 bwd_launches = 0
+tc_launches = 0
+fma_launches = 0
+bwd_tc_launches = 0
+bwd_fma_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 CHUNK, TILE, MAX_DIM = ref.MLSTM_CHUNK, 64, 384
+# the tensor-core path (csrc/mlstm_tc.cuh): rows a chunk, (q, k) panel
+# pairs in the TMA ring
+TC_CHUNK, TC_STAGES = 64, 3
+
+
+def tensor_core_path(dtype: torch.dtype, head_dim: int,
+                     value_dim: int) -> bool:
+    """Whether K6 and K6-bwd take the tensor-core path: bf16 with D and DV
+    multiples of 64 in [64, 384] (the C entries' rule,
+    ``repro_mlstm_scan_tensor_cores``)."""
+    return dtype == torch.bfloat16 and all(
+        d % 64 == 0 and 64 <= d <= MAX_DIM for d in (head_dim, value_dim))
+
+
+def kernel_chunk(dtype: torch.dtype, head_dim: int, value_dim: int) -> int:
+    """Rows a chunk of the kernel that a launch at these widths runs."""
+    return TC_CHUNK if tensor_core_path(dtype, head_dim, value_dim) else CHUNK
 
 
 def smem_bytes(head_dim: int) -> int:
@@ -64,6 +98,20 @@ def bwd_smem_bytes(head_dim: int, value_dim: int) -> int:
     dtile = 4 * (TILE * (DV + 4) + TILE + 2 * L * (DV + 4)
                  + 2 * L * (TILE + 4) + L * (L + 1) + 6 * L + 4)
     return max(smem_bytes(head_dim), dtile)
+
+
+def tc_smem_bytes() -> int:
+    """Dynamic shared memory of the tensor-core walks (``tc::SMEM`` in
+    ``csrc/mlstm_tc.cuh``): 1 KB of alignment slack, the ring of
+    ``TC_STAGES`` (X, Y) panel pairs, two chunk stages (T, Z hi and lo, the
+    row arrays), P hi and lo, the six state copies hi and lo, n and the
+    four partial sums of its update, q . n (two buffers) and den, and the
+    mbarriers."""
+    panel, L, nmax = 64 * 128, TC_CHUNK, 64 * (MAX_DIM // 64)
+    rows = -(-(4 * (10 * L + 1)) // 1024) * 1024
+    return (1024 + TC_STAGES * 2 * panel + 2 * (3 * panel + rows)
+            + 2 * panel + 2 * (MAX_DIM // 64) * panel
+            + 4 * (5 * nmax + 3 * L) + 8 * (2 * TC_STAGES + 6))
 
 
 def _check(name: str, tensors, q: torch.Tensor, v: torch.Tensor,
@@ -117,7 +165,7 @@ def mlstm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K6 on the current stream.  Returns h ``(B, H, S, DV)`` in
     q's dtype, or ``(h, m, qn)`` with ``with_stats`` (each row's
     stabiliser and normaliser, ``(B, H, S)`` float32)."""
-    global launches
+    global launches, tc_launches, fma_launches
     _check("mlstm_scan_cuda", (("q", q), ("k", k), ("v", v), ("i_pre", i_pre),
                                ("f_pre", f_pre)), q, v, i_pre, f_pre)
     B, H, S, D = q.shape
@@ -128,13 +176,19 @@ def mlstm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if with_stats:
         m = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
         qn = torch.empty_like(m)
+    tc = ctypes.c_int(-1)  # the path the library launched
     err = build.library().repro_mlstm_scan(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ip.data_ptr(),
         fp.data_ptr(), h.data_ptr(), None if m is None else m.data_ptr(),
         None if qn is None else qn.data_ptr(), B, H, S, D, DV, D ** -0.5,
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.byref(tc))
     build.check(err, "repro_mlstm_scan")
     launches += 1
+    if tc.value:
+        tc_launches += 1
+    else:
+        fma_launches += 1
     return (h, m, qn) if with_stats else h
 
 
@@ -145,7 +199,7 @@ def mlstm_scan_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K6-bwd on the current stream: ``(dq, dk, dv, d i_pre,
     d f_pre)`` from K6's inputs, output and stats and the incoming
     ``dh``, each in its input's dtype."""
-    global bwd_launches
+    global bwd_launches, bwd_tc_launches, bwd_fma_launches
     _check("mlstm_scan_bwd_cuda",
            (("q", q), ("k", k), ("v", v), ("i_pre", i_pre), ("f_pre", f_pre),
             ("h", h), ("m", m), ("qn", qn), ("dh", dh)), q, v, i_pre, f_pre)
@@ -164,13 +218,18 @@ def mlstm_scan_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di, df = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
               for _ in range(2))
+    tc = ctypes.c_int(-1)  # the path the library launched
     err = build.library().repro_mlstm_scan_bwd(
         *(x.data_ptr() for x in (q, k, v, ip, fp, h, m, qn, dh, rden, dqn,
                                  qdq, kdk, dq, dk, dv, di, df)),
         B, H, S, D, DV, D ** -0.5, _DTYPES[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(tc))
     build.check(err, "repro_mlstm_scan_bwd")
     bwd_launches += 1
+    if tc.value:
+        bwd_tc_launches += 1
+    else:
+        bwd_fma_launches += 1
     return dq, dk, dv, di.to(i_pre.dtype), df.to(f_pre.dtype)
 
 

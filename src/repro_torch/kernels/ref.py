@@ -203,7 +203,9 @@ def paged_attention_mq(
 # K6-bwd's plain versions.  Layout as the reference's: q/k ``(B, H, S, D)``,
 # v ``(B, H, S, DV)``, gate pre-activations ``(B, H, S)``.
 # ---------------------------------------------------------------------------
-MLSTM_CHUNK = 32  # the chunk length of the CUDA kernels (csrc/mlstm_scan.cu)
+# the chunk length of the CUDA kernels' FMA path (csrc/mlstm_scan.cu); the
+# tensor-core path's is kernels.mlstm_scan.TC_CHUNK
+MLSTM_CHUNK = 32
 
 
 def mlstm_scan(

@@ -12,7 +12,9 @@ gradients 2e-4 (the reference's own tolerance for its flash VJP, sums
 over whole sequences in other orders); K6-bwd's gradients 1e-4 (float32)
 and 2e-2 (bfloat16) of each gradient's max |g| (the same algorithm summed
 in other orders, and the gates' gradients a cumulative sum over the
-whole sequence); K5 2e-5 / 2e-2 abs+rel as the other forwards, K5-bwd's
+whole sequence; K6 and K6-bwd on the tensor cores carry P, the state's
+copy and Z as hi/lo bf16 pairs, chunks of 64 rows, held against the
+plain versions at that chunk); K5 2e-5 / 2e-2 abs+rel as the other forwards, K5-bwd's
 gradients 1e-4 / 2e-2 of each gradient's max |g| (dB, dC, dA and dD are
 sums over every channel or step, in other orders); K4 and its backward
 2e-2 abs+rel in bfloat16 (outputs rounded to bfloat16) and 1e-4 of the
@@ -422,25 +424,42 @@ def test_flash_path_rule_is_the_library_s(dev):
 
 
 # K6 and K6-bwd: (B, H, S, D, DV) — the training head width at a short S,
-# a ragged S, the chip_smoke.py D = 64 case, and odd tile edges
+# a ragged S, the chip_smoke.py D = 64 case, and odd tile edges; then, on
+# the tensor-core path in bf16 (D and DV multiples of 64), the training
+# width at the training length, one row past a 64-row chunk, fewer rows
+# than a chunk, D != DV both ways.  Each is held against the plain version
+# at the chunk length its path uses (``mlstm_scan.kernel_chunk``).
 MLSTM_CASES = [
     (1, 2, 256, 384, 384),   # D = DV = 384, the training width
-    (2, 2, 200, 64, 64),     # ragged S (6.25 chunks)
+    (2, 2, 200, 64, 64),     # ragged S (6.25 chunks of 32, 3.1 of 64)
     (1, 4, 1000, 64, 64),    # S = 1000, D = 64
     (1, 2, 70, 72, 136),     # partial D and DV tiles
     (2, 1, 33, 8, 16),       # smallest D, one row past a chunk
 ]
 MLSTM_IDS = ["D384", "ragged", "S1000", "tiles", "small"]
+MLSTM_TC_CASES = [
+    (1, 2, 4096, 384, 384),  # the training width and length
+    (2, 2, 65, 128, 128),    # one row past a 64-row chunk
+    (2, 3, 40, 64, 64),      # fewer rows than a chunk
+    (1, 2, 300, 128, 256),   # D < DV
+    (1, 2, 300, 256, 128),   # D > DV
+]
+MLSTM_TC_IDS = ["S4096", "S65", "S40", "D128-DV256", "D256-DV128"]
 MLSTM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def _mlstm_inputs(dev, dtype, B, H, S, D, DV, seed=0):
+def _mlstm_inputs(dev, dtype, B, H, S, D, DV, seed=0, f_shift=1.0):
     gen = torch.Generator().manual_seed(seed)
     q, k = (_randn(gen, (B, H, S, D), dtype, dev) for _ in range(2))
     v, dh = (_randn(gen, (B, H, S, DV), dtype, dev) for _ in range(2))
     i_pre = _randn(gen, (B, H, S), dtype, dev)
-    f_pre = (torch.randn((B, H, S), generator=gen) + 1.0).to(dev, dtype)
+    f_pre = (torch.randn((B, H, S), generator=gen) + f_shift).to(dev, dtype)
     return q, k, v, i_pre, f_pre, dh
+
+
+def _mlstm_chunk(q, v):
+    """The chunk length of the kernel path a launch on q and v takes."""
+    return mlstm_scan.kernel_chunk(q.dtype, q.shape[-1], v.shape[-1])
 
 
 def _close_to_max(got, want, tol, name):
@@ -449,17 +468,15 @@ def _close_to_max(got, want, tol, name):
     assert err <= tol * scale, f"{name}: max err {err} > {tol} * {scale}"
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", MLSTM_CASES, ids=MLSTM_IDS)
-def test_mlstm_kernel_matches_plain(dev, dtype, case):
+def _check_mlstm_fwd(dev, dtype, case):
     q, k, v, i_pre, f_pre, _ = _mlstm_inputs(dev, dtype, *case)
     n0 = mlstm_scan.launches
     h, m, qn = mlstm_scan.mlstm_scan_cuda(q, k, v, i_pre, f_pre,
                                           with_stats=True)
     torch.cuda.synchronize()
     assert mlstm_scan.launches == n0 + 1
-    want_h, want_m, want_qn = ref.mlstm_scan_chunked(q, k, v, i_pre, f_pre,
-                                                     with_stats=True)
+    want_h, want_m, want_qn = ref.mlstm_scan_chunked(
+        q, k, v, i_pre, f_pre, with_stats=True, chunk=_mlstm_chunk(q, v))
     assert h.dtype == dtype and m.dtype == qn.dtype == torch.float32
     torch.testing.assert_close(h.float(), want_h.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
@@ -470,19 +487,46 @@ def test_mlstm_kernel_matches_plain(dev, dtype, case):
         mlstm_scan.mlstm_scan_cuda(q, k, v, i_pre, f_pre), h, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", MLSTM_CASES, ids=MLSTM_IDS)
-def test_mlstm_bwd_kernel_matches_plain(dev, dtype, case):
+def _check_mlstm_bwd(dev, dtype, case):
     q, k, v, i_pre, f_pre, dh = _mlstm_inputs(dev, dtype, *case)
-    h, m, qn = ref.mlstm_scan_chunked(q, k, v, i_pre, f_pre, with_stats=True)
+    chunk = _mlstm_chunk(q, v)
+    h, m, qn = ref.mlstm_scan_chunked(q, k, v, i_pre, f_pre, with_stats=True,
+                                      chunk=chunk)
     n0 = mlstm_scan.bwd_launches
     got = mlstm_scan.mlstm_scan_bwd(q, k, v, i_pre, f_pre, h, m, qn, dh)
     torch.cuda.synchronize()
     assert mlstm_scan.bwd_launches == n0 + 1
-    want = ref.mlstm_scan_bwd(q, k, v, i_pre, f_pre, h, m, qn, dh)
+    want = ref.mlstm_scan_bwd(q, k, v, i_pre, f_pre, h, m, qn, dh,
+                              chunk=chunk)
     for name, a, b in zip(("dq", "dk", "dv", "di", "df"), got, want):
         assert a.dtype == b.dtype == dtype and a.shape == b.shape
         _close_to_max(a, b, MLSTM_GRAD_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLSTM_CASES, ids=MLSTM_IDS)
+def test_mlstm_kernel_matches_plain(dev, dtype, case):
+    _check_mlstm_fwd(dev, dtype, case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLSTM_CASES, ids=MLSTM_IDS)
+def test_mlstm_bwd_kernel_matches_plain(dev, dtype, case):
+    _check_mlstm_bwd(dev, dtype, case)
+
+
+@pytest.mark.parametrize("case", MLSTM_TC_CASES, ids=MLSTM_TC_IDS)
+def test_mlstm_tensor_cores_match_plain(dev, case):
+    n0 = mlstm_scan.tc_launches
+    _check_mlstm_fwd(dev, torch.bfloat16, case)
+    assert mlstm_scan.tc_launches == n0 + 2  # with and without the stats
+
+
+@pytest.mark.parametrize("case", MLSTM_TC_CASES, ids=MLSTM_TC_IDS)
+def test_mlstm_bwd_tensor_cores_match_plain(dev, case):
+    n0 = mlstm_scan.bwd_tc_launches
+    _check_mlstm_bwd(dev, torch.bfloat16, case)
+    assert mlstm_scan.bwd_tc_launches == n0 + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -543,6 +587,92 @@ def test_mlstm_kernels_refuse_what_they_do_not_take(dev):
         assert (mlstm_scan.bwd_smem_bytes(D, DV)
                 == lib.repro_mlstm_scan_bwd_smem(D, DV))
         assert mlstm_scan.bwd_smem_bytes(D, DV) <= mlstm_scan.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("f_shift,qn_wins", [(6.0, True), (-6.0, False)])
+def test_mlstm_tensor_cores_hold_both_denominators(dev, f_shift, qn_wins):
+    """A forget-gate bias that drives the stabiliser both ways: |qn| wins
+    the denominator in most rows at +6, e^-m at -6.  K6 and K6-bwd on the
+    tensor cores hold the same bounds in both.  m is held against the
+    plain version run in float64: at -6 the cumulative log forget gate
+    reaches -384 over a 64-row chunk, m is the small difference of two
+    such sums, and the float32 plain version's own m is off by an ulp of
+    them (3e-5); the kernel takes those sums in float64."""
+    q, k, v, i_pre, f_pre, dh = _mlstm_inputs(
+        dev, torch.bfloat16, 1, 2, 1000, 128, 128, seed=5, f_shift=f_shift)
+    tc0 = (mlstm_scan.tc_launches, mlstm_scan.bwd_tc_launches)
+    h, m, qn = mlstm_scan.mlstm_scan_cuda(q, k, v, i_pre, f_pre,
+                                          with_stats=True)
+    chunk = mlstm_scan.TC_CHUNK
+    want = ref.mlstm_scan_chunked(q, k, v, i_pre, f_pre, with_stats=True,
+                                  chunk=chunk)
+    share = float((want[2].abs() > torch.exp(-want[1])).float().mean())
+    assert (share > 0.9) if qn_wins else (share < 0.5), share
+    torch.testing.assert_close(h.float(), want[0].float(), atol=2e-2,
+                               rtol=2e-2)
+    m64 = ref.mlstm_scan_chunked(*(x.double() for x in (q, k, v, i_pre,
+                                                        f_pre)),
+                                 with_stats=True, chunk=chunk)[1]
+    torch.testing.assert_close(m.double(), m64, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(qn, want[2], atol=2e-2, rtol=2e-2)
+    got = mlstm_scan.mlstm_scan_bwd_cuda(q, k, v, i_pre, f_pre, h, m, qn, dh)
+    ref_bwd = ref.mlstm_scan_bwd(q, k, v, i_pre, f_pre, h, m, qn, dh,
+                                 chunk=chunk)
+    for name, a, b in zip(("dq", "dk", "dv", "di", "df"), got, ref_bwd):
+        _close_to_max(a, b, MLSTM_GRAD_TOL[torch.bfloat16], name)
+    assert (mlstm_scan.tc_launches, mlstm_scan.bwd_tc_launches) == (
+        tc0[0] + 1, tc0[1] + 1)
+
+
+@pytest.mark.parametrize("case", [(2, 2, 300, 128, 128), (1, 2, 200, 384,
+                                                          384)])
+def test_mlstm_tensor_cores_are_deterministic(dev, case):
+    q, k, v, i_pre, f_pre, dh = _mlstm_inputs(dev, torch.bfloat16, *case,
+                                              seed=4)
+    first = mlstm_scan.mlstm_scan_cuda(q, k, v, i_pre, f_pre, with_stats=True)
+    back = mlstm_scan.mlstm_scan_bwd_cuda(q, k, v, i_pre, f_pre, *first, dh)
+    for _ in range(3):
+        again = mlstm_scan.mlstm_scan_cuda(q, k, v, i_pre, f_pre,
+                                           with_stats=True)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+        again = mlstm_scan.mlstm_scan_bwd_cuda(q, k, v, i_pre, f_pre, *first,
+                                               dh)
+        for a, b in zip(back, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,D,DV,tc", [(torch.bfloat16, 128, 128, True),
+                                           (torch.bfloat16, 64, 384, True),
+                                           (torch.bfloat16, 72, 136, False),
+                                           (torch.bfloat16, 384, 32, False),
+                                           (torch.float32, 128, 128, False)])
+def test_mlstm_path_counters(dev, dtype, D, DV, tc):
+    q, k, v, i_pre, f_pre, dh = _mlstm_inputs(dev, dtype, 1, 2, 100, D, DV)
+    names = ("launches", "tc_launches", "fma_launches", "bwd_launches",
+             "bwd_tc_launches", "bwd_fma_launches")
+    before = [getattr(mlstm_scan, n) for n in names]
+    xs = [x.clone().requires_grad_() for x in (q, k, v, i_pre, f_pre)]
+    torch.autograd.grad(ops.mlstm_scan(*xs), xs, dh)
+    after = [getattr(mlstm_scan, n) for n in names]
+    assert [a - b for a, b in zip(after, before)] == [1, tc, not tc,
+                                                      1, tc, not tc]
+
+
+def test_mlstm_path_rule_is_the_library_s(dev):
+    lib = build.library()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for D in range(8, 392, 8):
+            for DV in range(8, 392, 8):
+                assert bool(lib.repro_mlstm_scan_tensor_cores(D, DV, code)) \
+                    == mlstm_scan.tensor_core_path(dtype, D, DV), (dtype, D,
+                                                                  DV)
+
+
+def test_mlstm_tensor_core_smem_is_the_library_s(dev):
+    lib = build.library()
+    assert mlstm_scan.tc_smem_bytes() == lib.repro_mlstm_scan_tc_smem()
+    assert mlstm_scan.tc_smem_bytes() <= mlstm_scan.SMEM_LIMIT
 
 
 # K1 and K1-bwd at hymba-1.5b's attention shapes: head dim 64, 5 query

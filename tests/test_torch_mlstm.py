@@ -113,6 +113,9 @@ def interpret_backend():
     (2, 2, 48, 16, 16),
     (1, 4, 64, 32, 32),
     (2, 1, 40, 8, 16),  # ragged: S % chunk != 0
+    # the tensor-core kernels' chunk (mlstm_scan.TC_CHUNK)
+    (1, 2, 100, 64, 64),   # ragged, D = DV = 64
+    (2, 1, 192, 32, 64),   # three whole chunks
 ])
 def test_chunked_matches_reference_pallas_kernel(interpret_backend, B, H, S,
                                                  D, chunk, dtype):
@@ -142,7 +145,10 @@ BWD_CASES = [
     (1, 2, 24, 8, 8, 8),
     (2, 2, 48, 16, 16, 16),
     (2, 1, 40, 8, 16, 16),    # ragged, DV != D
-    (1, 2, 100, 16, 8, 32),   # the kernels' chunk, ragged
+    (1, 2, 100, 16, 8, 32),   # the FMA kernels' chunk, ragged
+    # the tensor-core kernels' chunk (mlstm_scan.TC_CHUNK)
+    (1, 2, 100, 64, 64, 64),  # ragged, D = DV = 64
+    (2, 1, 130, 16, 32, 64),  # ragged, two rows past two chunks, DV != D
 ]
 
 
