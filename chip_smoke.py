@@ -70,8 +70,10 @@ them, and on any mismatch.  Phases, one or more lines each:
      mLSTM + 1 sLSTM blocks), seq 1024, batch 2;
  17. K5 (the selective scan, with its checkpoints) and K5-bwd against
      their plain versions at hymba-1.5b's training shape and at a ragged
-     S and Din, in both dtypes, with a check that both are deterministic
-     bit for bit;
+     S and Din, in both dtypes (the float32 states, and float32 y,
+     against the plain version run in float64, within 4x the float32
+     plain version's own error there, as phase 13 holds K6), with a
+     check that both are deterministic bit for bit;
  18. K1's forward with its LSE and K1-bwd at hymba-1.5b's attention
      shapes (25 query heads, 5 KV heads of 64), global and with a 2048
      window, in both dtypes, with the path each took and its time over
@@ -214,6 +216,7 @@ SFU_EXP_PER_S = 132 * 16 * 1.98e9
 # beside their sources in the kernel table
 HOPPER_COMMON = "src/repro_torch/kernels/csrc/hopper_common.cuh"
 MLSTM_TC = "src/repro_torch/kernels/csrc/mlstm_tc.cuh"
+SSM_COMMON = "src/repro_torch/kernels/csrc/ssm_common.cuh"
 # phi3.5-moe training: train_4k's length, its global batch of 256 cut to
 # 2, its 32 layers cut to 2 (2.86 B parameters: 45.8 GB of float32
 # weights, gradients and moments)
@@ -1405,6 +1408,26 @@ def ssm_bound_ms(nbytes: float, flops: float, exps: float):
                                        else "operations")
 
 
+def _ssm_fwd_ckpt64(x, dt, A, Bmat, Cmat, D):
+    """K5's plain version, ``ref.ssm_scan_fwd_ckpt``'s chunk walk, run in
+    float64: ``(y, ckpt)``."""
+    S, chunk = x.shape[1], ref.SSM_CHUNK
+    xf, dtf, bf, cf = (F.pad(t.double(), (0, 0, 0, -S % chunk))
+                       for t in (x, dt, Bmat, Cmat))
+    h = torch.zeros((x.shape[0], x.shape[2], A.shape[1]),
+                    dtype=torch.float64, device=x.device)
+    ys, ckpts = [], []
+    for t0 in range(0, xf.shape[1], chunk):
+        sl = slice(t0, t0 + chunk)
+        ckpts.append(h)
+        _, hs = ref._ssm_chunk_states(h, xf[:, sl], dtf[:, sl], bf[:, sl],
+                                      A.double())
+        ys.append((hs[:, 1:] * cf[:, sl, None, :]).sum(-1))
+        h = hs[:, -1]
+    return (torch.cat(ys, 1)[:, :S] + x.double() * D.double(),
+            torch.stack(ckpts))
+
+
 def _k5_case(name, dtype, B, S, Din, N, gen):
     dev = torch.device("cuda")
     x = torch.randn((B, S, Din), generator=gen, device=dev).to(dtype)
@@ -1419,9 +1442,29 @@ def _k5_case(name, dtype, B, S, Din, N, gen):
     y, ckpt = ssm_scan.ssm_scan_cuda(*xs, with_ckpt=True)
     want = ref.ssm_scan_fwd_ckpt(*xs)
     torch.cuda.synchronize()
-    err_fwd = max(max_err(y, want[0], dtype),
-                  max_err(ckpt, want[1], dtype, TOL[torch.float32]))
-    del want
+    # The float32 states (and, in float32, y) against the plain version run
+    # in float64, as phase 13 holds K6: the scan's order and the sequential
+    # order differ by more than 2e-5 abs+rel in float32 at a few of the
+    # training shape's outputs (and under weak decay at many); the kernel is
+    # held to 4 times the float32 plain version's own error there, never
+    # less than 2e-5.  bf16 y against the float32 plain version at 2e-2.
+    exact = _ssm_fwd_ckpt64(*xs)
+    pairs = [(ckpt, want[1], exact[1])]
+    if dtype == torch.float32:
+        pairs.append((y, want[0], exact[0]))
+    plain_fwd = max(_abs_rel_err(w, e) for _, w, e in pairs)
+    fwd_bound = max(TOL[torch.float32], 4 * plain_fwd)
+    err_fwd = max(max_err(g, e, dtype, fwd_bound) for g, _, e in pairs)
+    kern_fwd = max(_abs_rel_err(g, e) for g, _, e in pairs)
+    if dtype == torch.bfloat16:
+        err_fwd = max(err_fwd, max_err(y, want[0], dtype))
+    fwd_note = (f"states{' and y' if dtype == torch.float32 else ''} "
+                f"against float64: {kern_fwd:.3g} abs+rel (bound "
+                f"{fwd_bound:.3g} = max(2e-05, 4 x the float32 plain "
+                f"version's {plain_fwd:.3g})"
+                + (f"; y tol {TOL[dtype]:g} abs+rel against the plain version"
+                   if dtype == torch.bfloat16 else "") + ")")
+    del want, exact, pairs
     again = ssm_scan.ssm_scan_cuda(*xs, with_ckpt=True)
     got = ssm_scan.ssm_scan_bwd_cuda(*xs, ckpt, dy)
     want = ref.ssm_scan_bwd(*xs, ckpt, dy)
@@ -1460,7 +1503,7 @@ def _k5_case(name, dtype, B, S, Din, N, gen):
     bbms, bby = ssm_bound_ms(bbytes, 22.0 * elems, elems)
     shape = f"B={B} S={S} Din={Din} N={N}"
     log(f"[17 K5] {name} {str(dtype)[6:]} {shape}: max_abs_err={err_fwd:.3g} "
-        f"(tol {TOL[dtype]:g} abs+rel, y and checkpoints) deterministic=True "
+        f"({fwd_note} deterministic=True "
         f"ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms=None "
         f"bound_ms={bms:.5f} ({by}: {fbytes / 1e6:.1f} MB, {elems / 1e6:.1f} M "
         f"exponentials at {SFU_EXP_PER_S / 1e12:.2f} T/s, {7 * elems / 1e9:.2f} "
@@ -1504,8 +1547,8 @@ def phase_k1_hymba(gen, cfg) -> None:
 
 
 HYMBA_KINDS = dict(K1_KINDS, **{
-    "K5": ("ssm_fwd_kernel",),
-    "K5-bwd": ("ssm_bwd_kernel", "sum_partials_kernel")})
+    "K5": ("ssm_scan_fwd_kernel",),
+    "K5-bwd": ("ssm_scan_bwd_kernel", "ssm_bwd_sums_kernel")})
 
 
 def phase_hymba_train(cfg):
@@ -2069,10 +2112,12 @@ def main() -> int:
              launches=xl_launches["mlstm_scan_bwd"], **k6_bwd),
         dict(name="ssm_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+             includes=[SSM_COMMON],
              replaces="src/repro/kernels/ssm_scan.py:63",
              launches=hy_launches["ssm_scan"], **k5),
         dict(name="ssm_scan_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+             includes=[SSM_COMMON],
              replaces="src/repro/kernels/ssm_vjp.py:79",
              launches=hy_launches["ssm_scan_bwd"], **k5_bwd),
         dict(name="moe_gmm", route="cuda",

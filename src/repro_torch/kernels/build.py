@@ -34,9 +34,10 @@ _SIGNATURES = {
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _F, _I, _I, _I, _I, _P],
     # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, T, H, KH, D, scale,
-    # causal, window, q_offset, dtype, stream
+    # causal, window, q_offset, dtype, stream, failed_step (host int: the
+    # step that failed, STEPS)
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4
-                                 + [_P],
+                                 + [_P, _P],
     # D -> bytes of shared memory the backward's larger FMA kernel needs
     "repro_flash_attention_bwd_smem": [_I],
     # D, dtype -> 1 when K1 and K1-bwd run on the tensor cores
@@ -70,10 +71,12 @@ _SIGNATURES = {
     "repro_ssm_scan": [_P] * 8 + [_I] * 5 + [_P],
     # () -> the steps between K5's checkpoints
     "repro_ssm_scan_chunk": [],
-    # x, dt, A, B, C, D, ckpt, dy, dx, ddt, part_dB, part_dC, part_dA,
-    # part_dD, dB, dC, dA, dD, B, S, Din, N, dtype, stream
-    "repro_ssm_scan_bwd": [_P] * 18 + [_I] * 5 + [_P],
-    # () -> channels a block of K5 and K5-bwd covers
+    # () -> the largest state size N of K5 and K5-bwd
+    "repro_ssm_scan_max_state": [],
+    # x, dt, A, B, C, D, ckpt, dy, dx, ddt, part_bc, part_dA, part_dD, dB,
+    # dC, dA, dD, B, S, Din, N, dtype, stream
+    "repro_ssm_scan_bwd": [_P] * 17 + [_I] * 5 + [_P],
+    # () -> channels a block of K5-bwd covers
     "repro_ssm_scan_channels_per_block": [],
     # x, sizes, w, out, sched, M, K, N, E, trans, dtype, stream,
     # tensor_cores (host int: 1 when the tensor-core kernel launched)
@@ -159,7 +162,16 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+# the steps of a launch a C entry reports on a failure (LaunchStep,
+# csrc/common.cuh)
+STEPS = {1: "the shared-memory allowance", 2: "a tensor map",
+         3: "a kernel launch"}
+
+
+def check(err: int, name: str, step: Optional[ctypes.c_int] = None) -> None:
+    """Raise if a C entry point reported a CUDA error, naming the step that
+    failed where the entry reports it through ``step``."""
     if err != 0:
-        raise RuntimeError(f"{name} failed to launch: cudaError_t {err}")
+        at = (f" at {STEPS.get(step.value, f'step {step.value}')}"
+              if step is not None and step.value else "")
+        raise RuntimeError(f"{name} failed to launch{at}: cudaError_t {err}")

@@ -1,10 +1,13 @@
-// Device helpers shared by the port's attention kernels: the mask,
-// element-type conversion to and from float32, and 16-byte vector loads
-// of 8 elements.
+// Helpers shared by the port's kernels: the attention mask, element-type
+// conversion to and from float32, 16-byte vector loads of 8 elements, and
+// on the host the one-time shared-memory allowance of a kernel and the
+// steps a C entry reports when a launch fails.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 namespace repro {
 
@@ -48,6 +51,35 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
 __device__ __forceinline__ void zero8(float* out) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) out[i] = 0.f;
+}
+
+// --- host ---------------------------------------------------------------
+// The step of a launch that failed, as a C entry with a `failed_step` out
+// parameter reports it.
+enum LaunchStep : int {
+    STEP_NONE = 0,
+    STEP_ATTRIBUTE = 1,   // cudaFuncSetAttribute (the shared-memory allowance)
+    STEP_TENSOR_MAP = 2,  // encoding a TMA tensor map
+    STEP_LAUNCH = 3,      // a kernel launch
+};
+
+// Allow kernel K `bytes` of dynamic shared memory.  Only a success is
+// remembered (the largest allowance so far, per kernel): a failed call is
+// made again at the next launch instead of failing every later launch of
+// the process, and once allowed no call is made, so that launches can be
+// captured in a CUDA graph.
+template <auto K>
+cudaError_t allow_smem(int bytes) {
+    static std::atomic<int> allowed{0};
+    if (bytes <= allowed.load(std::memory_order_acquire)) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        K, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) {
+        int seen = allowed.load(std::memory_order_relaxed);
+        while (seen < bytes && !allowed.compare_exchange_weak(seen, bytes)) {
+        }
+    }
+    return err;
 }
 
 }  // namespace repro

@@ -227,10 +227,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
             (size_t)(BQ * (d + 1) + BK * (d + 1) + BK * d + BQ * (BK + 1));
     };
     auto kernel = flash_fwd_kernel<T, DMAX>;
-    // allow the largest D of this instance once (not per launch, so that
-    // launches can be captured in a CUDA graph)
-    static cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_for(DMAX));
+    // allow the largest D of this instance
+    const cudaError_t attr =
+        repro::allow_smem<flash_fwd_kernel<T, DMAX>>((int)smem_for(DMAX));
     if (attr != cudaSuccess) return attr;
     const size_t smem = smem_for(D);
     dim3 grid((S + BQ - 1) / BQ, H, B);
@@ -466,10 +465,8 @@ cudaError_t launch_inst(const CUtensorMap& tq, const CUtensorMap& tk,
                         cudaStream_t stream) {
     using C = Fwd<NWG, P>;
     auto kernel = flash_fwd_tc_kernel<NWG, P>;
-    // once per instance (not per launch, so launches stay capturable in a
-    // CUDA graph)
-    static cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    const cudaError_t attr =
+        repro::allow_smem<flash_fwd_tc_kernel<NWG, P>>(C::SMEM);
     if (attr != cudaSuccess) return attr;
     dim3 grid((S + C::BM - 1) / C::BM, H, B);
     kernel<<<grid, C::THREADS, C::SMEM, stream>>>(

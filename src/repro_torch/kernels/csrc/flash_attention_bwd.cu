@@ -377,19 +377,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int S,
                    int Tlen, int H, int KH, int D, float scale, int causal,
-                   int window, int q_offset, cudaStream_t stream) {
+                   int window, int q_offset, cudaStream_t stream,
+                   int& step) {
     auto dkdv = dkdv_kernel<T, DMAX>;
     auto dqk = dq_kernel<T, DMAX>;
-    // allow the largest D of this instance once (not per launch, so that
-    // launches can be captured in a CUDA graph)
-    static cudaError_t attr1 = cudaFuncSetAttribute(
-        dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    // allow the largest D of this instance
+    step = repro::STEP_ATTRIBUTE;
+    cudaError_t err = repro::allow_smem<dkdv_kernel<T, DMAX>>(
         (int)smem_bytes(DMAX, 2));
-    static cudaError_t attr2 = cudaFuncSetAttribute(
-        dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(DMAX, 1));
-    if (attr1 != cudaSuccess) return attr1;
-    if (attr2 != cudaSuccess) return attr2;
+    if (err == cudaSuccess)
+        err = repro::allow_smem<dq_kernel<T, DMAX>>(
+            (int)smem_bytes(DMAX, 1));
+    if (err != cudaSuccess) return err;
+    step = repro::STEP_LAUNCH;
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);
@@ -398,7 +398,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     delta_kernel<T><<<(rows + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0,
                       stream>>>(static_cast<const T*>(out), dot, delta, rows,
                                 D);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     dkdv<<<dim3((Tlen + BK - 1) / BK, KH, B), THREADS, smem_bytes(D, 2),
            stream>>>(qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
@@ -418,18 +418,18 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        float* delta, void* dq, void* dk, void* dv, int B,
                        int S, int Tlen, int H, int KH, int D, float scale,
                        int causal, int window, int q_offset,
-                       cudaStream_t st) {
+                       cudaStream_t st, int& step) {
     if (D <= 64)
         return launch<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, B,
                              S, Tlen, H, KH, D, scale, causal, window,
-                             q_offset, st);
+                             q_offset, st, step);
     if (D <= 128)
         return launch<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, B,
                               S, Tlen, H, KH, D, scale, causal, window,
-                              q_offset, st);
+                              q_offset, st, step);
     return launch<T, 256>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, S,
                           Tlen, H, KH, D, scale, causal, window, q_offset,
-                          st);
+                          st, step);
 }
 
 // ---------------------------------------------------------------------------
@@ -814,23 +814,22 @@ cudaError_t launch_inst(const CUtensorMap& tq, const CUtensorMap& tk,
                         const float* lse, const float* delta, void* dq,
                         void* dk, void* dv, int B, int S, int Tlen, int H,
                         int KH, int D, float scale, int causal, int window,
-                        int q_offset, cudaStream_t stream) {
+                        int q_offset, cudaStream_t stream,
+                        int& step) {
     auto dkdv = dkdv_tc_kernel<P>;
     auto dqk = dq_tc_kernel<P>;
-    // once per instance (not per launch, so launches stay capturable in a
-    // CUDA graph)
-    static cudaError_t attr1 = cudaFuncSetAttribute(
-        dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, DkDv<P>::SMEM);
-    static cudaError_t attr2 = cudaFuncSetAttribute(
-        dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq<P>::SMEM);
-    if (attr1 != cudaSuccess) return attr1;
-    if (attr2 != cudaSuccess) return attr2;
+    step = repro::STEP_ATTRIBUTE;
+    cudaError_t err = repro::allow_smem<dkdv_tc_kernel<P>>(DkDv<P>::SMEM);
+    if (err == cudaSuccess)
+        err = repro::allow_smem<dq_tc_kernel<P>>(Dq<P>::SMEM);
+    if (err != cudaSuccess) return err;
+    step = repro::STEP_LAUNCH;
     dkdv<<<dim3((Tlen + BN - 1) / BN, KH, B), TC_THREADS, DkDv<P>::SMEM,
            stream>>>(tq, tk, tv, tdo, lse, delta,
                      static_cast<__nv_bfloat16*>(dk),
                      static_cast<__nv_bfloat16*>(dv), S, Tlen, H, KH, D,
                      scale, causal, window, q_offset);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     dqk<<<dim3((S + QM - 1) / QM, H, B), TC_THREADS, Dq<P>::SMEM, stream>>>(
         tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), S, Tlen,
@@ -842,13 +841,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int S,
                    int Tlen, int H, int KH, int D, float scale, int causal,
-                   int window, int q_offset, cudaStream_t stream) {
+                   int window, int q_offset, cudaStream_t stream,
+                   int& step) {
+    step = repro::STEP_TENSOR_MAP;
     CUtensorMap tq, tk, tv, tdo;
     cudaError_t err = make_map_bf16(&tq, q, B, S, H, D, BOX);
     if (err == cudaSuccess) err = make_map_bf16(&tk, k, B, Tlen, KH, D, BOX);
     if (err == cudaSuccess) err = make_map_bf16(&tv, v, B, Tlen, KH, D, BOX);
     if (err == cudaSuccess) err = make_map_bf16(&tdo, dout, B, S, H, D, BOX);
     if (err != cudaSuccess) return err;
+    step = repro::STEP_LAUNCH;
     const int rows = B * S * H;
     delta_kernel<__nv_bfloat16>
         <<<(rows + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0,
@@ -859,9 +861,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (D <= 64)
         return launch_inst<1>(tq, tk, tv, tdo, lse, delta, dq, dk, dv, B, S,
                               Tlen, H, KH, D, scale, causal, window, q_offset,
-                              stream);
+                              stream, step);
     return launch_inst<2>(tq, tk, tv, tdo, lse, delta, dq, dk, dv, B, S, Tlen,
-                          H, KH, D, scale, causal, window, q_offset, stream);
+                          H, KH, D, scale, causal, window, q_offset, stream,
+                          step);
 }
 
 }  // namespace tc
@@ -878,26 +881,34 @@ extern "C" int repro_flash_attention_bwd_smem(int D) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  delta is float32 scratch of B*S*H.
-// Returns a cudaError_t (0 = success).
+// Returns a cudaError_t (0 = success); on a failure `failed_step` (a host
+// int, or null) gets the step that failed: a LaunchStep of common.cuh
+// (the shared-memory allowance, a tensor map, or a launch).
 extern "C" int repro_flash_attention_bwd(
         const void* q, const void* k, const void* v, const void* out,
         const void* dout, const float* lse, float* delta, void* dq, void* dk,
         void* dv, int B, int S, int Tlen, int H, int KH, int D, float scale,
-        int causal, int window, int q_offset, int dtype, void* stream) {
+        int causal, int window, int q_offset, int dtype, void* stream,
+        int* failed_step) {
     if (B < 1 || S < 1 || Tlen < 1 || KH < 1 || H % KH != 0 || D < 8 ||
         D > 256 || D % 8 != 0 || (dtype != 0 && dtype != 1) ||
         smem_bytes(D, 2) > 232448)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int step = repro::STEP_NONE;
+    cudaError_t err;
     if (repro_flash_attention_tensor_cores(D, dtype))
-        return (int)tc::launch(q, k, v, out, dout, lse, delta, dq, dk, dv, B,
-                               S, Tlen, H, KH, D, scale, causal, window,
-                               q_offset, st);
-    if (dtype == 0)
-        return (int)dispatch_d<float>(q, k, v, out, dout, lse, delta, dq, dk,
-                                      dv, B, S, Tlen, H, KH, D, scale, causal,
-                                      window, q_offset, st);
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq,
-                                          dk, dv, B, S, Tlen, H, KH, D, scale,
-                                          causal, window, q_offset, st);
+        err = tc::launch(q, k, v, out, dout, lse, delta, dq, dk, dv, B, S,
+                         Tlen, H, KH, D, scale, causal, window, q_offset, st,
+                         step);
+    else if (dtype == 0)
+        err = dispatch_d<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, B,
+                                S, Tlen, H, KH, D, scale, causal, window,
+                                q_offset, st, step);
+    else
+        err = dispatch_d<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq,
+                                        dk, dv, B, S, Tlen, H, KH, D, scale,
+                                        causal, window, q_offset, st, step);
+    if (err != cudaSuccess && failed_step != nullptr) *failed_step = step;
+    return (int)err;
 }

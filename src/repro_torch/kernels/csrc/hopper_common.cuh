@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace repro {
 namespace hopper {
 
@@ -424,24 +426,62 @@ using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                    CUtensorMapSwizzle, CUtensorMapL2promotion,
                                    CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled, looked up once through the runtime (the library
-// is built by plain nvcc and loaded with ctypes: no -lcuda)
-static inline EncodeTiledFn encode_tiled() {
-    static EncodeTiledFn fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
+// A `cu*` function of libcuda, looked up through the runtime (the library
+// is built by plain nvcc and loaded with ctypes: no -lcuda); nullptr if
+// there is none.
+static inline void* cu_entry(const char* name) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    cudaError_t err = cudaGetDriverEntryPointByVersion(name, &p, 12000,
+                                                       cudaEnableDefault,
+                                                       &found);
 #else
-        cudaError_t err = cudaGetDriverEntryPoint(
-            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    cudaError_t err =
+        cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
 #endif
-        if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-            p = nullptr;
-        return reinterpret_cast<EncodeTiledFn>(p);
-    }();
-    return fn;
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? p
+               : nullptr;
+}
+
+// `name`'s entry point, kept in `cache` once found; a failed lookup is not
+// kept, so it is tried again at the next call
+static inline void* cached_entry(std::atomic<void*>& cache, const char* name) {
+    void* p = cache.load(std::memory_order_acquire);
+    if (p == nullptr) {
+        p = cu_entry(name);
+        if (p != nullptr) cache.store(p, std::memory_order_release);
+    }
+    return p;
+}
+
+static inline EncodeTiledFn encode_tiled() {
+    static std::atomic<void*> fn{nullptr};
+    return reinterpret_cast<EncodeTiledFn>(
+        cached_entry(fn, "cuTensorMapEncodeTiled"));
+}
+
+// Make sure the calling thread has a current CUDA context before a `cu*`
+// call that needs one (cuTensorMapEncodeTiled fails without one).  A
+// thread whose CUDA work so far was PyTorch's may have none: autograd's
+// device thread for the current device never calls cudaSetDevice, so a
+// backward's first launch there found no context, and its tensor maps
+// failed to encode.  Where there is none, the context of the device that
+// holds `ptr` is made current; where there is one (any later launch on
+// the thread, and under CUDA-graph capture) this is one cuCtxGetCurrent.
+static inline cudaError_t ensure_context(const void* ptr) {
+    using CtxGetCurrentFn = CUresult (*)(CUcontext*);
+    static std::atomic<void*> fn{nullptr};
+    const auto get = reinterpret_cast<CtxGetCurrentFn>(
+        cached_entry(fn, "cuCtxGetCurrent"));
+    CUcontext ctx = nullptr;
+    if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx != nullptr)
+        return cudaSuccess;
+    cudaPointerAttributes attr;
+    const cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
+    if (err != cudaSuccess) return err;
+    return cudaSetDevice(attr.device);
 }
 
 // A contiguous bf16 tensor (n3, n2, n1, n0) — n0 innermost, 16-byte
@@ -452,6 +492,8 @@ static inline cudaError_t make_map_bf16_box(CUtensorMap* map,
                                             const void* base, int n3,
                                             int n2, int n1, int n0,
                                             int box1, int box2) {
+    const cudaError_t ctx = ensure_context(base);
+    if (ctx != cudaSuccess) return ctx;
     const EncodeTiledFn enc = encode_tiled();
     if (enc == nullptr) return cudaErrorNotSupported;
     const cuuint64_t e = sizeof(__nv_bfloat16);

@@ -87,10 +87,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float* qn_out, int B, int H, int S, int D, int DV,
                    float scale, cudaStream_t stream) {
     auto kern = mlstm_fwd_kernel<T>;
-    // allow the largest layout once (not per launch, so that launches can
-    // be captured in a CUDA graph)
-    static cudaError_t attr = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    // allow the largest layout
+    const cudaError_t attr = repro::allow_smem<mlstm_fwd_kernel<T>>(
         (int)(sizeof(float) * vtile_floats(MAXDIM)));
     if (attr != cudaSuccess) return attr;
     const dim3 grid((DV + TILE - 1) / TILE, H, B);
@@ -116,10 +114,8 @@ cudaError_t launch_tc_p(const CUtensorMap& mq, const CUtensorMap& mk,
                         const CUtensorMap& mv, const tc::Params& p, int B,
                         int H, int DV, cudaStream_t stream) {
     auto kern = mlstm_fwd_tc_kernel<P>;
-    // once per instance (not per launch, so that launches can be captured
-    // in a graph)
-    static cudaError_t attr = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM);
+    const cudaError_t attr =
+        repro::allow_smem<mlstm_fwd_tc_kernel<P>>(tc::SMEM);
     if (attr != cudaSuccess) return attr;
     kern<<<dim3(DV / 64, H, B), tc::THREADS, tc::SMEM, stream>>>(mq, mk, mv,
                                                                  p);

@@ -359,18 +359,10 @@ cudaError_t launch_walks_p(int which, const CUtensorMap& mq,
                            const CUtensorMap& mdh, const tc::Params& pdv,
                            const tc::Params& pdq, const tc::Params& pdk,
                            int B, int H, int D, int DV, cudaStream_t stream) {
-    // once per instance (not per launch, so that launches can be captured
-    // in a graph)
-    static const cudaError_t attr[3] = {
-        cudaFuncSetAttribute(mlstm_dv_tc_kernel<P>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             tc::SMEM),
-        cudaFuncSetAttribute(mlstm_dq_tc_kernel<P>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             tc::SMEM),
-        cudaFuncSetAttribute(mlstm_dk_tc_kernel<P>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             tc::SMEM)};
+    const cudaError_t attr[3] = {
+        repro::allow_smem<mlstm_dv_tc_kernel<P>>(tc::SMEM),
+        repro::allow_smem<mlstm_dq_tc_kernel<P>>(tc::SMEM),
+        repro::allow_smem<mlstm_dk_tc_kernel<P>>(tc::SMEM)};
     for (const cudaError_t e : attr)
         if (e != cudaSuccess) return e;
     if (which == 0)
@@ -463,16 +455,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int S, int D, int DV, float scale, cudaStream_t stream) {
     auto dvk = mlstm_dv_kernel<T>;
     auto dqdk = mlstm_dqdk_kernel<T>;
-    // allow the largest layouts once (not per launch, so that launches can
-    // be captured in a CUDA graph)
-    static cudaError_t attr1 = cudaFuncSetAttribute(
-        dvk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    // allow the largest layouts
+    cudaError_t attr = repro::allow_smem<mlstm_dv_kernel<T>>(
         (int)(sizeof(float) * vtile_floats(MAXDIM)));
-    static cudaError_t attr2 = cudaFuncSetAttribute(
-        dqdk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(float) * dtile_floats(MAXDIM)));
-    if (attr1 != cudaSuccess) return attr1;
-    if (attr2 != cudaSuccess) return attr2;
+    if (attr == cudaSuccess)
+        attr = repro::allow_smem<mlstm_dqdk_kernel<T>>(
+            (int)(sizeof(float) * dtile_floats(MAXDIM)));
+    if (attr != cudaSuccess) return attr;
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);

@@ -522,10 +522,8 @@ cudaError_t launch_tc(const void* x, const int* sizes, const void* w,
     if (err == cudaSuccess) err = make_map_bf16(&tout, out, 1, M, 1, N, 64);
     if (err != cudaSuccess) return err;
     auto kernel = tc::gmm_wgmma_kernel<TRANS>;
-    // allow the ring once (not per launch, so that launches can be captured
-    // in a CUDA graph)
-    static cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM);
+    const cudaError_t attr =
+        repro::allow_smem<tc::gmm_wgmma_kernel<TRANS>>(tc::SMEM);
     if (attr != cudaSuccess) return attr;
     schedule_kernel<<<1, SCHED_THREADS, 0, stream>>>(sizes, E, M, tc::BM,
                                                      sched);

@@ -187,10 +187,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
             (size_t)(g * d + CT * (d + 1) + CT * d + g * CT + g * d + 3 * g);
     };
     auto kernel = paged_decode_kernel<T>;
-    // allow the largest G and D once (not per launch, so that launches can
-    // be captured in a CUDA graph)
-    static cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    // allow the largest G and D
+    const cudaError_t attr = repro::allow_smem<paged_decode_kernel<T>>(
         (int)smem_for(MAX_G, 256));
     if (attr != cudaSuccess) return attr;
     const size_t smem = smem_for(G, D);

@@ -227,10 +227,9 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    int B, int Tq, int KH, int G, int D, int P, int page,
                    int max_pages, float scale, cudaStream_t stream) {
     auto kernel = paged_verify_kernel<T>;
-    // allow the largest layout once (not per launch, so that launches can
-    // be captured in a CUDA graph)
-    static cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+    // allow the largest layout
+    const cudaError_t attr =
+        repro::allow_smem<paged_verify_kernel<T>>((int)MAX_SMEM);
     if (attr != cudaSuccess) return attr;
     const int tile = tile_rows(Tq * G, D);
     dim3 grid((Tq * G + tile - 1) / tile, KH, B);

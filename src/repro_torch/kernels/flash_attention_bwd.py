@@ -21,6 +21,7 @@ tensor cores, the rest on the float32 FMA kernels; ``tc_launches`` and
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -119,13 +120,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty_like(v)
     delta = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
     lib = build.library()
+    step = ctypes.c_int(0)
     err = lib.repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, S, T, H, KH, D, D ** -0.5,
         int(causal), int(window), int(q_offset), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "repro_flash_attention_bwd")
+        torch.cuda.current_stream(q.device).cuda_stream, ctypes.byref(step))
+    build.check(err, "repro_flash_attention_bwd", step)
     launches += 1
     if tensor_core_path(q.dtype, D):
         tc_launches += 1

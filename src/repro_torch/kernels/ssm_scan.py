@@ -16,9 +16,9 @@ plain version, a CUDA tensor launches the kernel (or raises).  The
 kernels read the reference layout as it is — x, dt ``(B, S, Din)`` in
 float32 or bfloat16 (the same dtype), A ``(Din, N)``, B and C ``(B, S,
 N)``, D ``(Din,)`` — take any S and Din (the ragged edges are masked in
-the kernels) and hymba's state size N = 16.  A, B, C and D go to the
-kernels as float32 and their gradients come back in their own dtypes;
-dx and ddt come back in x's dtype.
+the kernels) and any state size N from 1 to 64 (hymba's is 16).  A, B, C
+and D go to the kernels as float32 and their gradients come back in their
+own dtypes; dx and ddt come back in x's dtype.
 
 :class:`SSMScan` joins the pair for training: the forward also writes the
 float32 state at each chunk start and saves it with its inputs; the
@@ -43,8 +43,8 @@ bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = ref.SSM_CHUNK  # steps between checkpoints (csrc/ssm_common.cuh)
-STATE = 16             # the state size N the kernels take
-CHANNELS = 16          # channels a block of K5 and K5-bwd covers
+MAX_STATE = 64         # the largest state size N the kernels take
+CHANNELS = 16          # channels a block of K5-bwd covers (its partials)
 
 
 def _check(name: str, x, dt, A, Bmat, Cmat, D, extra=()) -> None:
@@ -72,8 +72,9 @@ def _check(name: str, x, dt, A, Bmat, Cmat, D, extra=()) -> None:
             raise ValueError(f"{n} must be {want[n]}, got {tuple(t.shape)}")
     if dt.dtype != x.dtype:
         raise ValueError(f"dt is {dt.dtype}, x is {x.dtype}")
-    if N != STATE:
-        raise ValueError(f"state size N={N} not supported (only {STATE})")
+    if not 1 <= N <= MAX_STATE:
+        raise ValueError(f"state size N={N} not supported (1 to "
+                         f"{MAX_STATE})")
     if Bsz == 0 or S == 0 or Din == 0:
         raise ValueError("empty selective scan")
 
@@ -127,8 +128,7 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Af, Bf, Cf, Df = _f32(A, Bmat, Cmat, D)
     blocks = -(-Din // CHANNELS)
     f32 = dict(dtype=torch.float32, device=dev)
-    part_dB, part_dC = (torch.empty((blocks, Bsz, S, N), **f32)
-                        for _ in range(2))
+    part_bc = torch.empty((2, blocks, Bsz, N, S), **f32)
     part_dA = torch.empty((Bsz, Din, N), **f32)
     part_dD = torch.empty((Bsz, Din), **f32)
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
@@ -137,8 +137,7 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dD = torch.empty((Din,), **f32)
     err = build.library().repro_ssm_scan_bwd(
         *(t.data_ptr() for t in (x, dt, Af, Bf, Cf, Df, ckpt, dy, dx, ddt,
-                                 part_dB, part_dC, part_dA, part_dD, dB, dC,
-                                 dA, dD)),
+                                 part_bc, part_dA, part_dD, dB, dC, dA, dD)),
         Bsz, S, Din, N, _DTYPES[x.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "repro_ssm_scan_bwd")
