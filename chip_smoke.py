@@ -19,18 +19,27 @@ them, and on any mismatch.  Phases, one or more lines each:
   3. K1 (flash prefill) against its plain version at qwen2 shapes, with
      the path each case took (bf16 on the tensor cores, float32 on FMAs)
      and its time over SDPA's;
-  4. K2 (paged decode) against its plain version at qwen2 shapes;
+  4. K2 (paged decode) against its plain version at qwen2 shapes, with
+     the path each case took (bf16 on the tensor cores, float32 on FMAs,
+     "+merge" where the walk was split over the sequence), the main path
+     timed with the pools hot and cold (a rotation through copies that
+     together hold twice the L2) beside an empty kernel (the launch
+     floor), and the shapes where bytes decide: one layer of decode_32k
+     (B 128 at 32768 positions) and B 8 at 32768 (bf16; float32 at B 8);
   5. main path: ``smoke_serve`` with the paged engine at full width
-     (launch counters reset just before, read just after), then the
-     serving bench's shared-prefix burst;
+     (launch counters reset just before, read just after: every K2
+     launch on the tensor cores), then the serving bench's shared-prefix
+     burst;
   6. the same workload on the fused engine, and the first admission
      group's prefill and decode logits, kernel path vs plain path;
-  7. K3 (paged verify) against its plain version at qwen2 shapes, and
-     against K2 at one row; past one block's rows (glm4-9b's G = 16 at
-     spec_k 8 and 16: 144 and 272 rows, qwen2's G = 6 at spec_k 24: 150
-     rows, in row tiles) beside the 128-row one-tile case;
+  7. K3 (paged verify) against its plain version at qwen2 shapes (the
+     main path hot and cold, and the decode_32k and B 8 long shapes, as
+     phase 4), and against K2 at one row, bit for bit; past 64 rows
+     (glm4-9b's G = 16 at spec_k 7, 8 and 16: 128, 144 and 272 rows,
+     qwen2's G = 6 at spec_k 24: 150 rows, in row tiles);
   8. the speculative path: the paged engine with the n-gram proposer at
-     full width (launch counters reset just before, read just after),
+     full width (launch counters reset just before, read just after:
+     every K3 and K2 launch on the tensor cores),
      beside the same workload without speculation; greedy identity with
      and without speculation on one admission group in float32 (and the
      agreeing share in bf16); one verify step's logits, kernel path vs
@@ -148,7 +157,8 @@ from repro_torch.kernels import build, flash_attention, ops  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd, mlstm_scan  # noqa: E402
 from repro_torch.kernels import paged_attention, paged_attention_mq  # noqa: E402
 from repro_torch.kernels import moe_gmm, ref, ssm_scan  # noqa: E402
-from repro_torch.kernels.timing import time_ms  # noqa: E402
+from repro_torch.kernels.timing import (cold_copies,  # noqa: E402
+                                        launch_floor_ms, time_ms)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe, recurrent  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, smoke_serve  # noqa: E402
@@ -217,6 +227,9 @@ SFU_EXP_PER_S = 132 * 16 * 1.98e9
 HOPPER_COMMON = "src/repro_torch/kernels/csrc/hopper_common.cuh"
 MLSTM_TC = "src/repro_torch/kernels/csrc/mlstm_tc.cuh"
 SSM_COMMON = "src/repro_torch/kernels/csrc/ssm_common.cuh"
+# K2's and K3's shared page walk (split-KV, TMA through the page table,
+# wgmma), and its merge kernel
+PAGED_COMMON = "src/repro_torch/kernels/csrc/paged_common.cuh"
 # phi3.5-moe training: train_4k's length, its global batch of 256 cut to
 # 2, its 32 layers cut to 2 (2.86 B parameters: 45.8 GB of float32
 # weights, gradients and moments)
@@ -329,40 +342,126 @@ def phase_k1(gen) -> dict:
     return main
 
 
-def _k2_case(name, dtype, B, KH, G, D, page, max_pages, lens, gen, rng):
+def _paged_table(B, T, page, max_pages, base, P, rng):
+    """A table of distinct random pool pages (never the null page 0) for
+    the positions each slot's furthest row sees, -1 past them."""
+    seen = np.minimum(base + T - 1, max_pages * page)
+    table = np.full((B, max_pages), -1, np.int32)
+    free = rng.permutation(np.arange(1, P)).astype(np.int32)
+    at = 0
+    for b in range(B):
+        n = -(-int(seen[b]) // page)
+        table[b, :n] = free[at:at + n]
+        at += n
+    return table, seen
+
+
+def _paged_path(mod, n0) -> str:
+    """The path a K2 or K3 launch took, by its counters' moves since n0."""
+    tc, fma, merge = (getattr(mod, k) - n for k, n in zip(
+        ("tc_launches", "fma_launches", "merge_launches"), n0))
+    assert tc + fma == 1, (tc, fma)
+    return ("tensor-cores" if tc else "fma") + (" +merge" if merge else "")
+
+
+def _paged_counts(mod):
+    return (mod.tc_launches, mod.fma_launches, mod.merge_launches)
+
+
+def _paged_case(kernel, name, dtype, B, T, KH, G, D, page, max_pages, lens,
+                gen, rng, cold=False, long=False):
+    """K2 (T = 1, lens = kv_len) or K3 (lens = base_len) against its plain
+    version on random inputs; its time hot (and, with ``cold``, with the
+    pools cold: a rotation through copies that together hold twice the
+    L2), the plain version's, and the bound.  ``long`` times the plain
+    version between events (its gather of a long table is too large for
+    a graph of several calls)."""
     dev = torch.device("cuda")
     P = 1 + B * max_pages
-    q = torch.randn((B, 1, KH * G, D), generator=gen, device=dev).to(dtype)
+    q = torch.randn((B, T, KH * G, D), generator=gen, device=dev).to(dtype)
     kp = torch.randn((KH, P, page, D), generator=gen, device=dev).to(dtype)
     vp = torch.randn((KH, P, page, D), generator=gen, device=dev).to(dtype)
-    lens = np.asarray(lens, np.int32)
-    table = np.full((B, max_pages), -1, np.int32)  # -1 past each kv_len
-    free = list(rng.permutation(np.arange(1, P)))
-    for b in range(B):
-        for j in range(-(-int(lens[b]) // page)):
-            table[b, j] = free.pop()
+    base = np.asarray(lens, np.int32)
+    table, seen = _paged_table(B, T, page, max_pages, base, P, rng)
     tt = torch.from_numpy(table).to(dev)
-    tl = torch.from_numpy(lens).to(dev)
-    got = paged_attention.paged_attention_cuda(q, kp, vp, tt, tl)
-    want = paged_attention.plain(q, kp, vp, tt, tl)
+    tb = torch.from_numpy(base).to(dev)
+    mod, fn, plain = ((paged_attention, paged_attention.paged_attention_cuda,
+                       paged_attention.plain) if kernel == "K2" else
+                      (paged_attention_mq,
+                       paged_attention_mq.paged_attention_mq_cuda,
+                       paged_attention_mq.plain))
+    n0 = _paged_counts(mod)
+    got = fn(q, kp, vp, tt, tb)
+    path = _paged_path(mod, n0)
+    want = plain(q, kp, vp, tt, tb)
     torch.cuda.synchronize()
     err = max_err(got, want, dtype)
-    ms = time_ms(lambda: paged_attention.paged_attention_cuda(q, kp, vp, tt, tl))
-    plain_ms = time_ms(lambda: paged_attention.plain(q, kp, vp, tt, tl),
-                       reps=5, inner=3)
+    extra = ""
+    if kernel == "K3" and T == 1:  # one row is K2 on the same inputs
+        k2 = paged_attention.paged_attention_cuda(q, kp, vp, tt, tb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k2), "K3 at T = 1 is not K2 bit for bit"
+        extra = " vs_K2=bit-identical"
+    del want
+    ms = time_ms(lambda: fn(q, kp, vp, tt, tb))
+    if long:
+        plain_ms = time_events_ms(lambda: plain(q, kp, vp, tt, tb), reps=3)
+    else:
+        plain_ms = time_ms(lambda: plain(q, kp, vp, tt, tb), reps=5, inner=3)
+    r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, path=path)
+    if cold:
+        n = cold_copies(2 * kp.numel() * kp.element_size())
+        pools = [(kp.clone(), vp.clone()) for _ in range(n)]
+        r["ms_cold"] = time_ms(lambda i: fn(q, *pools[i], tt, tb), cold=n)
+        del pools
+        extra += f" ms_cold={r['ms_cold']:.5f} ({n} pool copies)"
     size = torch.finfo(dtype).bits // 8
-    live = int(lens.sum())
-    nbytes = (size * (2 * B * KH * G * D + 2 * live * KH * D)
+    # q and out once, the K and V each slot's rows can see once, the int32
+    # table and lengths; FLOPs 4 D per visible (row, key) pair
+    nbytes = (size * (2 * B * T * KH * G * D + 2 * int(seen.sum()) * KH * D)
               + 4 * (B * max_pages + B))
-    flops = 4.0 * KH * G * D * live
+    rows_seen = np.minimum(base[:, None] + np.arange(T)[None],
+                           max_pages * page)
+    flops = 4.0 * D * KH * G * int(rows_seen.sum())
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    bms, by = bound_ms(nbytes, flops, peak)
-    log(f"[4 K2] {name} {str(dtype)[6:]} B={B} KH={KH} G={G} D={D} "
-        f"page={page} max_pages={max_pages} kv_len={lens.tolist()}: "
-        f"max_abs_err={err:.3g} (tol {TOL[dtype]:g} abs+rel) ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={bms:.5f} ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, peak)
+    shown = (base.tolist() if B <= 8 else f"{B} x {int(base[0])}")
+    phase = "4 K2" if kernel == "K2" else "7 K3"
+    what = "kv_len" if kernel == "K2" else "base_len"
+    log(f"[{phase}] {name} {str(dtype)[6:]} B={B}" +
+        (f" T={T}" if kernel == "K3" else "") + f" KH={KH} G={G} D={D} "
+        f"page={page} max_pages={max_pages} {what}={shown}: path={path} "
+        f"max_abs_err={err:.3g} (tol {TOL[dtype]:g} abs+rel){extra} "
+        f"ms={ms:.5f} plain_ms={plain_ms:.4f} library_ms=null "
+        f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+    del q, kp, vp, got
+    torch.cuda.empty_cache()
+    return r
+
+
+def _long_cases(kernel, T):
+    """The shapes where bytes decide, qwen2-1.5b's KV heads, group, head
+    dim and pages: one layer of decode_32k (B 128 at 32768 positions), and
+    B 8 at 32768 (where the split has to fill the card); bf16, and float32
+    at B 8 alone (to spare memory and time).  Drawn from their own
+    generators."""
+    lgen = torch.Generator(device="cuda").manual_seed(21)
+    lrng = np.random.default_rng(21)
+    out = {}
+    for name, B, dtypes in (("decode_32k", 128, (torch.bfloat16,)),
+                            ("batch8-32k", 8, (torch.bfloat16,
+                                               torch.float32))):
+        for dtype in dtypes:
+            r = _paged_case(kernel, name, dtype, B, T, 2, 6, 128, PAGE,
+                            32768 // PAGE, [32768 - (T - 1)] * B, lgen,
+                            lrng, long=True)
+            if dtype == torch.bfloat16:
+                assert r["path"].startswith("tensor-cores"), r["path"]
+                out[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                                 bound_ms=r["bound_ms"],
+                                 bound_by=r["bound_by"], path=r["path"],
+                                 max_abs_err=r["max_abs_err"])
+    return out
 
 
 def phase_k2(gen) -> dict:
@@ -371,22 +470,43 @@ def phase_k2(gen) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         # main path: the paged decode batch at its live lengths (prompt 64
         # + up to 31 decoded tokens; max_seq 96 -> 6 table entries per slot)
-        r = _k2_case("main-path", dtype, MAX_BATCH, 2, 6, 128, PAGE,
-                     MAX_SEQ // PAGE, [65, 70, 80, 95, 96, 64, 81, 90],
-                     gen, rng)
+        r = _paged_case("K2", "main-path", dtype, MAX_BATCH, 1, 2, 6, 128,
+                        PAGE, MAX_SEQ // PAGE, [65, 70, 80, 95, 96, 64, 81,
+                                                90], gen, rng,
+                        cold=dtype == torch.bfloat16)
         if dtype == torch.bfloat16:
+            assert r["path"] == "tensor-cores", r["path"]
             main = r
         # long cache, ragged lengths with exact page boundaries and a
         # one-token slot; -1 past each length
-        _k2_case("long", dtype, 8, 2, 6, 128, PAGE, 64,
-                 [1, 16, 17, 512, 1024, 1000, 333, 32], gen, rng)
+        _paged_case("K2", "long", dtype, 8, 1, 2, 6, 128, PAGE, 64,
+                    [1, 16, 17, 512, 1024, 1000, 333, 32], gen, rng)
+    main["launch_floor_ms"] = launch_floor_ms()
+    log(f"[4 K2] launch floor (an empty kernel in the same kind of graph): "
+        f"{main['launch_floor_ms']:.5f} ms")
+    main["long"] = _long_cases("K2", 1)
     return main
 
 
 # ---------------------------------------------------------------------------
+def _reset_paged_counters(*mods) -> None:
+    for mod in mods:
+        mod.launches = mod.tc_launches = mod.fma_launches = 0
+        mod.merge_launches = 0
+
+
+def _paged_paths(mod) -> dict:
+    """A K2 or K3 wrapper's launches by path since the reset; every bf16
+    launch of the serving paths takes the tensor cores."""
+    paths = {"tensor-cores": mod.tc_launches, "fma": mod.fma_launches,
+             "merged": mod.merge_launches}
+    assert mod.tc_launches == mod.launches > 0, paths
+    return paths
+
+
 def phase_serve_paged(model, params, cfg) -> dict:
     flash_attention.launches = 0
-    paged_attention.launches = 0
+    _reset_paged_counters(paged_attention)
     done, stats = smoke_serve(
         model, params, num_requests=NUM_REQUESTS, vocab_size=cfg.vocab_size,
         max_batch=MAX_BATCH, max_seq=MAX_SEQ, prompt_len=PROMPT_LEN,
@@ -397,6 +517,8 @@ def phase_serve_paged(model, params, cfg) -> dict:
     assert all(1 <= len(c.tokens) <= MAX_NEW for c in done)
     assert all(0 <= t < cfg.vocab_size for c in done for t in c.tokens)
     assert launches["flash_attention"] > 0 and launches["paged_attention"] > 0
+    log(f"[5 serve paged] K2 launches by path: "
+        f"{_paged_paths(paged_attention)}")
     assert stats["pages_in_use"] == 0, "pages leaked after the drain"
     log(f"[5 serve paged] requests={stats['requests']} tokens="
         f"{stats['tokens']} wall_s={stats['step_time_s']:.3f} tok_per_s="
@@ -506,55 +628,6 @@ def phase_serve_fused(model, params, cfg) -> float:
 
 
 # ---------------------------------------------------------------------------
-def _k3_case(name, dtype, B, T, KH, G, D, page, max_pages, base_len, gen,
-             rng):
-    dev = torch.device("cuda")
-    P = 1 + B * max_pages
-    q = torch.randn((B, T, KH * G, D), generator=gen, device=dev).to(dtype)
-    kp = torch.randn((KH, P, page, D), generator=gen, device=dev).to(dtype)
-    vp = torch.randn((KH, P, page, D), generator=gen, device=dev).to(dtype)
-    base = np.asarray(base_len, np.int32)
-    # what each slot's furthest row sees; -1 past it
-    seen = np.minimum(base + T - 1, max_pages * page)
-    table = np.full((B, max_pages), -1, np.int32)
-    free = list(rng.permutation(np.arange(1, P)))
-    for b in range(B):
-        for j in range(-(-int(seen[b]) // page)):
-            table[b, j] = free.pop()
-    tt = torch.from_numpy(table).to(dev)
-    tb = torch.from_numpy(base).to(dev)
-    got = paged_attention_mq.paged_attention_mq_cuda(q, kp, vp, tt, tb)
-    want = paged_attention_mq.plain(q, kp, vp, tt, tb)
-    torch.cuda.synchronize()
-    err = max_err(got, want, dtype)
-    extra = ""
-    if T == 1:  # one row is single-token decode: K2 on the same inputs
-        k2 = paged_attention.paged_attention_cuda(q, kp, vp, tt, tb)
-        torch.cuda.synchronize()
-        extra = f" vs_K2_max_abs_err={max_err(got, k2, dtype):.3g}"
-    ms = time_ms(lambda: paged_attention_mq.paged_attention_mq_cuda(
-        q, kp, vp, tt, tb))
-    plain_ms = time_ms(lambda: paged_attention_mq.plain(q, kp, vp, tt, tb),
-                       reps=5, inner=3)
-    size = torch.finfo(dtype).bits // 8
-    # q and out once, the K and V each row set can see once, the int32
-    # table and lengths; FLOPs 4 D per visible (row, key) pair
-    nbytes = (size * (2 * B * T * KH * G * D + 2 * int(seen.sum()) * KH * D)
-              + 4 * (B * max_pages + B))
-    rows_seen = np.minimum(base[:, None] + np.arange(T)[None],
-                           max_pages * page)
-    flops = 4.0 * D * KH * G * int(rows_seen.sum())
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    bms, by = bound_ms(nbytes, flops, peak)
-    log(f"[7 K3] {name} {str(dtype)[6:]} B={B} T={T} KH={KH} G={G} D={D} "
-        f"page={page} max_pages={max_pages} base_len={base.tolist()}: "
-        f"max_abs_err={err:.3g} (tol {TOL[dtype]:g} abs+rel){extra} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null "
-        f"bound_ms={bms:.5f} ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
-
-
 def phase_k3(gen) -> dict:
     rng = np.random.default_rng(1)
     main = None
@@ -562,20 +635,22 @@ def phase_k3(gen) -> dict:
     lens = [65, 70, 80, 95, 96, 64, 81, 90]
     for dtype in (torch.bfloat16, torch.float32):
         # main path: the verify batch of the speculative run (T = spec_k + 1)
-        r = _k3_case("main-path", dtype, MAX_BATCH, SPEC_K + 1, 2, 6, 128,
-                     PAGE, mp, lens, gen, rng)
+        r = _paged_case("K3", "main-path", dtype, MAX_BATCH, SPEC_K + 1, 2,
+                        6, 128, PAGE, mp, lens, gen, rng,
+                        cold=dtype == torch.bfloat16)
         if dtype == torch.bfloat16:
+            assert r["path"] == "tensor-cores", r["path"]
             main = r
-        _k3_case("long", dtype, 8, 5, 2, 6, 128, PAGE, 64,
-                 [1, 16, 17, 512, 1020, 1000, 333, 32], gen, rng)
+        _paged_case("K3", "long", dtype, 8, 5, 2, 6, 128, PAGE, 64,
+                    [1, 16, 17, 512, 1020, 1000, 333, 32], gen, rng)
         # rows ending exactly on page edges, and base_len 1
-        _k3_case("page-edges", dtype, 8, 5, 2, 6, 128, PAGE, 8,
-                 [1, 12, 16, 17, 28, 32, 48, 64], gen, rng)
+        _paged_case("K3", "page-edges", dtype, 8, 5, 2, 6, 128, PAGE, 8,
+                    [1, 12, 16, 17, 28, 32, 48, 64], gen, rng)
         # 80 rows per block (glm4-9b's G = 16 at spec_k = 4)
-        _k3_case("G=16", dtype, 4, 5, 2, 16, 128, PAGE, 8,
-                 [1, 33, 64, 100], gen, rng)
-        _k3_case("T=1", dtype, MAX_BATCH, 1, 2, 6, 128, PAGE, mp, lens, gen,
-                 rng)
+        _paged_case("K3", "G=16", dtype, 4, 5, 2, 16, 128, PAGE, 8,
+                    [1, 33, 64, 100], gen, rng)
+        _paged_case("K3", "T=1", dtype, MAX_BATCH, 1, 2, 6, 128, PAGE, mp,
+                    lens, gen, rng)
     # past one block's 128 rows at D = 128: row tiles, beside the largest
     # one-tile case (glm4-9b, G = 16, spec_k 7); drawn from their own
     # generators, so that the phases after this one see the inputs they
@@ -588,10 +663,13 @@ def phase_k3(gen) -> dict:
                            ("272 rows (G=16 spec_k=16)", 17, 16),
                            ("150 rows (G=6 spec_k=24)", 25, 6)):
             rows = build.library().repro_paged_attention_mq_tile_rows(
-                T * G, 128)
-            log(f"[7 K3] {name}: {-(-T * G // rows)} row tile(s) of {rows}")
-            _k3_case(name, dtype, 4, T, 2, G, 128, PAGE, 12,
-                     [1, 33, 64, 150], tgen, trng)
+                T * G, 128, PAGE, int(dtype == torch.bfloat16))
+            log(f"[7 K3] {name} {str(dtype)[6:]}: {-(-T * G // rows)} row "
+                f"tile(s) of {rows}")
+            _paged_case("K3", name, dtype, 4, T, 2, G, 128, PAGE, 12,
+                        [1, 33, 64, 150], tgen, trng)
+    main["launch_floor_ms"] = launch_floor_ms()
+    main["long"] = _long_cases("K3", SPEC_K + 1)
     return main
 
 
@@ -634,12 +712,16 @@ def _top2_margin(model, params, prompt, prefix) -> float:
 def phase_serve_spec(model, params, cfg) -> int:
     # main path: the paged engine's speculative decode with the n-gram
     # proposer, counters reset just before and read just after
-    for mod in (flash_attention, paged_attention, paged_attention_mq):
-        mod.launches = 0
+    flash_attention.launches = 0
+    _reset_paged_counters(paged_attention, paged_attention_mq)
     eng = _spec_engine(model, params, SPEC_K)
     done, wall = _burst(eng, cfg.vocab_size)
     launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in
                 (flash_attention, paged_attention, paged_attention_mq)}
+    log(f"[8 serve spec] K3 launches by path: "
+        f"{_paged_paths(paged_attention_mq)}" + (
+            f"; K2: {_paged_paths(paged_attention)}"
+            if paged_attention.launches else ""))
     stats = eng.kv_stats()
     toks = sum(len(c.tokens) for c in done)
     assert len(done) == NUM_REQUESTS
@@ -2089,10 +2171,12 @@ def main() -> int:
              launches=launches["flash_attention"], **k1),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
+             includes=[PAGED_COMMON, HOPPER_COMMON],
              replaces="src/repro/kernels/paged_attention.py:230",
              launches=launches["paged_attention"], **k2),
         dict(name="paged_attention_mq", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention_mq.cu",
+             includes=[PAGED_COMMON, HOPPER_COMMON],
              replaces="src/repro/kernels/paged_attention.py:170",
              launches=k3_launches, **k3),
         dict(name="flash_attention_bwd", route="cuda",

@@ -43,15 +43,21 @@ _SIGNATURES = {
     # D, dtype -> 1 when K1 and K1-bwd run on the tensor cores
     "repro_flash_attention_tensor_cores": [_I, _I],
     # q, k_pool, v_pool, page_table, kv_len, out, B, KH, G, D, P, page,
-    # max_pages, scale, dtype, stream
+    # max_pages, scale, dtype, stream, splits, partials (nullable)
     "repro_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _F, _I, _P],
+                              _I, _I, _F, _I, _P, _I, _P],
     # q, k_pool, v_pool, page_table, base_len, out, B, T, KH, G, D, P,
-    # page, max_pages, scale, dtype, stream
+    # page, max_pages, scale, dtype, stream, splits, partials (nullable)
     "repro_paged_attention_mq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _I, _F, _I, _P],
-    # rows = T * G, D -> query rows of one of K3's row tiles
-    "repro_paged_attention_mq_tile_rows": [_I, _I],
+                                 _I, _I, _I, _F, _I, _P, _I, _P],
+    # rows = T * G, D, page, dtype -> query rows of one of K3's row tiles
+    "repro_paged_attention_mq_tile_rows": [_I, _I, _I, _I],
+    # D, page, dtype -> 1 when K2 and K3 walk on the tensor cores
+    "repro_paged_tensor_cores": [_I, _I, _I],
+    # max_pages, page, splits -> table entries a split walks (0: refused)
+    "repro_paged_split_pages": [_I, _I, _I],
+    # stream: one launch of an empty kernel (the launch floor)
+    "repro_launch_floor": [_P],
     # q, k, v, i_pre, f_pre, h, m (nullable), qn (nullable), B, H, S, D,
     # DV, scale, dtype, stream, tensor_cores (host int: 1 when the
     # tensor-core kernel launched)

@@ -11,20 +11,30 @@ takes the plain version, a CUDA tensor launches the kernel (or raises).
 The decode token's queries arrive in the reference layout ``(B, 1, H, D)``
 — in memory the TPU kernel's ``(B, KH, G, D)``, since query head
 ``h = kh * G + g`` — and the pools as ``(KH, P, page, D)``; ``D`` is
-unpadded.
+unpadded.  K2 is K3 at one draft row: both run the page walk of
+``csrc/paged_common.cuh`` (:mod:`.paged_common`), split over the sequence
+by a plan that reads no length on the host.  In bf16 at D 64 or 128 (and
+a page of 8 to 64 rows or a multiple of 64) the walk runs on the tensor
+cores, fed by TMA through the page table; otherwise on FMAs.  Each path
+counts its launches (``tc_launches``, ``fma_launches``) beside
+``launches``; ``merge_launches`` counts the launches that split the walk
+and merged the splits.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import paged_common, ref
 
-# kernel launches since the last reset (a run resets it to 0 and reads it
-# to show that its path went through the kernel)
+# kernel launches since the last reset (a run resets them to 0 and reads
+# them to show that its path went through the kernel), and by path
 launches = 0
+tc_launches = 0
+fma_launches = 0
+merge_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP = 32  # query heads per KV head the kernel's shared memory holds
+MAX_GROUP = 32  # query heads per KV head the wrapper takes
 
 plain = ref.paged_attention
 
@@ -34,7 +44,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          kv_len: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream.  Raises on anything
     it does not take."""
-    global launches
+    global launches, tc_launches, fma_launches, merge_launches
     for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("page_table", page_table), ("kv_len", kv_len)):
         if x.device.type != "cuda":
@@ -70,15 +80,15 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"head_dim {D} must be a multiple of 8 in [8, 256]")
     if not 1 <= G <= MAX_GROUP:
         raise ValueError(f"group size {G} must be in [1, {MAX_GROUP}]")
-    out = torch.empty_like(q)
-    lib = build.library()
-    err = lib.repro_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        B, KH, G, D, P, page, page_table.shape[1], D ** -0.5,
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "repro_paged_attention")
+    out, tc, splits = paged_common.launch(
+        "repro_paged_attention", q, k_pool, v_pool, page_table, kv_len,
+        (B, KH, G, D, P, page, page_table.shape[1]))
     launches += 1
+    if tc:
+        tc_launches += 1
+    else:
+        fma_launches += 1
+    merge_launches += splits > 1
     return out
 
 

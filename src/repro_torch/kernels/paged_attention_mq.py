@@ -14,19 +14,30 @@ draft positions — and the kernel reads query row ``(t, kh, g)`` of KV
 head ``kh`` straight from it; the pools are ``(KH, P, page, D)`` and
 ``D`` is unpadded.  Row ``t`` sees the kv positions
 ``< base_len[b] + t``.  The ``T * G`` rows of a KV head are tiled over
-blocks when they do not fit in one block's shared memory (the C entry
-``repro_paged_attention_mq_tile_rows`` gives a launch's rows per tile),
-so any ``T`` is taken.
+blocks (the C entry ``repro_paged_attention_mq_tile_rows`` gives a
+launch's rows per tile): tiles of 64 rows on the tensor cores, and on the
+FMA walk the fewest that fit in one block's shared memory, so any ``T``
+is taken.  The page walk is ``csrc/paged_common.cuh``'s, shared with K2
+(:mod:`.paged_common`), split over the sequence by a plan that reads no
+length on the host; in bf16 at D 64 or 128 (and a page of 8 to 64 rows or
+a multiple of 64) it runs on the tensor cores, fed by TMA through the
+page table, otherwise on FMAs.  Each path counts its launches
+(``tc_launches``, ``fma_launches``) beside ``launches``;
+``merge_launches`` counts the launches that split the walk and merged
+the splits.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import paged_common, ref
 
-# kernel launches since the last reset (a run resets it to 0 and reads it
-# to show that its path went through the kernel)
+# kernel launches since the last reset (a run resets them to 0 and reads
+# them to show that its path went through the kernel), and by path
 launches = 0
+tc_launches = 0
+fma_launches = 0
+merge_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -38,7 +49,7 @@ def paged_attention_mq_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                             base_len: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream.  Raises on anything
     it does not take."""
-    global launches
+    global launches, tc_launches, fma_launches, merge_launches
     for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("page_table", page_table), ("base_len", base_len)):
         if x.device.type != "cuda":
@@ -72,15 +83,15 @@ def paged_attention_mq_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"base_len must be ({B},)")
     if D % 8 or not 8 <= D <= 256:
         raise ValueError(f"head_dim {D} must be a multiple of 8 in [8, 256]")
-    out = torch.empty_like(q)
-    lib = build.library()
-    err = lib.repro_paged_attention_mq(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_table.data_ptr(), base_len.data_ptr(), out.data_ptr(),
-        B, T, KH, G, D, P, page, page_table.shape[1], D ** -0.5,
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "repro_paged_attention_mq")
+    out, tc, splits = paged_common.launch(
+        "repro_paged_attention_mq", q, k_pool, v_pool, page_table, base_len,
+        (B, T, KH, G, D, P, page, page_table.shape[1]))
     launches += 1
+    if tc:
+        tc_launches += 1
+    else:
+        fma_launches += 1
+    merge_launches += splits > 1
     return out
 
 

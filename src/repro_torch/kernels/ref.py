@@ -198,6 +198,53 @@ def paged_attention_mq(
     return decode_attention_mq(q, k, v, base_len)
 
 
+def paged_attention_split(
+    q: torch.Tensor,           # (B, T, H, D); T = 1 is K2's decode read
+    k_pool: torch.Tensor,      # (KH, P, page, D) global page pool
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # (B, max_pages) int32; -1 = unmapped
+    base_len: torch.Tensor,    # (B,) kv length visible to query row 0
+    pps: int,                  # table entries a split walks
+) -> torch.Tensor:
+    """K2's and K3's split walk and merge, in plain PyTorch (the tests'
+    model of the kernels' algorithm; the port's path never calls it).
+    Split ``s`` walks the table entries ``[s * pps, (s + 1) * pps)`` and
+    keeps, for each row, ``m_s`` (the max of its visible scores, -1e30 when
+    it sees none there), ``l_s`` and ``acc_s`` (the sums of
+    ``exp(score - m_s)`` and of those weights times V); the merge weighs
+    split ``s`` by ``exp(m_s - max m)`` and adds the splits in order.  Row
+    ``t`` sees the positions ``< min(base_len + t, max_pages * page)``."""
+    B, T, H, D = q.shape
+    KH, _, page, _ = k_pool.shape
+    max_pages = page_table.shape[1]
+    G, cap = H // KH, max_pages * page
+    pt = page_table.long().clamp(min=0)
+    k = k_pool[:, pt].permute(1, 2, 3, 0, 4).reshape(B, cap, KH, D).float()
+    v = v_pool[:, pt].permute(1, 2, 3, 0, 4).reshape(B, cap, KH, D).float()
+    qf = q.float().reshape(B, T, KH, G, D) * (D ** -0.5)
+    scores = torch.einsum("btkgd,bpkd->bkgtp", qf, k)
+    kpos = torch.arange(cap, device=q.device)
+    limit = torch.clamp(base_len.to(q.device).long()[:, None]
+                        + torch.arange(T, device=q.device), max=cap)
+    seen = kpos[None, None, :] < limit[:, :, None]  # (B, T, cap)
+    parts = []
+    for lo in range(0, cap, pps * page):
+        mask = seen & (kpos >= lo) & (kpos < lo + pps * page)
+        s = torch.where(mask[:, None, None], scores, NEG_INF)
+        m = s.amax(-1)
+        p = torch.where(mask[:, None, None], torch.exp(s - m[..., None]), 0.0)
+        parts.append((m, p.sum(-1), torch.einsum("bkgtp,bpkd->bkgtd", p, v)))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = torch.zeros_like(M)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:  # split order
+        w = torch.exp(m - M)
+        L = L + l * w
+        acc = acc + a * w[..., None]
+    out = acc / torch.clamp(L, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # mLSTM (xLSTM matrix-memory cell): the sequential oracle, and K6's and
 # K6-bwd's plain versions.  Layout as the reference's: q/k ``(B, H, S, D)``,

@@ -35,7 +35,8 @@ import torch
 
 from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
                                  mlstm_scan, moe_gmm, ops, paged_attention,
-                                 paged_attention_mq, ref, ssm_scan)
+                                 paged_attention_mq, paged_common, ref,
+                                 ssm_scan)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -190,11 +191,13 @@ def test_verify_kernel_one_row_matches_decode_kernel(dev, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_verify_kernel_tiles_rows_past_one_block(dev, dtype):
-    """144 query rows (T = 9, G = 16: glm4-9b at spec_k 8) do not fit in
-    one block's shared memory at D = 128: they run as two row tiles and
-    match the plain version.  Each row's bits do not depend on the tiling:
-    the 128 rows of T = 8 (one tile, the untiled launch) equal the same
-    rows inside the two-tile launch, bit for bit."""
+    """144 query rows (T = 9, G = 16: glm4-9b at spec_k 8) run as row
+    tiles (two of 72 on the float32 FMA walk, whose shared memory holds
+    128 rows at D = 128; three of 64 on the bf16 tensor cores) and match
+    the plain version.  Each row's bits do not depend on the tiling: the
+    128 rows of T = 8 (one FMA tile, the untiled launch; two tensor-core
+    tiles) equal the same rows inside the 144-row launch, bit for bit
+    (both launches take the same split)."""
     q, kp, vp, tt, tl = _verify_inputs(dev, dtype, 4, 9, 2, 16, 128, 16, 8,
                                        [1, 33, 64, 100])
     n0 = paged_attention_mq.launches
@@ -207,13 +210,17 @@ def test_verify_kernel_tiles_rows_past_one_block(dev, dtype):
     one_tile = paged_attention_mq.paged_attention_mq_cuda(
         q[:, :8].contiguous(), kp, vp, tt, tl)
     torch.testing.assert_close(one_tile, got[:, :8], rtol=0, atol=0)
-    # rows per tile: all of them while they fit (128 at D = 128, 43 at
-    # D = 256), else the fewest balanced tiles
+    # rows per tile on the FMA walk (float32, page 16): all of them while
+    # they fit (128 at D = 128, 43 at D = 256), else the fewest balanced
+    # tiles; on the tensor cores (bf16) tiles of 64
     tile_rows = build.library().repro_paged_attention_mq_tile_rows
     for rows, d, want in ((80, 128, 80), (128, 128, 128), (144, 128, 72),
                           (150, 128, 75), (272, 128, 91), (43, 256, 43),
                           (44, 256, 22)):
-        assert tile_rows(rows, d) == want, (rows, d)
+        assert tile_rows(rows, d, 16, 0) == want, (rows, d)
+    for rows, d, want in ((30, 128, 30), (64, 128, 64), (144, 128, 64),
+                          (150, 64, 64)):
+        assert tile_rows(rows, d, 16, 1) == want, (rows, d)
 
 
 def test_verify_kernel_refuses_what_it_does_not_take(dev):
@@ -233,6 +240,120 @@ def test_verify_kernel_refuses_what_it_does_not_take(dev):
         paged_attention_mq.paged_attention_mq_cuda(q, pool, pool,
                                                    table.long(), lens)
     assert paged_attention_mq.launches == n0
+
+
+# K2 and K3 split over the sequence: (name, B, T, KH, G, D, page,
+# max_pages, lengths, tensor cores in bf16).  T = 1 is K2.  Long tables at
+# small batch force several splits; a -1 entry inside a live range reads
+# the null page 0; pages narrower and wider than a 64-token chunk; head
+# dims and pages the tensor-core walk does not take run on FMAs.
+SPLIT_CASES = [
+    ("K2-B2-kv4096", 2, 1, 2, 6, 128, 16, 256, [4096, 1000], True),
+    ("K3-B2-kv4096", 2, 5, 2, 6, 128, 16, 256, [4092, 999], True),
+    ("K2-D64-page8", 3, 1, 2, 4, 64, 8, 300, [1, 2047, 2400], True),
+    ("K3-page128", 2, 5, 2, 6, 128, 128, 24, [3000, 129], True),
+    ("K3-G16-rows144", 2, 9, 2, 16, 128, 32, 64, [2000, 1], True),
+    ("K2-D96", 2, 1, 2, 6, 96, 16, 256, [3000, 17], False),
+    ("K3-page24", 2, 5, 2, 6, 128, 24, 100, [2300, 40], False),
+]
+
+
+def _split_case(dev, dtype, case, seed=0):
+    name, B, T, KH, G, D, page, max_pages, lens, _ = case
+    q, kp, vp, tt, tl = _verify_inputs(dev, dtype, B, T, KH, G, D, page,
+                                       max_pages, lens, seed)
+    tt[int(np.argmax(lens)), 1] = -1  # inside a live range: the null page
+    if T == 1:
+        return (paged_attention, paged_attention.paged_attention_cuda,
+                ref.paged_attention, (q, kp, vp, tt, tl))
+    return (paged_attention_mq, paged_attention_mq.paged_attention_mq_cuda,
+            ref.paged_attention_mq, (q, kp, vp, tt, tl))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: c[0])
+def test_paged_split_kernels_match_plain(dev, dtype, case):
+    _, B, T, KH, G, D, page, max_pages, _, tc = case
+    tc = tc and dtype == torch.bfloat16
+    mod, kernel, plain, xs = _split_case(dev, dtype, case)
+    rows = T * G
+    tiles = -(-rows // paged_common.tile_rows(rows, D, page, dtype))
+    splits = paged_common.split_plan(B, KH, tiles, max_pages, page,
+                                     paged_common.sm_count(dev.index or 0))
+    assert splits > 1, splits
+    n = (mod.launches, mod.tc_launches, mod.fma_launches, mod.merge_launches)
+    got = kernel(*xs)
+    torch.cuda.synchronize()
+    assert (mod.launches, mod.tc_launches, mod.fma_launches,
+            mod.merge_launches) == (n[0] + 1, n[1] + tc, n[2] + (not tc),
+                                    n[3] + 1)
+    want = plain(*xs)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    # deterministic bit for bit: the merge adds the splits in order
+    torch.testing.assert_close(kernel(*xs), got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_one_row_is_the_decode_kernel_under_the_split(dev, dtype):
+    """K3 at T = 1 is K2 on the same inputs, bit for bit, with several
+    splits (both wrappers take the same split)."""
+    q, kp, vp, tt, tl = _verify_inputs(dev, dtype, 2, 1, 2, 6, 128, 16, 256,
+                                       [4096, 1000])
+    got = paged_attention_mq.paged_attention_mq_cuda(q, kp, vp, tt, tl)
+    want = paged_attention.paged_attention_cuda(q, kp, vp, tt, tl)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("case", [SPLIT_CASES[0], SPLIT_CASES[1],
+                                  ("K3-main-path", 8, 5, 2, 6, 128, 16, 7,
+                                   [65, 70, 80, 95, 96, 64, 81, 90], True)],
+                         ids=lambda c: c[0])
+def test_paged_kernels_capture_in_a_cuda_graph(dev, case):
+    """The wrappers read no length on the host: a launch captures in a CUDA
+    graph, and a replay after the lengths were rewritten on the card
+    reads the new ones."""
+    _, kernel, plain, (q, kp, vp, tt, tl) = _split_case(
+        dev, torch.bfloat16, case)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(q, kp, vp, tt, tl)  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernel(q, kp, vp, tt, tl)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, kernel(q, kp, vp, tt, tl), atol=0,
+                               rtol=0)
+    tl.copy_(torch.clamp(tl // 3, min=1))
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain(q, kp, vp, tt, tl).float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+def test_paged_rules_are_the_library_s(dev):
+    """The wrappers' path rule, split and tiles (``paged_common``) are the
+    C entries' own."""
+    lib = build.library()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for D in (8, 32, 64, 96, 128, 256):
+            for page in (1, 4, 8, 16, 24, 32, 64, 100, 128, 192, 256):
+                assert lib.repro_paged_tensor_cores(D, page, code) == int(
+                    paged_common.tensor_core_path(dtype, D, page)), (D, page)
+                for rows in (1, 6, 30, 64, 65, 144, 272):
+                    assert lib.repro_paged_attention_mq_tile_rows(
+                        rows, D, page, code) == paged_common.tile_rows(
+                            rows, D, page, dtype), (rows, D, page, dtype)
+    for page in (8, 16, 24, 64, 128):
+        for max_pages in (1, 6, 7, 100, 2048):
+            for splits in range(0, 40):
+                assert lib.repro_paged_split_pages(
+                    max_pages, page, splits) == paged_common.split_pages(
+                        max_pages, page, splits), (max_pages, page, splits)
 
 
 # K1's training pair: the chip_smoke.py phase-9 cases, shrunk
