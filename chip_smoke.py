@@ -7,7 +7,8 @@ width (K6 forward, K6-bwd backward, the sLSTM loop), train hymba-1.5b
 at full width (K1 and K1-bwd, global and sliding-window, and K5
 forward, K5-bwd backward for its SSM heads), and train phi3.5-moe at
 full width, depth cut to 2 layers (K4 for the expert FFN forward and
-its dX, K1 and K1-bwd).
+its dX, K1 and K1-bwd); then run the canonical serve and train workflows
+through the control plane (``repro_torch.core.run_workflow``).
 
     python3 chip_smoke.py
 
@@ -121,7 +122,21 @@ them, and on any mismatch.  Phases, one or more lines each:
      (a bf16 rounding upstream can flip a routing choice);
  26. MoE resume is exact at full d_model and heads, 16 experts top-2,
      depth cut to 2 layers and d_ff to 256 (a 5.4 GB checkpoint), seq
-     1024, batch 2.
+     1024, batch 2;
+ 27. the serve workflow: ``serve-qwen2-1.5b`` at full width (28 layers,
+     d_model 1536, bf16 serving parameters) through the control plane's
+     ``run_workflow`` on the card, 8 requests, the paged engine with
+     spec_k 4 and then 0 (counters reset just before each run and read
+     just after: K1 and K3, then K1 and K2, all on the tensor cores), the
+     completions token-identical to ``smoke_serve`` called directly on
+     the same weights, the checks passing, and the run record's
+     environment event naming the card;
+ 28. the train workflow: ``train-qwen2-1.5b`` at the template's own
+     (reduced) scale through ``run_workflow`` on the card, uninterrupted
+     (K1's and K1-bwd's launches), with a failure at step 3, cut at step
+     3 then resumed, and with ``executor="processes"`` and the eval stage:
+     each final state bit-identical to the uninterrupted run's, the
+     checks passing.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -151,7 +166,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
-from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config, reduced  # noqa: E402
+from repro_torch.core import (REGISTRY, ProvenanceStore,  # noqa: E402
+                              run_workflow)
+from repro_torch.ft.failures import FailureSchedule  # noqa: E402
 from repro_torch.data import make_stream  # noqa: E402
 from repro_torch.kernels import build, flash_attention, ops  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd, mlstm_scan  # noqa: E402
@@ -182,6 +200,9 @@ MAX_SEQ = PROMPT_LEN + MAX_NEW  # the last decode writes at 94
 # the speculative path: a verify pass entered one token before the budget
 # writes SPEC_K rows past it, 64 + 32 - 1 + 4 = 99 positions (7 pages)
 SPEC_K, SPEC_CHUNK, SPEC_MAX_SEQ = 4, 2, 112
+# the serve workflow's smoke knobs (run_workflow's defaults): 8 requests
+# of 8 prompt tokens, 4 slots, max_seq 32 + 64
+WF_SMOKE_BATCH, WF_SMOKE_SEQ = 4, 32
 # training: the train_4k shape's length, its global batch of 256 cut to 2
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_MICROBATCH = 4096, 2, 4, 1
 # K1-bwd's float32 gradients: the reference's own tolerance for its flash
@@ -2087,6 +2108,183 @@ def phase_moe_plain(cfg2) -> None:
     assert leaf_err[worst] <= MOE_LEAF_BOUND, leaf_err
 
 
+# ---------------------------------------------------------------------------
+def _stage_walls(res) -> dict:
+    """Each stage's wall seconds (its stage_end event's duration)."""
+    return {name: round(r.duration_s, 3)
+            for name, r in sorted(res.stage_results.items())}
+
+
+def _serve_workflow(t, runs, knobs):
+    """One run of the serve workflow through ``run_workflow`` on the
+    card, K1, K2 and K3's counters reset just before and read just
+    after; returns (result, launches by kernel, paths)."""
+    flash_attention.launches = 0
+    flash_attention.tc_launches = flash_attention.fma_launches = 0
+    _reset_paged_counters(paged_attention, paged_attention_mq)
+    res = run_workflow(t, ProvenanceStore(runs), device="cuda",
+                       serve_engine="paged", smoke_batch=WF_SMOKE_BATCH,
+                       **knobs)
+    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in
+                (flash_attention, paged_attention, paged_attention_mq)}
+    paths = {"flash_attention": {"tensor-cores": flash_attention.tc_launches,
+                                 "fma": flash_attention.fma_launches}}
+    assert flash_attention.tc_launches == flash_attention.launches > 0, paths
+    for mod in (paged_attention, paged_attention_mq):
+        if mod.launches:
+            paths[mod.__name__.rsplit(".", 1)[1]] = _paged_paths(mod)
+    return res, launches, paths
+
+
+def phase_serve_workflow() -> dict:
+    """``serve-qwen2-1.5b`` at full width through the port's
+    ``run_workflow``: the paged engine with spec_k 4 (K1 prefills, K3
+    verifies; the n-gram proposer decodes nothing, so K2 stays idle),
+    then spec_k 0 (K1 and K2), each against ``smoke_serve`` called
+    directly on the same weights; returns K1's, K2's and K3's launches
+    from the two runs."""
+    t = REGISTRY.get("serve-qwen2-1.5b").with_overrides(scale="full")
+    cfg = get_config(t.arch)
+    totals = {}
+    with tempfile.TemporaryDirectory() as runs:
+        for knobs in ({"serve_spec_k": SPEC_K}, {"serve_spec_k": 0}):
+            res, launches, paths = _serve_workflow(t, runs, knobs)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            done = {c.uid: c.tokens for c in res.final_state}
+            assert res.ok and all(ok for ok, _ in res.checks.values()), \
+                res.checks
+            env = [e for e in res.record.events()
+                   if e["kind"] == "environment"]
+            assert len(env) == 1 and env[0]["device"].startswith("cuda"), env
+            assert env[0]["device_kind"] == torch.cuda.get_device_name(0)
+            stats = [r for r in res.record.metrics()
+                     if r.get("stage") == "serve"][0]
+            key = ("paged_attention_mq" if knobs["serve_spec_k"]
+                   else "paged_attention")
+            assert launches[key] > 0, launches
+            # the same weights (the stage's init from the template's seed)
+            # through smoke_serve directly, with the stage's arguments
+            model = build_model(cfg)
+            params = model.serving_params(model.init(t.data.seed))
+            direct, _ = smoke_serve(
+                model, params, num_requests=2 * WF_SMOKE_BATCH,
+                max_batch=WF_SMOKE_BATCH, max_seq=WF_SMOKE_SEQ + 64,
+                vocab_size=cfg.vocab_size, seed=t.data.seed, engine="paged",
+                spec_k=knobs["serve_spec_k"])
+            del model, params
+            torch.cuda.empty_cache()
+            same = done == {c.uid: c.tokens for c in direct}
+            log(f"[27 serve workflow] {t.name} scale=full ({cfg.num_layers} "
+                f"layers, d_model {cfg.d_model}, {cfg.dtype} serving "
+                f"parameters) paged spec_k={knobs['serve_spec_k']}: "
+                f"requests={len(done)} tokens={int(stats['tokens'])} "
+                f"tok_per_s={stats['tok_per_s']:.1f} launches={launches} "
+                f"paths={paths}")
+            log(f"[27 serve workflow]   completions "
+                f"{ {u: v[:8] for u, v in sorted(done.items())} }; "
+                f"token-identical to smoke_serve called directly: {same}")
+            log(f"[27 serve workflow]   checks {res.checks}; stage walls s "
+                f"{_stage_walls(res)}")
+            log(f"[27 serve workflow]   environment event: "
+                f"{ {k: env[0][k] for k in ('device', 'device_kind', 'device_count', 'backend', 'torch_version', 'cuda_version')} }")
+            assert len(done) == 2 * WF_SMOKE_BATCH and same, (done, direct)
+    return totals
+
+
+def _train_workflow(t, runs, failures=None, resume=None):
+    return run_workflow(t, ProvenanceStore(runs), device="cuda",
+                        failures=failures, resume=resume)
+
+
+class _Cut(FailureSchedule):
+    """A crash at the listed steps: an error no restart policy retries."""
+
+    def check(self, step):
+        if step in self.fail_at_steps:
+            raise RuntimeError(f"cut at step {step}")
+
+
+def phase_train_workflow() -> dict:
+    """``train-qwen2-1.5b`` at the template's own (reduced) scale on the
+    card through ``run_workflow``: uninterrupted, with a failure at step
+    3 (the envelope restores step 1 and replays), cut at step 3 then
+    resumed, and under ``executor="processes"`` with the eval stage (a
+    pool forked after CUDA is up: only the data stage goes to a child);
+    each final state against the first, bit for bit.  Returns K1's and
+    K1-bwd's launches in the uninterrupted run."""
+    # checkpoints every 2 steps, so step 3's failure restores step 1
+    t = REGISTRY.get("train-qwen2-1.5b").with_overrides(checkpoint_every=2)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as runs:
+            _reset_k1_counters()
+            whole = _train_workflow(t, runs)
+            launches = {"flash_attention": flash_attention.launches,
+                        "flash_attention_bwd": flash_attention_bwd.launches}
+            paths = {f"{m.__name__.rsplit('.', 1)[1]}_{p}":
+                     getattr(m, f"{p}_launches")
+                     for m in (flash_attention, flash_attention_bwd)
+                     for p in ("tc", "fma")}
+            assert all(launches.values()), launches
+            failed = _train_workflow(t, runs, failures=FailureSchedule((3,)))
+            store = ProvenanceStore(runs)
+            before = set(store.list_runs())
+            try:
+                _train_workflow(t, runs, failures=_Cut((3,)))
+                raise AssertionError("the cut run did not stop")
+            except RuntimeError as e:
+                assert "cut at step 3" in str(e), e
+            (cut_id,) = set(store.list_runs()) - before
+            resumed = _train_workflow(t, runs, resume=cut_id)
+            # a process pool forked after this process initialised CUDA:
+            # only the data stage (no tensor) goes to a child
+            pooled = run_workflow(t, ProvenanceStore(runs), device="cuda",
+                                  with_eval=True, executor="processes",
+                                  workers=1)
+            workers = {e["stage"]: e["worker"] for e in
+                       pooled.record.events() if e["kind"] == "stage_worker"}
+            assert workers["data"].startswith("pid:"), workers
+            assert workers["train"] == workers["eval"] == "inline", workers
+            kinds = [e["kind"] for e in failed.record.events()]
+            assert "failure" in kinds and "restore" in kinds, kinds
+            same = {}
+            for name, res in (("failure at step 3", failed),
+                              ("resume of a run cut at step 3", resumed),
+                              ("--executor processes, with eval", pooled)):
+                same[name] = all(
+                    torch.equal(x, y) for (_, x), (_, y)
+                    in zip(flatten(whole.final_state),
+                           flatten(res.final_state)))
+            rows = [r for r in whole.record.metrics() if "loss" in r]
+            cfg = reduced(get_config(t.arch))
+            log(f"[28 train workflow] {t.name} scale={t.scale} "
+                f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+                f"{cfg.dtype} compute) {len(rows)} steps: losses "
+                f"{[round(r['loss'], 4) for r in rows]} launches={launches} "
+                f"paths={paths}")
+            log(f"[28 train workflow]   step_time_s (metrics.jsonl) "
+                f"{[round(r['step_time_s'], 4) for r in rows]}; stage walls s "
+                f"{_stage_walls(whole)}")
+            (ev,) = [e for e in pooled.record.events() if e["kind"] == "eval"]
+            log(f"[28 train workflow]   --executor processes: stage "
+                f"workers {workers}; eval loss {ev['loss']:.4f}")
+            for name, res in (("uninterrupted", whole),
+                              ("failure at step 3", failed),
+                              ("resume of a run cut at step 3", resumed),
+                              ("--executor processes, with eval", pooled)):
+                log(f"[28 train workflow]   {name}: ok={res.ok} checks "
+                    f"{ {k: v[0] for k, v in res.checks.items()} }" + (
+                        f"; final state bit-identical to uninterrupted: "
+                        f"{same[name]}" if name in same else ""))
+            assert whole.ok and failed.ok and resumed.ok and pooled.ok
+            assert resumed.stage_results["data"].resumed
+            assert all(same.values()), same
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2162,23 +2360,30 @@ def main() -> int:
     phase_resume(_moe_cut(mcfg, d_ff=256), 26,
                  "full d_model and heads, 16 experts top-2, depth cut to 2 "
                  "layers and d_ff to 256")
+    torch.cuda.empty_cache()
+
+    # the serve workflow's launches join the serving main path's below
+    wf = phase_serve_workflow()
+    phase_train_workflow()
 
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/flash_attention.py:115",
-             launches=launches["flash_attention"], **k1),
+             launches=launches["flash_attention"] + wf["flash_attention"],
+             **k1),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
              includes=[PAGED_COMMON, HOPPER_COMMON],
              replaces="src/repro/kernels/paged_attention.py:230",
-             launches=launches["paged_attention"], **k2),
+             launches=launches["paged_attention"] + wf["paged_attention"],
+             **k2),
         dict(name="paged_attention_mq", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention_mq.cu",
              includes=[PAGED_COMMON, HOPPER_COMMON],
              replaces="src/repro/kernels/paged_attention.py:170",
-             launches=k3_launches, **k3),
+             launches=k3_launches + wf["paged_attention_mq"], **k3),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              includes=[HOPPER_COMMON],

@@ -5,14 +5,19 @@ qwen3-moe (the MoE branch), the last four for their train paths only.
 
 ``get_config`` accepts the exact id or the short alias, as the reference
 registry does.  Families the port does not build yet (audio, VLM) raise
-``NotImplementedError`` naming the ROADMAP entry that brings them.
+``NotImplementedError`` naming the ROADMAP entry that brings them;
+``plan_config`` returns every arch of the reference registry, those two
+included, for the planner and the cost model, which read only a config's
+sizes.  ``SHAPES`` and ``get_shape`` are the reference's input-shape
+cells.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (glm4_9b, hymba_15b, internlm2_20b,
-                                 phi35_moe_42b, qwen3_moe_235b, qwen15_4b,
-                                 qwen2_15b, xlstm_125m)
-from repro_torch.configs.base import ModelConfig, ShapeConfig, reduced
+                                 phi3_vision, phi35_moe_42b, qwen3_moe_235b,
+                                 qwen15_4b, qwen2_15b, whisper_large_v3,
+                                 xlstm_125m)
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, reduced
 
 ARCHS = {
     "qwen2-1.5b": qwen2_15b.CONFIG,
@@ -46,6 +51,15 @@ _NOT_PORTED = {
 }
 
 
+# configs of the archs above, for planning only (no model is built)
+_PLAN_ONLY = {
+    "whisper-large-v3": whisper_large_v3.CONFIG,
+    "whisper": whisper_large_v3.CONFIG,
+    "phi-3-vision-4.2b": phi3_vision.CONFIG,
+    "phi3-vision": phi3_vision.CONFIG,
+}
+
+
 def get_config(arch: str) -> ModelConfig:
     if arch in _NOT_PORTED:
         raise NotImplementedError(
@@ -58,4 +72,19 @@ def get_config(arch: str) -> ModelConfig:
     return ARCHS[key]
 
 
-__all__ = ["ARCHS", "ModelConfig", "ShapeConfig", "get_config", "reduced"]
+def plan_config(arch: str) -> ModelConfig:
+    """The config of any arch of the reference registry, built by the
+    port or not: what the planner and the cost model size a plan by."""
+    if arch in _PLAN_ONLY:
+        return _PLAN_ONLY[arch]
+    return get_config(arch)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+__all__ = ["ARCHS", "ModelConfig", "SHAPES", "ShapeConfig", "get_config",
+           "get_shape", "plan_config", "reduced"]

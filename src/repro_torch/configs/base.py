@@ -73,14 +73,15 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     def param_count(self) -> int:
-        """Parameters of the families the port builds, by the reference's
-        formulas: a dense decoder (embedding, blocks, final norm, untied
-        head), an MoE decoder (the same with the router and the gated
-        experts in place of the MLP), the hybrid (each block's attention,
-        mamba heads, MLP, norms and one fuse vector, as the reference
-        counts them), or the xLSTM (``family="ssm"``) — for the xLSTM its
-        per-layer average, rounded down, times the layers, as the
-        reference reports it."""
+        """Parameters, by the reference's formulas: a dense decoder
+        (embedding, blocks, final norm, untied head), an MoE decoder (the
+        same with the router and the gated experts in place of the MLP),
+        the hybrid (each block's attention, mamba heads, MLP, norms and
+        one fuse vector, as the reference counts them), or the xLSTM
+        (``family="ssm"``) — for the xLSTM its per-layer average, rounded
+        down, times the layers, as the reference reports it; an
+        encoder-decoder adds each decoder block's cross-attention and
+        norm and its encoder blocks."""
         d, v = self.d_model, self.vocab_size
         head = 0 if self.tie_embeddings else v * d
         final = d * (2 if self.norm == "layernorm" else 1)
@@ -100,7 +101,22 @@ class ModelConfig:
         block = self._attn_params() + ffn + norms
         if self.family == "hybrid":
             block += self._ssm_params() + d
-        return v * d + head + self.num_layers * block + final
+        enc = 0
+        if self.is_encoder_decoder:  # cross-attention and its norm
+            block += self._attn_params() + final
+            enc = self.encoder_layers * (self._attn_params()
+                                         + self._mlp_params() + 4 * d)
+        return v * d + head + self.num_layers * block + enc + final
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only top_k experts active),
+        by the reference's formula; the cost model reads it."""
+        if self.num_experts == 0:
+            return self.param_count()
+        d = self.d_model
+        dense = self.param_count() - self.num_layers * self._moe_params()
+        return dense + self.num_layers * (
+            d * self.num_experts + self.top_k * 3 * d * self.d_ff)
 
     def _attn_params(self) -> int:
         d = self.d_model
@@ -193,3 +209,11 @@ def reduced(model: ModelConfig, **overrides) -> ModelConfig:
     )
     small.update(overrides)
     return dataclasses.replace(model, **small)
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

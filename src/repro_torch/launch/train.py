@@ -28,17 +28,24 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi35-moe \
         --device cpu --steps 6
 
+    # a failure drill: steps 3 and 7 die, the envelope restores the
+    # newest committed checkpoint and replays the stream from there
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --steps 10 --ckpt-every 2 --fail-at 3 7
+
 Counterpart of the reference's ``launch/train.py``, with its flags plus
-``--device``.  The loop is the reference envelope's run: restore from the
-newest checkpoint in ``<runs-dir>/ckpt`` or initialise from ``--seed``,
-run the steps on the data stream's batches (the reference's batches, byte
-for byte), save every ``--ckpt-every`` steps and once more, blocking, at
-the end; then print the reference's summary line, with the MoE aux loss
-of the last step beside the loss.  ``--layers`` cuts the depth of a
-reduced or a ``--full`` config.  The provenance record, the straggler
-watch and failure injection (``--fail-at``) belong to the control plane,
-which is not ported yet (ROADMAP queue 1, the control plane), so the
-flag does not exist here.
+``--device``.  The loop runs through the port's
+:class:`~repro_torch.core.envelope.ExecutionEnvelope` into a run record of
+a :class:`~repro_torch.core.provenance.ProvenanceStore` under
+``--runs-dir`` (metrics, restore/failure/straggler events): restore from
+the newest checkpoint in ``<runs-dir>/ckpt`` or initialise from
+``--seed``, run the steps on the data stream's batches (the reference's
+batches, byte for byte), save every ``--ckpt-every`` steps and once more,
+blocking, at the end; ``--fail-at`` injects failures at those steps,
+each answered by a restore from the newest committed checkpoint.  Then
+it prints the reference's summary line, with the MoE aux loss of the
+last step beside the loss and the restarts.  ``--layers`` cuts the
+depth of a reduced or a ``--full`` config.
 """
 from __future__ import annotations
 
@@ -52,7 +59,10 @@ import torch
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.envelope import ExecutionEnvelope
+from repro_torch.core.provenance import ProvenanceStore
 from repro_torch.data import DataConfig, make_stream
+from repro_torch.ft.failures import FailureSchedule
 from repro_torch.models import build_model
 from repro_torch.train import (OptimizerConfig, Plan, init_train_state,
                                keep_input_state, make_train_step)
@@ -75,6 +85,8 @@ def main() -> None:
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--runs-dir", default="runs")
+    ap.add_argument("--fail-at", type=int, nargs="*", default=[],
+                    help="inject failures at these steps (FT drill)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-donate", action="store_true",
                     help="leave the caller's train state intact (a copy is "
@@ -109,39 +121,50 @@ def main() -> None:
     if args.no_donate:
         step_fn = keep_input_state(step_fn)
     ckpt = Checkpointer(os.path.join(args.runs_dir, "ckpt"), keep=2)
+    record = ProvenanceStore(args.runs_dir).create_run(
+        template=f"cli-train-{args.arch}", template_version="0",
+        config={"arch": args.arch, "cfg": dataclasses.asdict(cfg),
+                "steps": args.steps, "batch": args.batch, "seq": args.seq,
+                "device": str(model.device)},
+        plan={"remat": args.remat, "microbatch": args.microbatch},
+    )
+    print(f"run: {record.run_id}")
+    n_params = 0
 
-    t0 = time.time()
-    state = init_train_state(model, args.seed, opt, plan)
-    start = 0
-    if ckpt.latest_step() is not None:
-        state, start = ckpt.restore(state)
-        start += 1
-        print(f"restored step {start - 1} from {ckpt.dir}")
-    n_params = sum(p.numel() for p in leaves(state["params"]))
-    losses, aux = [], 0.0
-    for step in range(start, args.steps):
+    def init_fn():
+        nonlocal n_params
+        state = init_train_state(model, args.seed, opt, plan)
+        n_params = sum(p.numel() for p in leaves(state["params"]))
+        return state
+
+    def run_step(state, step):
         batch = {k: torch.from_numpy(v).to(model.device)
                  for k, v in stream.batch_at(step).items()}
-        ts = time.perf_counter()
         state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])  # waits for the step
-        dt = time.perf_counter() - ts
-        losses.append(loss)
-        aux = float(metrics["aux"])
-        print(f"step {step} loss={loss:.4f} aux={aux:.4g} "
-              f"lr={float(metrics['lr']):.3g} "
-              f"grad_norm={float(metrics['grad_norm']):.4f} "
-              f"step_time_s={dt:.3f}", flush=True)
-        if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step, state)
-    ckpt.save(args.steps - 1, state, blocking=True)
+        metrics = {k: float(v) for k, v in metrics.items()}  # waits
+        print(f"step {step} loss={metrics['loss']:.4f} "
+              f"aux={metrics['aux']:.4g} lr={metrics['lr']:.3g} "
+              f"grad_norm={metrics['grad_norm']:.4f}", flush=True)
+        return state, metrics
+
+    if ckpt.latest_step() is not None:
+        print(f"restored step {ckpt.latest_step()} from {ckpt.dir}")
+    env = ExecutionEnvelope(
+        record, checkpointer=ckpt, checkpoint_every=args.ckpt_every,
+        failures=FailureSchedule(tuple(args.fail_at)) if args.fail_at
+        else None)
+    t0 = time.time()
+    env.run(init_state=init_fn, step_fn=run_step, num_steps=args.steps)
     dt = time.time() - t0
+    hist = record.metrics()
+    losses = [h["loss"] for h in hist]
+    aux = hist[-1]["aux"] if hist else 0.0
     tok_s = args.batch * args.seq * len(losses) / dt
     span = (f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (aux {aux:.4g}) "
             if losses else "")
     print(f"params={n_params/1e6:.1f}M steps={len(losses)} {span}"
-          f"wall={dt:.1f}s ({tok_s:,.0f} tok/s) device={model.device}")
-
+          f"wall={dt:.1f}s ({tok_s:,.0f} tok/s) restarts={env.restarts} "
+          f"device={model.device}")
 
 if __name__ == "__main__":
     main()

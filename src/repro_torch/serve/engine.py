@@ -51,7 +51,7 @@ from repro_torch.models import sampling, speculate
 from repro_torch.models.api import Model
 
 _MIN_SEQ_BUCKET = 8
-_LATER = "is not ported to PyTorch yet (ROADMAP queue 1, item 6)"
+_LATER = "is not ported to PyTorch yet (ROADMAP queue 1, the control plane)"
 
 
 @dataclasses.dataclass

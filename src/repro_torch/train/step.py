@@ -11,8 +11,8 @@ donation); :func:`keep_input_state` gives the step that leaves the
 caller's state intact (the reference's step jitted without donation).
 
 The reference's mesh, sharding hints and error-feedback gradient
-compression (``shard_map``, ``train/compression.py``) wait for the
-parallelism item (ROADMAP queue 1, item 10): asking for them raises.
+compression (``shard_map``, ``train/compression.py``) wait for ROADMAP
+queue 1, parallelism and elasticity: asking for them raises.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from repro_torch.train.optimizer import (OptimizerConfig, adamw_init,
                                          adamw_update)
 from repro_torch.tree import Tree, flatten, leaves, tree_map, unflatten
 
-_PARALLELISM = ("ROADMAP queue 1, item 10 (parallelism: sharding, "
+_PARALLELISM = ("ROADMAP queue 1, parallelism and elasticity (sharding, "
                 "gradient compression)")
 
 

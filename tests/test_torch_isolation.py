@@ -40,10 +40,20 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_port_files_cover_the_control_plane():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"ft/failures.py", "core/workflow.py", "core/stages.py",
+            "core/graph.py", "core/provenance.py", "core/envelope.py",
+            "launch/cli.py"} <= names
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.models.recurrent, "
-            "repro_torch.kernels.mlstm_scan, repro_torch.kernels.ssm_scan; "
+            "repro_torch.kernels.mlstm_scan, repro_torch.kernels.ssm_scan, "
+            "repro_torch.core.workflow, repro_torch.core.stages, "
+            "repro_torch.launch.cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
