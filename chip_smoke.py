@@ -8,7 +8,9 @@ at full width (K1 and K1-bwd, global and sliding-window, and K5
 forward, K5-bwd backward for its SSM heads), and train phi3.5-moe at
 full width, depth cut to 2 layers (K4 for the expert FFN forward and
 its dX, K1 and K1-bwd); then run the canonical serve and train workflows
-through the control plane (``repro_torch.core.run_workflow``).
+through the control plane (``repro_torch.core.run_workflow``), and the
+train workflow at full width planned for the card, whose runs then
+calibrate the cost model and feed an exploration of the card's slices.
 
     python3 chip_smoke.py
 
@@ -136,7 +138,26 @@ them, and on any mismatch.  Phases, one or more lines each:
      (K1's and K1-bwd's launches), with a failure at step 3, cut at step
      3 then resumed, and with ``executor="processes"`` and the eval stage:
      each final state bit-identical to the uninterrupted run's, the
-     checks passing.
+     checks passing;
+ 29. the card in the catalog: the default catalog holds no H100 slice;
+     ``register_card`` adds ``h100-1`` and ``h100-8`` (two generation
+     bumps), and the planner gives ``train_4k`` at global batch 2 and 4 a
+     plan on the one-card slice;
+ 30. the train workflow at full width planned for the card:
+     ``train-qwen2-1.5b`` with ``scale="full"`` (28 layers, d_model 1536,
+     seq 4096) at global batch 2 and 4 through ``run_workflow`` with an
+     intent naming the card (the plan's own remat and microbatch; counters
+     reset just before each run, read just after: K1 and K1-bwd all on
+     the tensor cores), the checks passing, the plan doc naming the
+     card's one-card slice, the peak memory beside the plan's
+     ``bytes_per_device``; each run's final checkpoint (18.5 GB) is
+     removed after its run;
+ 31. harvest, calibrate and explore: each run harvests one sample under
+     (h100, train); a workflow of the calibrate stage (activating the
+     fit: the scale fallback at two samples) and the explore stage over
+     the card's slices at the same arch and shapes; the fit's residual,
+     the measured median steps beside the uncalibrated and calibrated
+     estimates, and the explore report's frontier under the calibration.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -147,6 +168,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -167,8 +189,12 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config, reduced  # noqa: E402
-from repro_torch.core import (REGISTRY, ProvenanceStore,  # noqa: E402
-                              run_workflow)
+from repro_torch.core import (CATALOG, REGISTRY,  # noqa: E402
+                              CalibrateStage, ExploreStage, ProvenanceStore,
+                              ResourceIntent, StageGraph, build_catalog,
+                              calibrate, catalog_generation, plan,
+                              register_card, run_workflow, unregister_card)
+from repro_torch.core.explore import ExploreSpec, derived_shape  # noqa: E402
 from repro_torch.ft.failures import FailureSchedule  # noqa: E402
 from repro_torch.data import make_stream  # noqa: E402
 from repro_torch.kernels import build, flash_attention, ops  # noqa: E402
@@ -251,6 +277,13 @@ SSM_COMMON = "src/repro_torch/kernels/csrc/ssm_common.cuh"
 # K2's and K3's shared page walk (split-KV, TMA through the page table,
 # wgmma), and its merge kernel
 PAGED_COMMON = "src/repro_torch/kernels/csrc/paged_common.cuh"
+# the train workflow at full width planned for the card (phase 30): the
+# global batches of train_4k one card takes (batch 256 has no plan on one
+# card: the planner's microbatch grid stops at 4), and the steps a run
+# takes (the loss_decreased check needs 4; the harvester drops the first)
+CARD_BATCHES, CARD_STEPS = (2, 4), 6
+# the calibration fit's relative residual on its samples (phase 31)
+CARD_FIT_RESIDUAL = 0.15
 # phi3.5-moe training: train_4k's length, its global batch of 256 cut to
 # 2, its 32 layers cut to 2 (2.86 B parameters: 45.8 GB of float32
 # weights, gradients and moments)
@@ -429,7 +462,9 @@ def _paged_case(kernel, name, dtype, B, T, KH, G, D, page, max_pages, lens,
         plain_ms = time_events_ms(lambda: plain(q, kp, vp, tt, tb), reps=3)
     else:
         plain_ms = time_ms(lambda: plain(q, kp, vp, tt, tb), reps=5, inner=3)
-    r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, path=path)
+    # no single PyTorch call computes a read through a page table
+    r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, path=path,
+             library_ms=None)
     if cold:
         n = cold_copies(2 * kp.numel() * kp.element_size())
         pools = [(kp.clone(), vp.clone()) for _ in range(n)]
@@ -2285,6 +2320,177 @@ def phase_train_workflow() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+def phase_card_catalog() -> None:
+    """The card enters the catalog only by registration: none of its
+    slices in the default catalog, two generation bumps for ``h100-1``
+    and ``h100-8``; the one-card plan of train_4k at each of
+    ``CARD_BATCHES``."""
+    default = [s.name for s in build_catalog()]
+    assert [s.name for s in CATALOG] == default, "the catalog moved"
+    assert not any(n.startswith("h100") for n in default), default
+    gen0 = catalog_generation()
+    slices = register_card()
+    assert catalog_generation() == gen0 + 2, (gen0, catalog_generation())
+    chip = slices[0].chip
+    log(f"[29 card] {chip.name}: {chip.peak_bf16_flops / 1e12:.1f} TFLOP/s "
+        f"bf16, {chip.hbm_bytes / 1e9:.0f} GB at {chip.hbm_bw / 1e12:.2f} "
+        f"TB/s, ${chip.price_per_hour:.2f}/card-hour; registered "
+        f"{[s.name for s in slices]} (catalog generation {gen0} -> "
+        f"{catalog_generation()}, {len(CATALOG)} slices)")
+    for gb in CARD_BATCHES:
+        shape = derived_shape("train_4k", gb)
+        (choice,) = plan(ResourceIntent(arch="qwen2-1.5b", shape=shape,
+                                        chip_generation=chip.name,
+                                        max_chips=1), top_k=1)
+        assert choice.slice.name == f"{chip.name}-1", choice.summary
+        log(f"[29 card] qwen2-1.5b {shape}: {choice.summary} "
+            f"bytes_per_device={choice.est.bytes_per_device / 1e9:.2f} GB")
+
+
+def _tree_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs) / 1e9
+
+
+def phase_card_train_workflow(runs: str):
+    """``train-qwen2-1.5b`` at full width through ``run_workflow`` with an
+    intent naming the card, at each of ``CARD_BATCHES``: each run's
+    launches by path, peak memory and plan; its final checkpoint removed
+    after it.  Returns K1's and K1-bwd's launches over the runs, and each
+    run's id and plan doc by global batch."""
+    cfg = get_config("qwen2-1.5b")
+    totals = {"flash_attention": 0, "flash_attention_bwd": 0}
+    out = {}
+    for gb in CARD_BATCHES:
+        shape = derived_shape("train_4k", gb)
+        t = REGISTRY.get("train-qwen2-1.5b").with_overrides(scale="full",
+                                                             shape=shape)
+        intent = ResourceIntent(arch=t.arch, shape=shape,
+                                chip_generation="h100", max_chips=1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_k1_counters()
+        t0 = time.perf_counter()
+        res = run_workflow(t, ProvenanceStore(runs), device="cuda",
+                           intent=intent, steps_override=CARD_STEPS)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"flash_attention": flash_attention.launches,
+                    "flash_attention_bwd": flash_attention_bwd.launches}
+        doc = res.record.manifest["plan"]
+        est = res.plan_choice.est
+        # remat full runs each layer's forward again in the backward
+        passes = 2 if doc["remat"] == "full" else 1
+        want = cfg.num_layers * CARD_STEPS * doc["microbatch"]
+        paths = {f"{m.__name__.rsplit('.', 1)[1]}_{p}":
+                 getattr(m, f"{p}_launches")
+                 for m in (flash_attention, flash_attention_bwd)
+                 for p in ("tc", "fma")}
+        rows = [r for r in res.record.metrics() if "loss" in r]
+        steps = [r["step_time_s"] for r in rows]
+        env = [e for e in res.record.events() if e["kind"] == "environment"]
+        ckpt = os.path.join(res.record.artifacts_dir, "ckpt-train")
+        ckpt_gb = _tree_gb(ckpt)
+        shutil.rmtree(ckpt)
+        log(f"[30 card train workflow] {t.name} scale=full {shape} "
+            f"({cfg.num_layers} layers, d_model {cfg.d_model}, seq "
+            f"{TRAIN_SEQ}, global batch {gb}) {len(rows)} steps: plan "
+            f"{doc['slice']} chip={doc['chip']} remat={doc['remat']} "
+            f"microbatch={doc['microbatch']} est_step_s="
+            f"{doc['est_step_s']:.4f}; losses "
+            f"{[round(r['loss'], 4) for r in rows]} launches={launches} "
+            f"(want {passes * want} and {want}) paths={paths}")
+        log(f"[30 card train workflow]   step_time_s (metrics.jsonl) "
+            f"{[round(x, 4) for x in steps]} median after the first "
+            f"{statistics.median(steps[1:]):.4f}; max_memory_allocated_GB="
+            f"{peak / 1e9:.2f} against the plan's bytes_per_device "
+            f"{est.bytes_per_device / 1e9:.2f} GB (x"
+            f"{peak / est.bytes_per_device:.2f}); final checkpoint "
+            f"{ckpt_gb:.2f} GB, removed; run wall {wall:.1f} s")
+        log(f"[30 card train workflow]   checks {res.checks}; stage walls s "
+            f"{_stage_walls(res)}; environment "
+            f"{[(e['stage'], e['device'], e['device_kind']) for e in env]}")
+        assert launches == {"flash_attention": passes * want,
+                            "flash_attention_bwd": want}, (launches, want)
+        assert paths["flash_attention_fma"] == 0, paths
+        assert paths["flash_attention_bwd_fma"] == 0, paths
+        assert res.ok and all(ok for ok, _ in res.checks.values()), res.checks
+        assert doc["slice"] == "h100-1" and doc["chip"] == "h100", doc
+        assert doc["kind"] == "train", doc
+        assert [e["stage"] for e in env] == ["train"], env
+        assert env[0]["device"].startswith("cuda"), env
+        for k, v in launches.items():
+            totals[k] += v
+        out[gb] = {"run_id": res.record.run_id, "plan": doc}
+        del res
+        torch.cuda.empty_cache()
+    return totals, out
+
+
+def phase_card_calibrate_explore(runs: str, wf_runs: dict) -> None:
+    """Harvest the card's runs (one sample each under (h100, train)),
+    fit and activate through a workflow of the calibrate stage, then
+    explore the card's slices at the same arch and shapes under that
+    calibration."""
+    samples = calibrate.harvest_runs_dir(runs)
+    by_run = {s.source: s for s in samples}
+    assert len(samples) == len(by_run) == len(wf_runs), samples
+    assert sorted(by_run) == sorted(f"run:{r['run_id']}"
+                                    for r in wf_runs.values()), by_run
+    assert all((s.chip, s.kind) == ("h100", "train") for s in samples)
+    spec = ExploreSpec(archs=("qwen2-1.5b",), shapes=("train_4k",),
+                       chip_counts=(1, 8), global_batches=CARD_BATCHES,
+                       chip_generation="h100")
+    g = StageGraph("calibrate-explore")
+    store_path = os.path.join(runs, "calibration.json")
+    g.add(CalibrateStage(store_path=store_path, runs_root=runs,
+                         activate=True))
+    g.add(ExploreStage(spec=spec), depends_on=("calibrate",))
+    res = run_workflow(REGISTRY.get("train-qwen2-1.5b"),
+                       ProvenanceStore(os.path.join(runs, "advice")),
+                       graph=g, device="cuda")
+    cal = calibrate.active()
+    assert cal is not None and res.ok, res.stage_results
+    cell = cal.cell("h100", "train")
+    assert cell is not None and cell.n_samples == len(CARD_BATCHES), cal
+    events = {e["kind"]: e for e in res.record.events()
+              if e["kind"] in ("calibrate", "explore")}
+    log(f"[31 card calibrate] harvested {len(samples)} samples; cell "
+        f"h100/train mode={cell.mode} scale={cell.scale:.4f} n="
+        f"{cell.n_samples} residual={cell.residual:.4f} (bound "
+        f"{CARD_FIT_RESIDUAL}); calibrate event {events['calibrate']}")
+    for gb, r in sorted(wf_runs.items()):
+        s = by_run[f"run:{r['run_id']}"]
+        calibrated = float(cell.predict(s.compute_s, s.memory_s,
+                                        s.collective_s))
+        (replanned,) = plan(ResourceIntent(
+            arch="qwen2-1.5b", shape=derived_shape("train_4k", gb),
+            chip_generation="h100", max_chips=1), top_k=1)
+        log(f"[31 card calibrate] global batch {gb}: measured median step "
+            f"{s.measured_step_s:.4f} s over {int(s.weight)} steps; "
+            f"uncalibrated estimate {r['plan']['est_step_s']:.4f} s (x"
+            f"{s.measured_step_s / r['plan']['est_step_s']:.3f}); "
+            f"calibrated {calibrated:.4f} s (rel err "
+            f"{(calibrated - s.measured_step_s) / s.measured_step_s:+.4f}); "
+            f"re-planned under the calibration: {replanned.summary}")
+    path = events["explore"]["report"]
+    with open(path, encoding="utf-8") as f:
+        report = f.read()
+    with open(path.rsplit(".", 1)[0] + ".json", encoding="utf-8") as f:
+        doc = json.load(f)
+    log(f"[31 card explore] {events['explore']}; calibration generation "
+        f"{doc['calibration_generation']} active; report rows:")
+    for line in report.splitlines():
+        if line.startswith("| ") and "h100" in line:
+            log(f"[31 card explore]   {line}")
+    assert doc["calibration_generation"] == cal.generation > 0, doc
+    assert doc["frontier"], doc
+    assert cell.residual <= CARD_FIT_RESIDUAL, cell
+    calibrate.deactivate()
+    unregister_card()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2366,12 +2572,19 @@ def main() -> int:
     wf = phase_serve_workflow()
     phase_train_workflow()
 
+    # the card: registered, planned for, trained on, calibrated from
+    phase_card_catalog()
+    with tempfile.TemporaryDirectory() as runs:
+        card, card_runs = phase_card_train_workflow(runs)
+        phase_card_calibrate_explore(runs, card_runs)
+
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/flash_attention.py:115",
-             launches=launches["flash_attention"] + wf["flash_attention"],
+             launches=(launches["flash_attention"] + wf["flash_attention"]
+                       + card["flash_attention"]),
              **k1),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -2388,7 +2601,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/flash_xla.py:99",
-             launches=train_launches["flash_attention_bwd"], **k1_bwd),
+             launches=(train_launches["flash_attention_bwd"]
+                       + card["flash_attention_bwd"]), **k1_bwd),
         dict(name="mlstm_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
              includes=[MLSTM_TC, HOPPER_COMMON],

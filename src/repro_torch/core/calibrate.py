@@ -1,14 +1,21 @@
 """Telemetry-calibrated cost model: measured runs corrected back into
 the planner.
 
-A copy of the reference package's ``core/calibrate.py`` as far as the
-planner and the cost model need it: :class:`Sample`, the per-(chip,
-kind) fit (:func:`fit_cells`), :func:`check_drift`, the persistent
-:class:`CalibrationStore`, and the active calibration the cost model
-consults (:func:`activate`, :func:`deactivate`, :func:`active_cell`,
-:func:`active_for_kind`, :func:`calibration_state`).  Harvesting samples
-from runs, bench files and compiled programs waits for the calibrate
-stage and command (ROADMAP queue 1, the control plane).
+A copy of the reference package's ``core/calibrate.py``: :class:`Sample`
+and the harvesters (:func:`harvest_run`, :func:`harvest_runs_dir`,
+:func:`harvest_bench`), the per-(chip, kind) fit (:func:`fit_cells`),
+:func:`check_drift`, the persistent :class:`CalibrationStore`, and the
+active calibration the cost model consults (:func:`activate`,
+:func:`deactivate`, :func:`active_cell`, :func:`active_for_kind`,
+:func:`calibration_state`).  Samples from compiled programs
+(the reference's ``sample_from_hlo``) wait for the port's own FLOP and
+byte counting (ROADMAP queue 1, dry-run and HLO tooling).
+
+One difference by design: a port run yields a sample only if it ran on
+the chip its plan names (:func:`ran_on_planned_chip`).  The reference
+runs where it plans; the port runs on one card, or on the CPU, whatever
+slice the plan named, and filing a CPU run's step times (or the card's
+under a TPU chip) would corrupt that chip's cell.
 
 The unit of calibration is the **(chip, kind) cell**.  Each sample
 pairs the three analytic roofline terms the static model computed for a
@@ -105,6 +112,99 @@ def sample_from_estimate(est: Any, chip: str, kind: str,
                   collective_s=float(est.collective_s),
                   measured_step_s=float(measured_step_s),
                   source=source, weight=float(weight))
+
+
+# The device kind (``torch.cuda.get_device_name``) each card's runs report
+CARD_DEVICE_KINDS: Dict[str, str] = {"h100": "H100"}
+
+
+def ran_on_planned_chip(record: Any, chip: str) -> bool:
+    """True when the run's workload stages ran on the card its plan
+    names: ``chip`` is a card of :data:`CARD_DEVICE_KINDS`, and every
+    ``environment`` event (one a workload stage) has device ``cuda`` and a
+    device kind naming that card.  A CPU run, or a run whose plan names a
+    TPU (the port runs on none), measured nothing that chip would take."""
+    want = CARD_DEVICE_KINDS.get(chip)
+    if want is None:
+        return False
+    envs = [e for e in record.events() if e.get("kind") == "environment"]
+    return bool(envs) and all(
+        str(e.get("device", "")).split(":")[0] == "cuda"
+        and want in str(e.get("device_kind", "")) for e in envs)
+
+
+def harvest_run(record: Any, *, skip_steps: int = 1) -> List[Sample]:
+    """Harvest one provenance run: the plan doc's recorded roofline
+    terms (written by PlanStage) paired with the median measured
+    ``step_time_s`` from the run's metric rows.  The first ``skip_steps``
+    timed rows are dropped (they absorb set-up).  Returns ``[]``
+    when the run carries no plan terms or no timed steps, or did not run
+    on the chip its plan names (:func:`ran_on_planned_chip`) — harvesting
+    is best-effort, never an error."""
+    plan_doc = (record.manifest or {}).get("plan") or {}
+    needed = ("chip", "kind", "compute_s", "memory_s", "collective_s")
+    if any(plan_doc.get(k) is None for k in needed):
+        return []
+    if not ran_on_planned_chip(record, str(plan_doc["chip"])):
+        return []
+    times = [float(r["step_time_s"]) for r in record.metrics()
+             if isinstance(r.get("step_time_s"), (int, float))]
+    times = times[skip_steps:]
+    if not times:
+        return []
+    return [Sample(
+        chip=str(plan_doc["chip"]), kind=str(plan_doc["kind"]),
+        compute_s=float(plan_doc["compute_s"]),
+        memory_s=float(plan_doc["memory_s"]),
+        collective_s=float(plan_doc["collective_s"]),
+        measured_step_s=float(np.median(np.asarray(times))),
+        source=f"run:{record.run_id}",
+        weight=float(len(times)),
+    )]
+
+
+def harvest_runs_dir(root: str) -> List[Sample]:
+    """Harvest every run under a provenance root (``calibrate
+    --runs-dir``)."""
+    from repro_torch.core.provenance import ProvenanceStore
+
+    if not os.path.isdir(root):
+        return []
+    store = ProvenanceStore(root)
+    out: List[Sample] = []
+    for run_id in store.list_runs():
+        try:
+            out.extend(harvest_run(store.load(run_id)))
+        except (OSError, ValueError, KeyError, json.JSONDecodeError):
+            continue
+    return out
+
+
+def harvest_bench(path: str) -> List[Sample]:
+    """Harvest a ``BENCH_*.json`` file: any section carrying a
+    ``calibration_samples`` list of sample docs contributes (the
+    planner bench's calibration section writes one)."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return []
+    out: List[Sample] = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            rows = node.get("calibration_samples")
+            if isinstance(rows, list):
+                for row in rows:
+                    try:
+                        out.append(Sample.from_doc(row))
+                    except (TypeError, KeyError):
+                        continue
+            for v in node.values():
+                walk(v)
+
+    walk(doc)
+    return out
 
 
 # ===========================================================================

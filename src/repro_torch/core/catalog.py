@@ -10,7 +10,13 @@ paper's Fig. 4 argument).
 Chip generations play the role of the paper's m6a → m7a → m8a sweep.
 
 A copy of the reference package's ``core/catalog.py``; ``CHIPS`` is
-unchanged, so the port's plans equal the reference's.
+unchanged, so the default catalog and every default plan equal the
+reference's.  The port adds one card, the NVIDIA H100 (:data:`H100`), in
+:data:`CARDS`: its slices (one card, one 8-card node) join the catalog
+only through an explicit registration, :func:`register_card` (which the
+planner calls for an intent that names the card) or a provider offer
+(:mod:`repro_torch.core.registry`).  Registration bumps the catalog
+generation as any :func:`register_slice` does.
 """
 from __future__ import annotations
 
@@ -39,6 +45,20 @@ CHIPS: Dict[str, ChipSpec] = {
     "v5e": ChipSpec("v5e", 197e12, 16e9, 819e9, 50e9, 12.5e9, 1.20, 256),
     "v5p": ChipSpec("v5p", 459e12, 95e9, 2765e9, 90e9, 25e9, 4.20, 1024 * 8),
 }
+
+# The NVIDIA H100 SXM 80GB, from its published figures: 989.4e12 dense
+# bf16 FLOP/s, 80 GB of HBM3 at 3.35e12 B/s, NVLink 4 at 450e9 B/s a
+# direction inside a node, one 400 Gb/s NIC a GPU across nodes (50e9
+# B/s), 8 GPUs a node.  Price: AWS EC2 p5.48xlarge (8x H100 SXM 80GB),
+# us-east-1, on-demand, $98.32 an instance-hour on AWS's 2024 price list,
+# so $12.29 a GPU-hour.
+H100 = ChipSpec("h100", 989.4e12, 80e9, 3.35e12, 450e9, 50e9, 12.29, 8)
+
+# Cards the catalog can take beyond CHIPS, by generation name.  Not in
+# CHIPS, so build_catalog() and the default plans stay the reference's.
+CARDS: Dict[str, ChipSpec] = {"h100": H100}
+# the card's slices: one card, and one node of max_pod_chips cards
+CARD_SLICE_SIZES = (1, 8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +142,59 @@ def unregister_slice(name: str) -> SliceType:
                 _GENERATION += 1
                 return s
     raise KeyError(f"unknown slice {name!r}; have {[s.name for s in CATALOG]}")
+
+
+def chip_spec(name: str) -> ChipSpec:
+    """A chip generation by name: a TPU of ``CHIPS`` or a card of
+    ``CARDS``."""
+    if name in CHIPS:
+        return CHIPS[name]
+    if name in CARDS:
+        return CARDS[name]
+    raise KeyError(f"unknown chip {name!r}; have {sorted({**CHIPS, **CARDS})}")
+
+
+def card_slices() -> List[SliceType]:
+    """The card's slice types (``h100-1``, ``h100-8``), not registered."""
+    return [SliceType(f"{H100.name}-{n}", H100, n, 1)
+            for n in CARD_SLICE_SIZES]
+
+
+_CARD_LOCK = threading.Lock()
+
+
+def register_card() -> List[SliceType]:
+    """Register the card's slices that are not in the catalog yet (one
+    generation bump each); returns the card's slices as the catalog holds
+    them.  Safe to call from concurrent planner threads."""
+    with _CARD_LOCK:
+        have = {s.name: s for s in CATALOG}
+        return [have.get(sl.name) or register_slice(sl)
+                for sl in card_slices()]
+
+
+def unregister_card() -> List[SliceType]:
+    """Withdraw the card's slices from the catalog (those registered by
+    :func:`register_card`; a provider's ``<id>/h100-n`` offers stay)."""
+    with _CARD_LOCK:
+        names = {s.name for s in CATALOG}
+        return [unregister_slice(sl.name) for sl in card_slices()
+                if sl.name in names]
+
+
+def names_card(chip_generation: Optional[str],
+               slice_name: Optional[str]) -> bool:
+    """Whether an intent names the card: by its chip generation or by one
+    of the card's slice names."""
+    return (chip_generation == H100.name
+            or slice_name in {s.name for s in card_slices()})
+
+
+def chip_generations() -> List[str]:
+    """The chip generations the catalog holds slices of: ``CHIPS`` in
+    order, then any registered card."""
+    present = {s.chip.name for s in CATALOG}
+    return list(CHIPS) + [n for n in CARDS if n in present]
 
 
 def find_slice(name: str) -> SliceType:

@@ -48,8 +48,9 @@ Authoring a custom stage (expanded guide: docs/authoring-stages.md)::
     g.execute(StageContext(template=t, record=rec))
 
 A copy of the reference package's ``core/graph.py``.  Its cache and
-resume keys also name the package (see :mod:`repro_torch.core.stagecache`),
-and :meth:`Placement.build_mesh` raises: one card has no mesh.
+resume keys also name the package (see :mod:`repro_torch.core.stagecache`)
+and, for a ``device_bound`` stage, the device; :meth:`Placement.build_mesh`
+raises: one card has no mesh.
 """
 from __future__ import annotations
 
@@ -252,6 +253,10 @@ class Stage:
     # list their knobs too: it keeps `run --resume` from skipping a
     # stage whose effective configuration changed.
     cache_params: Tuple[str, ...] = ()
+    # the port: a stage that builds its model on ``ctx.params["device"]``
+    # folds the device into its input (cache and resume) hash, beside
+    # ``cache_params``, which stay the reference's in a workflow spec
+    device_bound: bool = False
     # template fields folded into the input hash; None = whole template
     cache_template_fields: Optional[Tuple[str, ...]] = None
     # code-version salt: bump when the stage's implementation (or code it
@@ -688,7 +693,7 @@ class StageGraph:
             else:
                 template = {f: _describe(getattr(ctx.template, f, None))
                             for f in fields}
-        return stable_hash({
+        key = {
             "package": PACKAGE,
             "stage": stage.signature(),
             "inputs": inputs,
@@ -697,7 +702,10 @@ class StageGraph:
             "template": template,
             "params": {k: _describe(ctx.params.get(k))
                        for k in stage.cache_params},
-        })
+        }
+        if stage.device_bound:
+            key["device"] = _describe(ctx.params.get("device"))
+        return stable_hash(key)
 
     # -- the per-stage state machine ------------------------------------
     def _run_stage(self, stage: Stage, ctx: StageContext, prefix: str,

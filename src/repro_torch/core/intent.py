@@ -25,7 +25,7 @@ class ResourceIntent:
     max_step_seconds: Optional[float] = None
     min_chips: Optional[int] = None
     max_chips: Optional[int] = None
-    chip_generation: Optional[str] = None  # v4 | v5e | v5p
+    chip_generation: Optional[str] = None  # v4 | v5e | v5p | h100 (the card)
     allow_multi_pod: bool = True
     # expert overrides (bypass parts of the search)
     slice_name: Optional[str] = None

@@ -41,8 +41,10 @@ scaling knees, retry-aware expected cost).
 A copy of the reference package's ``core/planner.py`` over the same
 catalog, so it chooses the reference's plans for the same intents; the
 configs come from :func:`repro_torch.configs.plan_config`, which also
-sizes the archs the port does not build yet.  An H100 in the catalog
-waits for ROADMAP queue 1, the control plane.
+sizes the archs the port does not build yet.  An intent that names the
+card (``chip_generation="h100"``, or a slice ``h100-1``/``h100-8``)
+registers the card's slices first (:func:`repro_torch.core.catalog.
+register_card`); no other intent changes the catalog.
 """
 from __future__ import annotations
 
@@ -65,6 +67,8 @@ from repro_torch.core.catalog import (
     find_slice,
     geometries_for,
     mesh_shapes_for,
+    names_card,
+    register_card,
     table_rows,
 )
 from repro_torch.core.costmodel import (
@@ -312,6 +316,13 @@ def _enumerate_scalar(intent: ResourceIntent) -> List[PlanChoice]:
     return choices
 
 
+def _register_named_card(intent: ResourceIntent) -> None:
+    """Naming the card registers its slices: the only way the card
+    enters the catalog from a plan."""
+    if names_card(intent.chip_generation, intent.slice_name):
+        register_card()
+
+
 def _check_engine(engine: str) -> None:
     if engine not in ("vectorized", "scalar"):
         raise ValueError(
@@ -323,6 +334,7 @@ def enumerate_plans(intent: ResourceIntent, *,
     """All feasible candidates for an intent (unranked, unpruned)."""
     _check_engine(engine)
     intent.validate()
+    _register_named_card(intent)
     if engine == "scalar":
         return _enumerate_scalar(intent)
     table, batch = _scored_table(intent.arch, intent.shape)
@@ -400,6 +412,7 @@ def plan(intent: ResourceIntent, top_k: int = 5, *,
     kinds keep their memo hits."""
     _check_engine(engine)
     intent.validate()
+    _register_named_card(intent)
     if engine == "scalar":
         return rank(prune_dominated(_enumerate_scalar(intent)),
                     intent.goal)[:top_k]

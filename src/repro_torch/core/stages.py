@@ -14,6 +14,12 @@ on :mod:`repro_torch.models`, :mod:`repro_torch.train`,
   * :class:`EvalStage`      — held-out loss of a trained state
   * :class:`ValidateStage`  — template checks over the metric history
   * :class:`VisualizeStage` — loss-curve artifact
+  * :class:`ExploreStage`   — cost-performance sweep
+                              (:mod:`repro_torch.core.explore`) with
+                              per-cell stage-cache reuse and a Markdown
+                              artifact
+  * :class:`CalibrateStage` — harvest runs into the calibration store
+                              and refit the cost model
   * :class:`MoveStage`      — explicit cross-backend data movement
 
 The workload stages build their model on ``ctx.params["device"]``
@@ -21,7 +27,9 @@ The workload stages build their model on ``ctx.params["device"]``
 ``environment`` event naming torch, CUDA and the card, and initialise
 through :func:`init_train_state_for` and :func:`init_serve_params`, the
 one place a test swaps in bridged reference weights.  The explore and
-calibrate stages wait for ROADMAP queue 1, the control plane.
+calibrate stages are the reference's (:mod:`repro_torch.core.explore`,
+:mod:`repro_torch.core.calibrate`, whose harvester takes a run only if it
+ran on the chip its plan names).
 """
 from __future__ import annotations
 
@@ -302,7 +310,8 @@ class TrainStage(Stage):
 
     inputs = ("cfg", "shape", "stream", "rt_plan")
     placement_key = "__main__"
-    cache_params = ("steps_override", "donate", "device")
+    cache_params = ("steps_override", "donate")
+    device_bound = True
     # the checkpointer already persists the state in this run dir; a
     # resume re-enters run() and restores the newest committed step, so
     # pickling the full {params, opt} tree into the run manifest would
@@ -399,7 +408,8 @@ class ServeStage(Stage):
     outputs = ("final_state", "completions")
     placement_key = "__main__"
     cache_params = ("serve_engine", "serve_chunk", "serve_spec_k",
-                    "serve_draft", "smoke_batch", "smoke_seq", "device")
+                    "serve_draft", "smoke_batch", "smoke_seq")
+    device_bound = True
 
     def __init__(self, name: str = "serve", engine: str = "fused",
                  decode_chunk: int = 1):
@@ -437,6 +447,186 @@ class ServeStage(Stage):
         if ctx.record is not None:
             ctx.record.stage_view(self.name).log(0, stats)
         return {"final_state": completions, "completions": completions}
+
+
+# ===========================================================================
+# Explore
+# ===========================================================================
+class ExploreStage(Stage):
+    """Run a cost-performance sweep (:func:`repro_torch.core.explore.explore`)
+    as a workflow stage.
+
+    The spec comes from the constructor or the ``explore_spec`` context
+    param (the latter wins, which is how a fan-out graph sweeps several
+    grids over one template).  When the run has a
+    :class:`~repro_torch.core.stagecache.StageCache` attached, every grid
+    *cell* is cached under its own content-addressed key (cell
+    coordinates + constraints + catalog generation), so a re-run or a
+    resumed sweep recomputes only cells the catalog change actually
+    invalidated.  The rendered Markdown report lands in the run's
+    artifacts dir as ``explore.md`` and an ``explore`` provenance event
+    records the headline numbers.
+    """
+
+    outputs = ("explore_result", "explore_report")
+    cache_params = ("explore_spec",)
+
+    def __init__(self, name: str = "explore", spec: Any = None,
+                 report_name: str = "explore.md"):
+        super().__init__(name)
+        self.spec = spec
+        self.report_name = report_name
+
+    def spec_config(self) -> Dict[str, Any]:
+        """Serialize the nested ExploreSpec by field instead of letting
+        the base class emit an ``__opaque__`` marker for it."""
+        cfg = super().spec_config()
+        cfg["spec"] = (dataclasses.asdict(self.spec)
+                       if self.spec is not None else None)
+        return cfg
+
+    @classmethod
+    def from_spec_config(cls, name: str, config: Dict[str, Any]) -> "ExploreStage":
+        from repro_torch.core.explore import ExploreSpec
+
+        config = dict(config)
+        spec = config.pop("spec", None)
+        if spec is not None:
+            spec = ExploreSpec(**spec)  # __post_init__ re-tuples the axes
+        return cls(name, spec=spec, **config)
+
+    def signature(self) -> Dict[str, Any]:
+        """Fold the constructor spec and the catalog generation into the
+        stage identity: the base signature() keeps only primitive attrs,
+        which would let a resume skip restore a *different* spec's
+        result — and a catalog that gained a slice type must miss the
+        resume/cache hash so the sweep re-plans."""
+        from repro_torch.core import calibrate
+        from repro_torch.core.catalog import catalog_generation
+
+        sig = super().signature()
+        sig["spec"] = (dataclasses.asdict(self.spec)
+                       if self.spec is not None else None)
+        sig["catalog_generation"] = catalog_generation()
+        # an activated calibration re-scores every cell, so the resume
+        # hash must miss when the active coefficient set changes
+        sig["calibration_generation"] = calibrate.active_generation()
+        return sig
+
+    def run(self, ctx: StageContext) -> Dict[str, Any]:
+        import json
+
+        from repro_torch.core.explore import explore, report_markdown, result_doc
+
+        spec = ctx.params.get("explore_spec", self.spec)
+        if spec is None:
+            raise ValueError(
+                f"ExploreStage {self.name!r} needs an ExploreSpec (pass "
+                f"spec= to the constructor or explore_spec in ctx.params)")
+        result = explore(spec, cache=ctx.cache)
+        report = report_markdown(result)
+        if ctx.record is not None:
+            path = f"{ctx.record.artifacts_dir}/{self.report_name}"
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(report)
+            doc_path = path.rsplit(".", 1)[0] + ".json"
+            with open(doc_path, "w", encoding="utf-8") as f:
+                json.dump(result_doc(result), f, indent=2, sort_keys=True)
+            ctx.record.log_event("explore", {
+                "stage": self.name,
+                "cells": len(result.cells),
+                "feasible_cells": result.feasible_cells,
+                "cells_from_cache": result.cells_from_cache,
+                "frontier_size": len(result.frontier),
+                "catalog_generation": result.catalog_generation,
+                "report": path,
+            })
+        return {"explore_result": result, "explore_report": report}
+
+
+# ===========================================================================
+# Calibrate
+# ===========================================================================
+class CalibrateStage(Stage):
+    """Harvest this run's telemetry into the calibration store and refit
+    the cost model (:mod:`repro_torch.core.calibrate`).
+
+    Placed after a workload stage, it pairs the manifest's planned
+    roofline terms with the measured step times (``harvest_run``),
+    optionally folds in other finished runs (``runs_root``) and bench
+    result files (``bench_paths``), ingests everything into the
+    flocked :class:`~repro_torch.core.calibrate.CalibrationStore`, refits the
+    per-(chip, kind) coefficients, and reports drift.  With
+    ``activate=True`` the fresh fit becomes the process-wide active
+    calibration — subsequent plans (and their memo keys) pick it up
+    immediately.
+
+    Deliberately uncacheable: its job is absorbing *new* telemetry; a
+    cache hit would silently drop this run's samples.
+    """
+
+    outputs = ("calibration", "drift_report")
+
+    def __init__(self, name: str = "calibrate",
+                 store_path: Optional[str] = None,
+                 runs_root: Optional[str] = None,
+                 bench_paths: Tuple[str, ...] = (),
+                 min_samples: int = 4,
+                 drift_threshold: float = 0.25,
+                 activate: bool = False):
+        super().__init__(name)
+        self.store_path = store_path
+        self.runs_root = runs_root
+        self.bench_paths = tuple(bench_paths)
+        self.min_samples = int(min_samples)
+        self.drift_threshold = float(drift_threshold)
+        self.activate = bool(activate)
+
+    def run(self, ctx: StageContext) -> Dict[str, Any]:
+        from repro_torch.core import calibrate
+
+        samples: List[Any] = []
+        if ctx.record is not None:
+            samples.extend(calibrate.harvest_run(ctx.record))
+        if self.runs_root:
+            samples.extend(calibrate.harvest_runs_dir(self.runs_root))
+        for path in self.bench_paths:
+            samples.extend(calibrate.harvest_bench(path))
+
+        store = calibrate.CalibrationStore(self.store_path)
+        added = store.ingest(samples)
+        cal = store.fit(min_samples=self.min_samples)
+        drift = store.drift(threshold=self.drift_threshold,
+                            calibration=cal)
+        if self.activate:
+            calibrate.activate(cal)
+
+        if ctx.record is not None:
+            lines = [f"# Calibration (generation {cal.generation})", ""]
+            lines.append(f"- samples harvested: {len(samples)} "
+                         f"({added} new)")
+            for c in cal.cells:
+                lines.append(
+                    f"- {c.chip}/{c.kind}: mode={c.mode} "
+                    f"a_c={c.a_compute:.4f} a_m={c.a_memory:.4f} "
+                    f"a_x={c.a_collective:.4f} b={c.intercept:.2e} "
+                    f"scale={c.scale:.4f} n={c.n_samples} "
+                    f"resid={c.residual:.3e}")
+            lines += ["", "## Drift", "", drift.summary(), ""]
+            path = f"{ctx.record.artifacts_dir}/calibration.md"
+            with open(path, "w", encoding="utf-8") as f:
+                f.write("\n".join(lines))
+            ctx.record.log_event("calibrate", {
+                "stage": self.name,
+                "samples": len(samples),
+                "new_samples": added,
+                "cells": len(cal.cells),
+                "generation": cal.generation,
+                "drifted": len(drift.drifted),
+                "activated": self.activate,
+                "report": path,
+            })
+        return {"calibration": cal, "drift_report": drift}
 
 
 # ===========================================================================

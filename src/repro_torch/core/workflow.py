@@ -50,9 +50,7 @@ restricts execution to a subgraph (the CLI's ``run --stage``).
 A copy of the reference package's ``core/workflow.py``: the same eleven
 templates, the same canonical graphs, the same runner, on the port's
 torch stages.  ``run_workflow`` takes one more argument, ``device``
-(default ``cuda``), which every stage that builds a model reads.  The
-static checker (``check=True``) and workflow specs
-(``register_from_spec``) wait for ROADMAP queue 1, the control plane.
+(default ``cuda``), which every stage that builds a model reads.
 """
 from __future__ import annotations
 
@@ -166,13 +164,21 @@ class WorkflowRegistry:
         )
 
     def register_from_spec(self, doc_or_path: Any) -> WorkflowTemplate:
-        """Register the template carried by a package document: not
-        ported yet (workflow specs)."""
-        raise NotImplementedError(
-            f"workflow specs are not ported yet: {CONTROL_PLANE}")
+        """Register the template carried by a package document (or a
+        path to one) — how a shared ``pack`` artifact enters another
+        user's registry."""
+        from repro_torch.core.spec import (SpecError, load_spec,
+                                           unpack_package)
+
+        doc = (load_spec(doc_or_path) if isinstance(doc_or_path, str)
+               else doc_or_path)
+        template, _, _ = unpack_package(doc)
+        if template is None:
+            raise SpecError("package carries no template block")
+        self.register(template)
+        return template
 
 
-CONTROL_PLANE = "ROADMAP queue 1, the control plane"
 REGISTRY = WorkflowRegistry()
 
 
@@ -382,9 +388,13 @@ def run_workflow(
     usage — and the plan stage always re-authorizes on resume while a
     ledger is attached (see ``PlanStage.resume_safe``).
 
-    ``graph`` substitutes a pre-built StageGraph for the canonical
-    compiled one; ``check=True`` (the reference's static checker) raises
-    ``NotImplementedError`` until the checker is ported.
+    ``graph`` substitutes a pre-built StageGraph (e.g. one reloaded
+    from a packed workflow spec) for the canonical compiled one;
+    ``check=True`` runs the static checker
+    (:func:`repro_torch.core.check.check_workflow`) as a pre-flight gate,
+    raising :class:`repro_torch.core.check.CheckError` on any
+    error-severity diagnostic before a run record is created or budget
+    authorized (the CLI's ``run --check``).
 
     ``device`` is the torch device of every stage that builds a model
     (``cuda`` by default: without a GPU those stages raise; pass
@@ -413,8 +423,16 @@ def run_workflow(
     intent = intent or t.default_intent()
 
     if check:
-        raise NotImplementedError(
-            f"the static workflow checker is not ported yet: {CONTROL_PLANE}")
+        from repro_torch.core.check import CheckError, check_workflow
+        from repro_torch.core.spec import default_results, default_waivers
+
+        report = check_workflow(
+            graph, template=t, intent=intent,
+            results=default_results(graph), waivers=default_waivers(t),
+            steps=steps_override or t.num_steps,
+        )
+        if not report.ok:
+            raise CheckError(report)
     if resume is not None:
         record = store.load(resume)
         if record.manifest.get("template") != t.name:

@@ -3,8 +3,8 @@
 budget, permissions, the ledger, ``stable_hash``), run against the
 port's copy of the control plane, plus the port's own rules for what it
 does not copy: package-scoped cache keys and calibration stores, no
-device tensor in a stage payload, and the raising stand-ins for the
-checker, workflow specs and a placement's mesh."""
+device tensor in a stage payload, and the raising stand-in for a
+placement's mesh."""
 import json
 import pickle
 
@@ -12,11 +12,13 @@ import pytest
 import torch
 
 from repro_torch.core import (REGISTRY, BudgetExceeded, BudgetLedger,
-                              CalibrationStore, PermissionDenied,
-                              ProvenanceStore, WorkflowRegistry,
-                              WorkflowTemplate, run_workflow, stable_hash)
+                              CalibrationStore, CheckError, PermissionDenied,
+                              ProvenanceStore, SpecError, WorkflowRegistry,
+                              WorkflowTemplate, compile_template,
+                              run_workflow, stable_hash)
 from repro_torch.core import calibrate
 from repro_torch.core.graph import Placement
+from repro_torch.core.spec import DeclaredStage
 from repro_torch.core.stagecache import host_dumps
 
 
@@ -111,12 +113,22 @@ def case_stage_payloads_hold_no_device_tensor(tmp_path):
 
 
 def case_unported_entries_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="the control plane"):
+    """The stand-ins that raised here for the checker and workflow specs
+    are gone (both are ported, ``test_torch_check.py`` and
+    ``test_torch_spec.py`` hold them against the reference): an empty
+    package is refused as the reference refuses it, and ``check=True``
+    gates a broken graph before any run record.  A placement's mesh
+    still raises."""
+    with pytest.raises(SpecError, match="invalid package"):
         REGISTRY.register_from_spec({})
-    with pytest.raises(NotImplementedError, match="the control plane"):
-        run_workflow(REGISTRY.get("train-qwen2-1.5b"),
-                     ProvenanceStore(str(tmp_path)), check=True,
-                     device="cpu")
+    t = REGISTRY.get("train-qwen2-1.5b")
+    g = compile_template(t)
+    g.add(DeclaredStage("orphan", inputs=("no_such_key",), outputs=()))
+    with pytest.raises(CheckError) as exc:
+        run_workflow(t, ProvenanceStore(str(tmp_path)), graph=g,
+                     check=True, device="cpu")
+    assert any(d.code == "ADV001" for d in exc.value.report.diagnostics)
+    assert not list(tmp_path.iterdir())  # no run record
     p = Placement(stage="train", slice_name="v5e-8", mesh_shape=(8, 1),
                   mesh_axes=("data", "model"), chips=8, price_per_hour=1.0)
     with pytest.raises(NotImplementedError,

@@ -45,7 +45,8 @@ def test_port_files_cover_the_control_plane():
              for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"ft/failures.py", "core/workflow.py", "core/stages.py",
             "core/graph.py", "core/provenance.py", "core/envelope.py",
-            "launch/cli.py"} <= names
+            "launch/cli.py", "core/registry.py", "core/explore.py",
+            "core/check.py", "core/spec.py", "core/runqueue.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -53,13 +54,45 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.train, repro_torch.models.recurrent, "
             "repro_torch.kernels.mlstm_scan, repro_torch.kernels.ssm_scan, "
             "repro_torch.core.workflow, repro_torch.core.stages, "
-            "repro_torch.launch.cli; "
+            "repro_torch.core.registry, repro_torch.core.explore, "
+            "repro_torch.core.check, repro_torch.core.spec, "
+            "repro_torch.core.runqueue, repro_torch.launch.cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_cli_planning_commands_load_no_jax(tmp_path):
+    """``explore``, ``calibrate``, ``check`` and ``pack`` (and ``plan``
+    for the card) in a fresh process that loads no ``repro`` and no
+    ``jax``."""
+    script = (
+        "import runpy, sys\n"
+        "def cli(*argv):\n"
+        "    sys.argv = ['cli', *argv]\n"
+        "    runpy.run_module('repro_torch.launch.cli', run_name='__main__')\n"
+        "cli('plan', '--arch', 'qwen2-1.5b', '--shape', 'train_4k', "
+        "'--chip', 'h100')\n"
+        "cli('explore', '--arch', 'qwen2-1.5b', '--chip', 'h100', "
+        "'--chips', '1,8', '--global-batch', '2', '--runs-dir', 'runs')\n"
+        "cli('calibrate', '--store', 'cal.json', '--runs-dir', 'runs')\n"
+        "cli('check', 'train-qwen2-1.5b')\n"
+        "cli('pack', 'train-qwen2-1.5b', '-o', 'wf.pack.json')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print('loaded:', bad)\n")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300, cwd=str(tmp_path),
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stdout + out.stderr
+    text = out.stdout
+    assert "loaded: []" in text
+    assert "h100-8" in text and "frontier has" in text
+    assert "harvested 0 samples" in text and "0 error(s)" in text
+    assert (tmp_path / "wf.pack.json").exists()
 
 
 def test_entry_points_default_to_the_card():
