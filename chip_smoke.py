@@ -10,7 +10,11 @@ full width, depth cut to 2 layers (K4 for the expert FFN forward and
 its dX, K1 and K1-bwd); then run the canonical serve and train workflows
 through the control plane (``repro_torch.core.run_workflow``), and the
 train workflow at full width planned for the card, whose runs then
-calibrate the cost model and feed an exploration of the card's slices.
+calibrate the cost model and feed an exploration of the card's slices;
+last, the encoder-decoder (whisper-large-v3) and the VLM
+(phi-3-vision-4.2b): K1 and K1-bwd at their shapes, each served and
+trained at full width, and their templates at full width planned for
+the card.
 
     python3 chip_smoke.py
 
@@ -157,7 +161,43 @@ them, and on any mismatch.  Phases, one or more lines each:
      fit: the scale fallback at two samples) and the explore stage over
      the card's slices at the same arch and shapes; the fit's residual,
      the measured median steps beside the uncalibrated and calibrated
-     estimates, and the explore report's frontier under the calibration.
+     estimates, and the explore report's frontier under the calibration;
+ 32. K1's forward with its LSE and K1-bwd at this slice's shapes, in both
+     dtypes, against their plain versions, with the path each took (every
+     bf16 case on the tensor cores) and its time over SDPA's: whisper's
+     encoder self-attention (B 2, S = T = 1500, 20 heads of 64,
+     non-causal), its decoder's causal self-attention (S 4096) and its
+     cross attention (S 4096 against T 1500, non-causal), and
+     phi-3-vision's causal attention at head dim 96 (B 1, S 4096, 32
+     heads); and K2 at phi-3-vision's serving shape (4 slots, 32 heads
+     of 96, pages of 16, the first decode step's lengths) hot and cold,
+     in both dtypes (D 96 takes the FMA walk);
+ 33. whisper-large-v3 at full width (32 encoder and 32 decoder layers,
+     d_model 1280): 8 requests of 1500 frames on the fused engine, two
+     prompt lengths admitted in exact-length groups (K1 counted by path),
+     each group's greedy tokens identical to the same group prefilled and
+     decoded directly; then training at seq 4096, batch 2, remat full
+     (the decoder blocks) through ``make_train_step`` (counters reset
+     just before four steps, read just after: K1 160 and K1-bwd 96 a
+     step, all on the tensor cores), the peak memory and one profiled
+     step's split and idle share;
+ 34. phi-3-vision-4.2b at full width (32 layers, d_model 3072, 32 heads
+     of 96): 8 image requests (576 image positions and a text prompt) on
+     the fused and the paged engine (counters reset just before, read
+     just after: K2 at D 96 on its FMA walk), the agreeing share of
+     their bf16 tokens, and in float32 compute identical tokens from both
+     and a shared prompt's pages reused; then training at seq 4096,
+     batch 1, remat full, full depth, through ``make_train_step`` (K1 64
+     and K1-bwd 32 a step, all on the tensor cores), the peak and one
+     profiled step's split;
+ 35. ``train-whisper-large-v3`` (global batch 2) and
+     ``train-phi-3-vision-4.2b`` (global batch 1, at ``PV_LR`` through the
+     template's optimizer overrides) at ``scale="full"`` through
+     ``run_workflow`` planned for the card's one-card slice (the plan's
+     remat and microbatch), 6 steps each: launches by path, the checks
+     passing, the peak beside the plan's ``bytes_per_device``, free disk
+     checked before each run and each final checkpoint (18.4 and 45.9
+     GB) removed after it.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -423,7 +463,7 @@ def _paged_counts(mod):
 
 
 def _paged_case(kernel, name, dtype, B, T, KH, G, D, page, max_pages, lens,
-                gen, rng, cold=False, long=False):
+                gen, rng, cold=False, long=False, phase=None):
     """K2 (T = 1, lens = kv_len) or K3 (lens = base_len) against its plain
     version on random inputs; its time hot (and, with ``cold``, with the
     pools cold: a rotation through copies that together hold twice the
@@ -482,7 +522,7 @@ def _paged_case(kernel, name, dtype, B, T, KH, G, D, page, max_pages, lens,
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, peak)
     shown = (base.tolist() if B <= 8 else f"{B} x {int(base[0])}")
-    phase = "4 K2" if kernel == "K2" else "7 K3"
+    phase = phase or ("4 K2" if kernel == "K2" else "7 K3")
     what = "kv_len" if kernel == "K2" else "base_len"
     log(f"[{phase}] {name} {str(dtype)[6:]} B={B}" +
         (f" T={T}" if kernel == "K3" else "") + f" KH={KH} G={G} D={D} "
@@ -896,23 +936,24 @@ def time_events_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def _live_mask(S, T, window, q_offset, dev):
+def _live_mask(S, T, window, q_offset, dev, causal=True):
     qpos = q_offset + torch.arange(S, device=dev)
     kpos = torch.arange(T, device=dev)
-    live = qpos[:, None] >= kpos[None, :]
+    live = (qpos[:, None] >= kpos[None, :] if causal
+            else torch.ones((S, T), dtype=torch.bool, device=dev))
     if window:
         live &= qpos[:, None] - kpos[None, :] < window
     return live
 
 
 def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
-                   phase=9):
+                   phase=9, causal=True):
     dev = torch.device("cuda")
     q, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
              for _ in range(2))
     k, v = (torch.randn((B, T, KH, D), generator=gen, device=dev).to(dtype)
             for _ in range(2))
-    mask = dict(causal=True, window=window, q_offset=q_offset)
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
     n_tc = (flash_attention.tc_launches, flash_attention_bwd.tc_launches)
     out, lse = flash_attention.flash_attention_cuda(q, k, v, with_lse=True,
                                                     **mask)
@@ -942,10 +983,12 @@ def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
                         inner=1)
     # the yardstick: SDPA's backward through autograd, its forward done
     # beforehand (never used by the port), in its (B, H, S, D) layout
-    live = _live_mask(S, T, window, q_offset, dev)
+    live = _live_mask(S, T, window, q_offset, dev, causal)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    if S == T and not window and not q_offset:
+    if not causal and not window:
+        sdpa = {}
+    elif S == T and not window and not q_offset:
         sdpa = dict(is_causal=True)
     else:
         sdpa = dict(attn_mask=live)
@@ -968,8 +1011,8 @@ def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
     fbytes = size * (2 * B * S * H * D + 2 * B * T * KH * D) + 4 * B * S * H
     fbms, fby = bound_ms(fbytes, 4.0 * B * H * D * pairs, peak)
     log(f"[{phase} K1+lse] {name} {str(dtype)[6:]} B={B} S={S} T={T} H={H} "
-        f"KH={KH} "
-        f"D={D} window={window} q_offset={q_offset}: path={paths[0]} "
+        f"KH={KH} D={D} causal={causal} window={window} q_offset={q_offset}: "
+        f"path={paths[0]} "
         f"max_abs_err={err_fwd:.3g} (tol {TOL[dtype]:g} abs+rel, out and lse) "
         f"ms={fwd_ms:.4f} plain_ms={fplain_ms:.4f} library_ms="
         f"{lib_fwd_ms:.4f} ms/library_ms={fwd_ms / lib_fwd_ms:.2f} "
@@ -979,6 +1022,8 @@ def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
         f"deterministic=True ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms:.4f} ms/library_ms={ms / lib_ms:.2f} "
         f"bound_ms={bms:.5f} ({by})")
+    assert dtype != torch.bfloat16 or paths == ("tensor-cores",) * 2 or \
+        not flash_attention.tensor_core_path(dtype, D), (name, paths)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
@@ -2490,6 +2535,423 @@ def phase_card_calibrate_explore(runs: str, wf_runs: dict) -> None:
     calibrate.deactivate()
     unregister_card()
 
+# ---------------------------------------------------------------------------
+# whisper-large-v3 and phi-3-vision-4.2b (phases 32-35)
+
+# K1's and K1-bwd's shapes on this slice's main paths (phase 32):
+# (name, B, S, T, H, KH, D, causal) — whisper's encoder self-attention
+# over its 1500 frames, its decoder's causal self-attention and its cross
+# attention of 4096 tokens against the 1500 frames, at train batch 2;
+# phi-3-vision's causal attention at head dim 96, train batch 1
+SLICE_K1_CASES = (
+    ("whisper encoder", 2, 1500, 1500, 20, 20, 64, False),
+    ("whisper decoder", 2, 4096, 4096, 20, 20, 64, True),
+    ("whisper cross", 2, 4096, 1500, 20, 20, 64, False),
+    ("phi-3-vision", 1, 4096, 4096, 32, 32, 96, True),
+)
+# whisper-large-v3 training: train_4k's length, its global batch of 256
+# cut to 2; remat full (the decoder blocks; the encoder is kept, as in the
+# reference)
+WH_SEQ, WH_BATCH, WH_STEPS, WH_REMAT = 4096, 2, 4, "full"
+# whisper serving: 8 requests of 1500 frames, prompts of two lengths
+# (exact-length admission groups of 4), 16 new tokens each, 4 slots; the
+# random embedding scaled by WH_EMBED_SCALE (std 0.0044 -> 0.88) and the
+# frames drawn at std 1, the size of the sinusoidal positions, so that
+# the prompt and the audio, not only the positions, decide the tokens
+WH_PROMPTS, WH_MAX_BATCH, WH_MAX_NEW = (24, 40) * 4, 4, 16
+WH_EMBED_SCALE, WH_FRAME_STD = 200.0, 1.0
+# phi-3-vision training: train_4k's length, batch 1, remat full, full
+# depth (its 61 GB of float32 state and gradients fit).  Its learning rate:
+# at d_model 3072 with an untied head, AdamW's first steps (each weight
+# moved by about the learning rate) at lr 1e-4 and at the templates'
+# 2e-3 raised the loss within 6 steps (NVIDIA H100 80GB HBM3, 700 W:
+# 10.59 -> 12.93 at step 3; 11.61 -> 14.04 over the template's run; at
+# 1e-5, 10.62 -> 9.25 over the template's run: the recipe's, not the
+# port's arithmetic, whose curve is the reference's on the CPU,
+# tests/test_torch_vlm.py).  Phases 34 and 35 train it at PV_LR after one
+# warmup step (phase 35 through the template's ``optimizer.*`` overrides)
+PV_SEQ, PV_BATCH, PV_STEPS, PV_REMAT = 4096, 1, 4, "full"
+PV_LR = 1e-5
+# phi-3-vision serving: 8 image requests, prompts of the 576 image
+# positions and 24 or 40 text tokens, 16 new tokens each, 4 slots
+PV_TEXT, PV_MAX_BATCH, PV_MAX_NEW = (24, 40) * 4, 4, 16
+# the two templates at scale="full" planned for the card (phase 35):
+# (template, global batch of train_4k, template overrides)
+SLICE_TEMPLATES = (
+    ("train-whisper-large-v3", 2, {}),
+    ("train-phi-3-vision-4.2b", 1, {"optimizer.lr": PV_LR,
+                                    "optimizer.warmup_steps": 1}))
+SLICE_KINDS = dict(K1_KINDS)
+
+
+def phase_slice_kernels(gen) -> None:
+    """K1 with its LSE and K1-bwd at whisper's and phi-3-vision's
+    attention shapes, in both dtypes, against their plain versions (bf16
+    on the tensor cores at D 64 and D 96); K2 at phi-3-vision's serving
+    shape (D 96: bf16 on the FMA walk by the page walk's rule), hot and
+    cold, in both dtypes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, S, T, H, KH, D, causal in SLICE_K1_CASES:
+            _k1_train_case(name, dtype, B, S, T, H, KH, D, 0, 0, gen,
+                           phase=32, causal=causal)
+            torch.cuda.empty_cache()
+    cfg = get_config("phi-3-vision-4.2b")
+    prompts = [cfg.num_image_tokens + t for t in PV_TEXT[:PV_MAX_BATCH]]
+    max_pages = -(-(max(prompts) + PV_MAX_NEW) // PAGE)
+    rng = np.random.default_rng(32)
+    for dtype in (torch.bfloat16, torch.float32):
+        r = _paged_case("K2", "phi-3-vision serving (first decode step)",
+                        dtype, PV_MAX_BATCH, 1, cfg.num_kv_heads,
+                        cfg.num_heads // cfg.num_kv_heads, cfg.head_dim, PAGE,
+                        max_pages, [n + 1 for n in prompts], gen, rng,
+                        cold=True, phase="32 K2")
+        assert r["path"].startswith("fma"), r  # D 96: no tensor-core walk
+
+
+def _modal_requests(prompts, max_new, key, rows, d, vocab, seed,
+                    std=0.02):
+    """One request a prompt length of ``prompts``, each with its own
+    ``key`` input of ``rows`` x ``d`` (std 0.02, as the data stream makes
+    them, unless ``std`` says otherwise)."""
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(1, vocab, n).astype(np.int32),
+                    max_new_tokens=max_new,
+                    extra={key: (std * rng.standard_normal((rows, d))
+                                 ).astype(np.float32)})
+            for i, n in enumerate(prompts)]
+
+
+def _serve(model, params, reqs, **kw):
+    eng = ServeEngine(model, params, eos_id=-1, **kw)
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    return {c.uid: c.tokens for c in done}, wall, eng
+
+
+def _direct_greedy(model, params, group, max_seq, steps):
+    """One admission group the way the engine runs it, called directly:
+    prefill the rows together, then greedy decode steps of the whole
+    group; each row's tokens."""
+    dev = torch.device("cuda")
+    tokens = torch.tensor(np.stack([r.prompt for r in group]),
+                          dtype=torch.int32, device=dev)
+    extra = {k: torch.from_numpy(np.stack([r.extra[k] for r in group])).to(
+        dev) for k in group[0].extra}
+    logits, cache = model.prefill(params, tokens, extra, max_seq=max_seq)
+    out = [logits.argmax(-1).to(torch.int32)]
+    for _ in range(steps - 1):
+        logits, cache = model.decode_step(params, cache, out[-1][:, None])
+        out.append(logits.argmax(-1).to(torch.int32))
+    return torch.stack(out, 1).cpu().tolist()
+
+
+def _slice_train(tag, cfg, seq, batch, steps, remat, want_fwd, want_bwd,
+                 opt=OptimizerConfig(lr=1e-4, warmup_steps=2,
+                                     total_steps=100)):
+    """Train ``cfg`` at full width through ``make_train_step``: K1's and
+    K1-bwd's counters reset just before ``steps`` steps and read just
+    after (every bf16 launch on the tensor cores), then one profiled
+    step's device split.  Returns K1's and K1-bwd's launches."""
+    model = build_model(cfg)
+    plan = Plan(remat=remat)
+    t0 = time.perf_counter()
+    state = init_train_state(model, 0, opt, plan)
+    torch.cuda.synchronize()
+    step = make_train_step(model, opt, plan)
+    stream = make_stream(cfg, ShapeConfig("train_4k-cut", seq, batch,
+                                          "train"))
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()}
+               for i in range(steps + 1)]
+    for b in batches:  # the train stage's bf16 casts of the stub inputs
+        for k in ("frames", "image_embeds"):
+            if k in b:
+                b[k] = b[k].to(torch.bfloat16)
+    log(f"[{tag} train] {cfg.name} full width, {cfg.num_layers} layers"
+        f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}"
+        f", d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+        f"of {cfg.head_dim}, {cfg.param_count() / 1e9:.3f} B params (float32 "
+        f"master, AdamW float32 moments, {cfg.dtype} compute), seq {seq}, "
+        f"batch {batch} (train_4k's 256 cut to {batch}), remat {remat}, lr "
+        f"{opt.lr:g} after {opt.warmup_steps} warmup steps; "
+        f"inputs {sorted((k, tuple(v.shape)) for k, v in batches[0].items())}"
+        f"; init {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_k1_counters()
+    losses, walls = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        losses.append(float(metrics["loss"]))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    assert launches == {"flash_attention": want_fwd * steps,
+                        "flash_attention_bwd": want_bwd * steps}, launches
+    paths = {f"{m.__name__.rsplit('.', 1)[1]}_{p}": getattr(m, f"{p}_launches")
+             for m in (flash_attention, flash_attention_bwd)
+             for p in ("tc", "fma")}
+    assert paths["flash_attention_fma"] == 0, paths
+    assert paths["flash_attention_bwd_fma"] == 0, paths
+    assert all(np.isfinite(losses)), losses
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(walls[1:])
+    log(f"[{tag} train] losses={[round(x, 4) for x in losses]} step_wall_s="
+        f"{[round(x, 3) for x in walls]} (the first includes set-up) "
+        f"steady_step_s={steady:.3f} tok_per_s={batch * seq / steady:.1f} "
+        f"max_memory_allocated_GB={peak / 1e9:.2f} launches={launches} "
+        f"(want {want_fwd} and {want_bwd} a step) paths={paths}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[steps])
+        float(metrics["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    split, by_name = _device_split(prof, SLICE_KINDS)
+    del prof
+    busy = sum(split.values())
+    assert busy > 0 and split["K1 forward"] > 0 and split["K1-bwd"] > 0, split
+    log(f"[{tag} train profile] one step: wall_ms={wall:.1f} device_busy_ms="
+        f"{busy:.1f} idle_share={max(0.0, 1 - busy / wall):.3f} (against the "
+        f"unprofiled steady step: {max(0.0, 1 - busy / (steady * 1e3)):.3f}) "
+        + " ".join(f"{k.replace(' ', '_')}_ms={v:.1f} ({v / busy:.1%})"
+                   for k, v in split.items()))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[{tag} train profile]   {ms:9.1f} ms  {name}")
+    del state, batches, step, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_whisper(cfg) -> dict:
+    """whisper-large-v3 at full width: 1500-frame requests on the fused
+    engine in exact-length groups, the greedy tokens of each group held
+    against the same group prefilled and decoded directly; then training
+    at seq 4096, batch 2.  Returns K1's and K1-bwd's main-path
+    launches."""
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    master = model.init(seed=0)
+    master["embed"].mul_(WH_EMBED_SCALE)
+    params = model.serving_params(master)
+    del master
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = _modal_requests(WH_PROMPTS, WH_MAX_NEW, "frames",
+                           cfg.encoder_frames, cfg.d_model, cfg.vocab_size, 33,
+                           std=WH_FRAME_STD)
+    max_seq = max(WH_PROMPTS) + WH_MAX_NEW
+    _reset_k1_counters()
+    got, wall, eng = _serve(model, params, reqs, max_batch=WH_MAX_BATCH,
+                            max_seq=max_seq)
+    serve_k1 = flash_attention.launches
+    k1_paths = {"tensor-cores": flash_attention.tc_launches,
+                "fma": flash_attention.fma_launches}
+    keys = sorted({eng._group_key(r)[:2] for r in reqs})
+    # 2 groups (one a length), each K1 2 a decoder layer + 1 an encoder
+    want_k1 = 2 * (2 * cfg.num_layers + cfg.encoder_layers)
+    assert serve_k1 == want_k1 and k1_paths["fma"] == 0, (serve_k1, k1_paths)
+    assert keys == [("exact", n) for n in sorted(set(WH_PROMPTS))], keys
+    toks = sum(len(v) for v in got.values())
+    log(f"[33 whisper serve] {cfg.name} full width ({cfg.encoder_layers} + "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype} "
+        f"serving parameters, embedding x{WH_EMBED_SCALE:g}; init "
+        f"{init_s:.1f} s): {len(reqs)} requests of {cfg.encoder_frames} "
+        f"frames (std {WH_FRAME_STD:g}), prompts {sorted(set(WH_PROMPTS))} -> "
+        f"admission groups {keys}, {WH_MAX_BATCH} slots: tokens={toks} "
+        f"wall_s={wall:.3f} tok_per_s={toks / wall:.1f} (first run, set-up "
+        f"included) K1 launches={serve_k1} paths={k1_paths}")
+    by_len = {}
+    for r in reqs:
+        by_len.setdefault(len(r.prompt), []).append(r)
+    for n, group in sorted(by_len.items()):
+        direct = _direct_greedy(model, params, group, max_seq, WH_MAX_NEW)
+        mine = [got[r.uid] for r in group]
+        log(f"[33 whisper serve]   group of length {n}: uids "
+            f"{[r.uid for r in group]} tokens {[t[:6] for t in mine]}; "
+            f"identical to a direct prefill/decode of the group: "
+            f"{mine == direct}")
+        assert mine == direct, (n, mine, direct)
+    distinct = len({tuple(t) for t in got.values()})
+    log(f"[33 whisper serve]   {distinct} distinct token sequences of "
+        f"{len(got)}")
+    assert distinct > 1, got
+    del model, params, eng
+    torch.cuda.empty_cache()
+    want_fwd = cfg.encoder_layers + 2 * cfg.num_layers * (
+        2 if WH_REMAT == "full" else 1)
+    train = _slice_train("33 whisper", cfg, WH_SEQ, WH_BATCH, WH_STEPS, WH_REMAT,
+                         want_fwd, cfg.encoder_layers + 2 * cfg.num_layers)
+    return {"flash_attention": serve_k1 + train["flash_attention"],
+            "flash_attention_bwd": train["flash_attention_bwd"]}
+
+
+def phase_phi3v(cfg) -> dict:
+    """phi-3-vision-4.2b at full width: image requests on the fused and
+    the paged engine (K2's launches by path, main path; at D 96 the page
+    walk runs on FMAs), identical tokens in float32 compute and the
+    agreeing share in bf16; then training at seq 4096, batch 1.  Returns
+    K1's, K1-bwd's and K2's main-path launches."""
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    master = model.init(seed=0)
+    params = model.serving_params(master)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_img = cfg.num_image_tokens
+    prompts = [n_img + t for t in PV_TEXT]
+    max_seq = max(prompts) + PV_MAX_NEW
+    reqs = _modal_requests(prompts, PV_MAX_NEW, "image_embeds", n_img,
+                           cfg.d_model, cfg.vocab_size, 34)
+    kw = dict(max_batch=PV_MAX_BATCH, max_seq=max_seq, page_size=PAGE)
+    got = {}
+    for engine in ("fused", "paged"):
+        _reset_k1_counters()
+        _reset_paged_counters(paged_attention)
+        got[engine], wall, eng = _serve(model, params, reqs, engine=engine,
+                                        **kw)
+        k1 = flash_attention.launches
+        toks = sum(len(v) for v in got[engine].values())
+        line = (f"[34 phi-3-vision serve] {engine}: {len(reqs)} requests, "
+                f"prompts {sorted(set(prompts))} ({n_img} image positions "
+                f"+ text), {PV_MAX_BATCH} slots: tokens={toks} wall_s="
+                f"{wall:.3f} tok_per_s={toks / wall:.1f} K1 launches={k1} "
+                f"(tensor-cores {flash_attention.tc_launches})")
+        assert k1 > 0 and flash_attention.fma_launches == 0
+        if engine == "paged":
+            k2 = paged_attention.launches
+            k2_paths = {"tensor-cores": paged_attention.tc_launches,
+                        "fma": paged_attention.fma_launches,
+                        "merged": paged_attention.merge_launches}
+            # bf16 at D 96: the page walk's rule sends it to the FMAs
+            assert k2 > 0 and k2_paths["fma"] == k2, k2_paths
+            assert eng.pool.pages_in_use == 0 and eng.pool.prefix_hits == 0
+            line += (f" K2 launches={k2} paths={k2_paths} prefix_hits="
+                     f"{eng.pool.prefix_hits}")
+            paged_k1 = k1
+        log(line)
+    agree = sum(a == b for u in got["fused"]
+                for a, b in zip(got["fused"][u], got["paged"][u]))
+    total = sum(len(v) for v in got["fused"].values())
+    log(f"[34 phi-3-vision serve] {cfg.name} full width ({cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}, {cfg.dtype} serving parameters; init {init_s:.1f} "
+        f"s): fused and paged tokens agree at {agree}/{total} positions in "
+        f"bf16 (the dense decode read and K2 round at other points)")
+    del params, eng
+    torch.cuda.empty_cache()
+    # identity in float32 compute: the same weights, one admission group
+    # of 4 in which uid 100 is uid 0's prompt and image again (so the two
+    # share uid 0's full prompt pages)
+    f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params = f32.serving_params(master)
+    reqs2 = [reqs[0], dataclasses.replace(reqs[0], uid=100)] + reqs[1:3]
+    res = {e: _serve(f32, params, reqs2, engine=e, **kw) for e in
+           ("fused", "paged")}
+    same = res["fused"][0] == res["paged"][0]
+    hits = res["paged"][2].pool.prefix_hits
+    log(f"[34 phi-3-vision serve] float32 compute, {len(reqs2)} requests "
+        f"(uid 100 is uid 0's prompt and image again): fused and paged "
+        f"tokens identical: {same}; uid 100 == uid 0: "
+        f"{res['paged'][0][100] == res['paged'][0][0]}; prefix_hits={hits} "
+        f"(uid 100's {prompts[0] // PAGE} full prompt pages)")
+    assert same and res["paged"][0][100] == res["paged"][0][0], res
+    assert hits == prompts[0] // PAGE, hits
+    del f32, params, res, master, model
+    torch.cuda.empty_cache()
+    mult = 2 if PV_REMAT == "full" else 1
+    train = _slice_train("34 phi-3-vision", cfg, PV_SEQ, PV_BATCH, PV_STEPS,
+                         PV_REMAT, mult * cfg.num_layers, cfg.num_layers,
+                         OptimizerConfig(lr=PV_LR, warmup_steps=1,
+                                         total_steps=100))
+    return {"flash_attention": paged_k1 + train["flash_attention"],
+            "flash_attention_bwd": train["flash_attention_bwd"],
+            "paged_attention": k2}
+
+
+def phase_slice_workflows(runs: str) -> dict:
+    """``train-whisper-large-v3`` and ``train-phi-3-vision-4.2b`` at
+    ``scale="full"`` through ``run_workflow``, planned for the card's
+    one-card slice (the plan's remat and microbatch), ``CARD_STEPS``
+    steps each: launches by path, the checks, the peak beside the plan's
+    ``bytes_per_device``; each final checkpoint removed after its run.
+    Returns K1's and K1-bwd's launches over the runs."""
+    register_card()
+    totals = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for name, gb, over in SLICE_TEMPLATES:
+        shape = derived_shape("train_4k", gb)
+        t = REGISTRY.get(name).with_overrides(scale="full", shape=shape,
+                                              **over)
+        cfg = get_config(t.arch)
+        free = shutil.disk_usage(runs).free
+        ckpt_need = 3 * 4 * cfg.param_count()  # p, m and v in float32
+        assert free > 1.2 * ckpt_need, (
+            f"{name}: {free / 1e9:.1f} GB free for a {ckpt_need / 1e9:.1f} "
+            f"GB checkpoint")
+        intent = ResourceIntent(arch=t.arch, shape=shape,
+                                chip_generation="h100", max_chips=1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_k1_counters()
+        t0 = time.perf_counter()
+        res = run_workflow(t, ProvenanceStore(runs), device="cuda",
+                           intent=intent, steps_override=CARD_STEPS)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"flash_attention": flash_attention.launches,
+                    "flash_attention_bwd": flash_attention_bwd.launches}
+        paths = {f"{m.__name__.rsplit('.', 1)[1]}_{p}":
+                 getattr(m, f"{p}_launches")
+                 for m in (flash_attention, flash_attention_bwd)
+                 for p in ("tc", "fma")}
+        doc = res.record.manifest["plan"]
+        est = res.plan_choice.est
+        rows = [r for r in res.record.metrics() if "loss" in r]
+        steps = [r["step_time_s"] for r in rows]
+        ckpt = os.path.join(res.record.artifacts_dir, "ckpt-train")
+        ckpt_gb = _tree_gb(ckpt)
+        shutil.rmtree(ckpt)
+        recompute = 2 if doc["remat"] in ("full", "dots") else 1
+        per = cfg.num_layers * (2 if cfg.is_encoder_decoder else 1)
+        want_bwd = (per + cfg.encoder_layers) * CARD_STEPS * doc["microbatch"]
+        want_fwd = ((recompute * per + cfg.encoder_layers) * CARD_STEPS
+                    * doc["microbatch"])
+        log(f"[35 slice workflow] {t.name} scale=full {shape} "
+            f"({cfg.num_layers} layers, d_model {cfg.d_model}, seq "
+            f"{TRAIN_SEQ}, global batch {gb}) {len(rows)} steps, optimizer "
+            f"lr {t.optimizer.lr:g} warmup {t.optimizer.warmup_steps} "
+            f"(overrides {over or 'none'}): plan "
+            f"{doc['slice']} chip={doc['chip']} remat={doc['remat']} "
+            f"microbatch={doc['microbatch']} est_step_s="
+            f"{doc['est_step_s']:.4f}; losses "
+            f"{[round(r['loss'], 4) for r in rows]} launches={launches} "
+            f"(want {want_fwd} and {want_bwd}) paths={paths}")
+        log(f"[35 slice workflow]   step_time_s {[round(x, 4) for x in steps]}"
+            f" median after the first {statistics.median(steps[1:]):.4f}; "
+            f"max_memory_allocated_GB={peak / 1e9:.2f} against the plan's "
+            f"bytes_per_device {est.bytes_per_device / 1e9:.2f} GB (x"
+            f"{peak / est.bytes_per_device:.2f}); disk free before "
+            f"{free / 1e9:.1f} GB; final checkpoint {ckpt_gb:.2f} GB, removed;"
+            f" run wall {wall:.1f} s")
+        log(f"[35 slice workflow]   checks {res.checks}; stage walls s "
+            f"{_stage_walls(res)}")
+        assert launches == {"flash_attention": want_fwd,
+                            "flash_attention_bwd": want_bwd}, launches
+        assert paths["flash_attention_fma"] == 0, paths
+        assert paths["flash_attention_bwd_fma"] == 0, paths
+        assert res.ok and all(ok for ok, _ in res.checks.values()), res.checks
+        assert doc["slice"] == "h100-1" and doc["chip"] == "h100", doc
+        for k, v in launches.items():
+            totals[k] += v
+        del res
+        torch.cuda.empty_cache()
+    unregister_card()
+    return totals
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2578,19 +3040,30 @@ def main() -> int:
         card, card_runs = phase_card_train_workflow(runs)
         phase_card_calibrate_explore(runs, card_runs)
 
+    # whisper-large-v3 and phi-3-vision-4.2b: the slice's kernels at their
+    # shapes, then each main path (counters reset just before, read just
+    # after each run), then both templates planned for the card
+    phase_slice_kernels(gen)
+    wh = phase_whisper(get_config("whisper-large-v3"))
+    pv = phase_phi3v(get_config("phi-3-vision-4.2b"))
+    with tempfile.TemporaryDirectory() as runs:
+        sw = phase_slice_workflows(runs)
+
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/flash_attention.py:115",
              launches=(launches["flash_attention"] + wf["flash_attention"]
-                       + card["flash_attention"]),
+                       + card["flash_attention"] + wh["flash_attention"]
+                       + pv["flash_attention"] + sw["flash_attention"]),
              **k1),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
              includes=[PAGED_COMMON, HOPPER_COMMON],
              replaces="src/repro/kernels/paged_attention.py:230",
-             launches=launches["paged_attention"] + wf["paged_attention"],
+             launches=(launches["paged_attention"] + wf["paged_attention"]
+                       + pv["paged_attention"]),
              **k2),
         dict(name="paged_attention_mq", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention_mq.cu",
@@ -2602,7 +3075,9 @@ def main() -> int:
              includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/flash_xla.py:99",
              launches=(train_launches["flash_attention_bwd"]
-                       + card["flash_attention_bwd"]), **k1_bwd),
+                       + card["flash_attention_bwd"]
+                       + wh["flash_attention_bwd"] + pv["flash_attention_bwd"]
+                       + sw["flash_attention_bwd"]), **k1_bwd),
         dict(name="mlstm_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
              includes=[MLSTM_TC, HOPPER_COMMON],

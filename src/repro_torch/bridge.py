@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import param_shapes
+from repro_torch.models.api import param_shapes
 from repro_torch.tree import flatten, unflatten
 
 
@@ -36,11 +36,14 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
                     device, dtype: Optional[torch.dtype] = None
                     ) -> Dict[str, Any]:
     """Map a numpy copy of the reference parameter tree to the port's
-    tree, path by path (:func:`repro_torch.models.lm.param_shapes`):
+    tree, path by path (:func:`repro_torch.models.api.param_shapes`):
     ``embed``, ``final_g`` (and ``lm_head``/``final_b`` where the config
     has them) and ``blocks/...`` with the leading layer axis — for the
     hybrid also every ``blocks/ssm_*`` and ``blocks/fuse_*`` leaf, for the
-    xLSTM the nested ``blocks/mlstm/...`` and ``blocks/slstm/...``.
+    xLSTM the nested ``blocks/mlstm/...`` and ``blocks/slstm/...``, for
+    the encoder-decoder also ``enc_final_*``, ``enc_blocks/...`` and the
+    decoder blocks' ``xattn_*`` and ``norm3_*`` (the VLM's tree is the
+    dense one).
     ``dtype`` casts every tensor (default: keep each array's dtype).
     Raises on a missing or unexpected key, or a shape that does not fit
     the config."""

@@ -39,11 +39,10 @@ sweep grids to reproduce the paper's Fig. 4 journey (Pareto frontiers,
 scaling knees, retry-aware expected cost).
 
 A copy of the reference package's ``core/planner.py`` over the same
-catalog, so it chooses the reference's plans for the same intents; the
-configs come from :func:`repro_torch.configs.plan_config`, which also
-sizes the archs the port does not build yet.  An intent that names the
-card (``chip_generation="h100"``, or a slice ``h100-1``/``h100-8``)
-registers the card's slices first (:func:`repro_torch.core.catalog.
+catalog, so it chooses the reference's plans for the same intents (the
+configs are :func:`repro_torch.configs.get_config`'s).  An intent that
+names the card (``chip_generation="h100"``, or a slice
+``h100-1``/``h100-8``) registers the card's slices first (:func:`repro_torch.core.catalog.
 register_card`); no other intent changes the catalog.
 """
 from __future__ import annotations
@@ -56,7 +55,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.configs import get_shape, plan_config
+from repro_torch.configs import get_config, get_shape
 from repro_torch.core import calibrate
 from repro_torch.core.catalog import (
     CATALOG,
@@ -168,7 +167,7 @@ def _scored_table(arch: str, shape_name: str) -> Tuple[CandidateTable, BatchEsti
         hit = None  # calibrated step_s columns are stale end to end
     if hit is not None and hit[0] == gen:
         return hit[2], hit[3]
-    cfg = plan_config(arch)
+    cfg = get_config(arch)
     table = candidate_table(shape.kind, shape.global_batch)
     if (hit is not None and len(table) > len(hit[2])
             and table.slices[:len(hit[2])] == hit[2].slices):
@@ -283,7 +282,7 @@ def _materialize(table: CandidateTable, batch: BatchEstimate,
 
 def _enumerate_scalar(intent: ResourceIntent) -> List[PlanChoice]:
     """The pre-vectorization loop, kept verbatim as the parity oracle."""
-    cfg = plan_config(intent.arch)
+    cfg = get_config(intent.arch)
     shape = get_shape(intent.shape)
     slices = CATALOG
     if intent.slice_name:

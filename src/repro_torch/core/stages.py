@@ -120,10 +120,16 @@ def _build_model(ctx: StageContext, stage: Stage, cfg):
 
 
 def _device_batch(raw: Dict[str, Any], device) -> Dict[str, Any]:
-    """Host batch (numpy) -> tensors on the model's device."""
+    """Host batch (numpy) -> tensors on the model's device, with the
+    reference's bf16 casts of the modality inputs (``frames``,
+    ``image_embeds``) shared by the train and eval stages."""
     import torch
 
-    return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+    for k in ("frames", "image_embeds"):
+        if k in batch:
+            batch[k] = batch[k].to(torch.bfloat16)
+    return batch
 
 
 def init_train_state_for(model, seed: int, opt_cfg, rt_plan):

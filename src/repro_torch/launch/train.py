@@ -23,6 +23,16 @@
         --arch phi3.5-moe-42b-a6.6b --full --layers 2 --seq 4096 \
         --batch 2 --steps 4 --remat none
 
+    # whisper-large-v3 (encoder-decoder: 1500 stub frames a sequence)
+    # and phi-3-vision (576 stub image embeddings a sequence) on one H100
+    # (final checkpoints of 18.4 and 45.9 GB: point --runs-dir at a disk
+    # with room; phi-3-vision's loss rises at lr 1e-4 and above in its
+    # first steps, so it trains at 1e-5 here)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper \
+        --full --seq 4096 --batch 2 --steps 4 --remat full
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-vision \
+        --full --seq 4096 --batch 1 --steps 4 --remat full --lr 1e-5
+
     # on the CPU (the plain versions of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi35-moe \
@@ -140,6 +150,9 @@ def main() -> None:
     def run_step(state, step):
         batch = {k: torch.from_numpy(v).to(model.device)
                  for k, v in stream.batch_at(step).items()}
+        for k in ("frames", "image_embeds"):  # the reference's bf16 casts
+            if k in batch:
+                batch[k] = batch[k].to(torch.bfloat16)
         state, metrics = step_fn(state, batch)
         metrics = {k: float(v) for k, v in metrics.items()}  # waits
         print(f"step {step} loss={metrics['loss']:.4f} "

@@ -1,8 +1,10 @@
 """Uniform model API: ``build_model(cfg, device) -> Model``.
 
-Counterpart of the reference package's ``models/api.py`` for the train
-loss (dense decoders, the hybrid and the xLSTM) and the serving entry
-points (dense decoders).  A :class:`Model` knows its config
+Counterpart of the reference package's ``models/api.py``: the train
+loss of every family, and the serving entry points of the dense
+decoders, the VLM and the encoder-decoder.  A :class:`Model` dispatches
+to ``models/encdec.py`` for the encoder-decoder and to ``models/lm.py``
+for the rest, as the reference does.  A :class:`Model` knows its config
 and its device; it holds no weights — parameters are passed to each
 call, as in the reference, so bridged weights and the port's own init go
 through the same calls.
@@ -13,12 +15,12 @@ raises instead of falling back.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm, sampling
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import encdec, lm, sampling
 
 Device = Union[str, torch.device, None]
 
@@ -33,6 +35,13 @@ def resolve_device(device: Device) -> torch.device:
     return dev
 
 
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """``path -> (shape, init)`` of every parameter of ``cfg``'s model."""
+    if cfg.is_encoder_decoder:
+        return encdec.param_shapes(cfg)
+    return lm.param_shapes(cfg)
+
+
 class Model:
     def __init__(self, cfg: ModelConfig, device: torch.device):
         lm.require_ported(cfg)
@@ -42,44 +51,67 @@ class Model:
     # ---- init ------------------------------------------------------------
     def init(self, seed: int = 0) -> lm.Params:
         """Fresh parameters in ``cfg.param_dtype`` on the model's device."""
-        return lm.init_lm(self.cfg, seed, self.device)
+        return lm.init_params(self.cfg, param_shapes(self.cfg), seed,
+                              self.device)
 
     # ---- train -----------------------------------------------------------
     def loss(self, params: lm.Params, batch, remat: str = "none"):
-        """``(loss, metrics)`` of a batch ``{"tokens": (B, S)}``: the
-        next-token cross-entropy of :func:`repro_torch.models.lm.loss_fn`,
-        differentiable with respect to ``params`` (float32 master
-        weights, cast to ``cfg.dtype`` at each use as in the reference)."""
+        """``(loss, metrics)`` of a batch ``{"tokens": (B, S)}`` (plus
+        ``frames`` for the encoder-decoder, ``image_embeds`` for the
+        VLM): the next-token cross-entropy of
+        :func:`repro_torch.models.lm.loss_fn` or
+        :func:`repro_torch.models.encdec.loss_fn`, differentiable with
+        respect to ``params`` (float32 master weights, cast to
+        ``cfg.dtype`` at each use as in the reference)."""
+        if self.cfg.is_encoder_decoder:
+            return encdec.loss_fn(params, self.cfg, batch, remat)
         return lm.loss_fn(params, self.cfg, batch, remat)
 
     def serving_params(self, params: lm.Params) -> lm.Params:
         """Weights for serving, made once: every matrix, bias and the
         embedding in ``cfg.dtype`` (numerically what the reference's
         per-use ``.astype(dtype)`` gives), norm gains kept in float32, and
-        the stacked blocks split into per-layer dicts.  Idempotent: params
-        already prepared come back as they are.  Dense decoders only: the
-        hybrid's and the xLSTM's serving are not ported."""
+        the stacked blocks (the encoder's too) split into per-layer dicts.
+        Idempotent: params already prepared come back as they are.  Not
+        for the MoE decoders, the hybrid and the xLSTM, whose serving is
+        not ported."""
         lm.require_ported(self.cfg, serving=True)
         dt = getattr(torch, self.cfg.dtype)
+        stacks = ("blocks", "enc_blocks")
 
         def cast(name, x):
-            keep = name.startswith(("norm", "final"))
+            keep = name.startswith(("norm", "final", "enc_final"))
             return x.to(self.device, torch.float32 if keep else dt)
 
-        out = {k: cast(k, v) for k, v in params.items() if k != "blocks"}
-        out["blocks"] = [{k: cast(k, v) for k, v in layer.items()}
-                         for layer in lm.layers(self.cfg, params["blocks"])]
+        out = {k: cast(k, v) for k, v in params.items() if k not in stacks}
+        for name in stacks:
+            if name in params:
+                out[name] = [{k: cast(k, v) for k, v in layer.items()}
+                             for layer in lm.layers(self.cfg, params[name])]
         return out
 
     # ---- serve -----------------------------------------------------------
     def prefill(self, params, tokens: torch.Tensor,
+                extra: Optional[Dict[str, torch.Tensor]] = None,
                 max_seq: Optional[int] = None,
                 lens: Optional[torch.Tensor] = None):
-        """Full forward emitting the dense cache; ``lens`` (B,) enables
-        ragged right-padded batches (see :func:`repro_torch.models.lm.prefill`)."""
-        return lm.prefill(params, self.cfg, tokens, max_seq, lens=lens)
+        """Full forward emitting the decode cache.  ``extra`` carries the
+        encoder-decoder's ``frames`` or the VLM's ``image_embeds``;
+        ``lens`` (B,) enables ragged right-padded batches (see
+        :func:`repro_torch.models.lm.prefill`), for the models of
+        :meth:`supports_padded_prefill` only."""
+        if self.cfg.is_encoder_decoder:
+            if lens is not None:
+                raise ValueError("padded prefill (lens) is not supported "
+                                 "for encoder-decoder models")
+            return encdec.prefill(params, self.cfg, tokens, extra or {},
+                                  max_seq)
+        return lm.prefill(params, self.cfg, tokens, extra, max_seq,
+                          lens=lens)
 
     def decode_step(self, params, cache, tokens: torch.Tensor):
+        if self.cfg.is_encoder_decoder:
+            return encdec.decode_step(params, self.cfg, cache, tokens)
         return lm.decode_step(params, self.cfg, cache, tokens)
 
     def decode_and_sample(self, params, cache, last_token: torch.Tensor, *,
@@ -96,8 +128,10 @@ class Model:
         return toks, new_cache
 
     def supports_padded_prefill(self) -> bool:
-        """Ragged (right-padded + lens) prefill is exact for pure attention
-        models, the only ones the port builds."""
+        """Whether ragged (right-padded + lens) prefill is exact: for
+        pure attention decoders only (recurrent state would carry the pad
+        steps, MoE capacity depends on the padded length, and the
+        encoder-decoder's prefill takes no lens)."""
         return (not self.cfg.is_encoder_decoder
                 and self.cfg.family not in ("ssm", "hybrid")
                 and self.cfg.num_experts == 0)
@@ -108,6 +142,9 @@ class Model:
         ``(logits (B, k+1, V), cache with pos + k + 1)``; the engine
         rewinds ``pos`` after acceptance (see
         :func:`repro_torch.models.lm.verify_step`)."""
+        if self.cfg.is_encoder_decoder:
+            raise ValueError("speculative verify is not supported for "
+                             "encoder-decoder models")
         return lm.verify_step(params, self.cfg, cache, tokens)
 
     def supports_speculative(self) -> bool:
@@ -119,11 +156,44 @@ class Model:
                 and self.cfg.family not in ("ssm", "hybrid"))
 
     def supports_paged_cache(self) -> bool:
+        """Whether the decode cache can be paged: dense ``{k, v, pos}``
+        attention caches only (not recurrent state, not the
+        encoder-decoder's cross cache)."""
         return (not self.cfg.is_encoder_decoder
                 and self.cfg.family not in ("ssm", "hybrid"))
 
-    def init_cache(self, batch: int, max_seq: int):
-        return lm.init_cache(self.cfg, batch, max_seq, self.device)
+    def init_cache(self, batch: int, max_seq: int, device=None):
+        """The dense decode cache on ``device`` (default: the model's)."""
+        device = self.device if device is None else torch.device(device)
+        if self.cfg.is_encoder_decoder:
+            return encdec.init_cache(self.cfg, batch, max_seq, device)
+        return lm.init_cache(self.cfg, batch, max_seq, device)
+
+    def cache_specs(self, batch: int, max_seq: int):
+        """The decode cache's tensors on the meta device: shapes and
+        dtypes, no allocation."""
+        return self.init_cache(batch, max_seq, device="meta")
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Stand-ins on the meta device for every model input of a shape
+        cell: ``tokens`` (and ``frames`` or ``image_embeds``) for train
+        and prefill, ``tokens`` and the cache for decode."""
+        cfg, B = self.cfg, shape.global_batch
+        dt = getattr(torch, cfg.dtype)
+
+        def meta(*size, dtype=dt):
+            return torch.empty(size, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            specs = {"tokens": meta(B, shape.seq_len, dtype=torch.int32)}
+            if cfg.is_encoder_decoder:
+                specs["frames"] = meta(B, cfg.encoder_frames, cfg.d_model)
+            if cfg.family == "vlm" and cfg.num_image_tokens:
+                specs["image_embeds"] = meta(B, cfg.num_image_tokens,
+                                             cfg.d_model)
+            return specs
+        return {"tokens": meta(B, 1, dtype=torch.int32),
+                "cache": self.cache_specs(B, shape.seq_len)}
 
     def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
                          max_pages: int):

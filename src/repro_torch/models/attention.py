@@ -62,9 +62,17 @@ def attend_train(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return out_proj(p, out, prefix)
 
 
+def cross_kv(p: Dict[str, torch.Tensor], enc: torch.Tensor,
+             prefix: str = "xattn"):
+    """Cross-attention K/V of the encoder states ``(B, T, D)``: each
+    ``(B, T, KH, Dh)``, no bias (as the reference)."""
+    return _proj(enc, p[f"{prefix}_wk"]), _proj(enc, p[f"{prefix}_wv"])
+
+
 def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
                   cache_k: torch.Tensor, cache_v: torch.Tensor,
-                  pos: torch.Tensor, cfg: ModelConfig,
+                  pos: torch.Tensor, cfg: ModelConfig, *,
+                  use_rope: bool = True,
                   prefix: str = "attn") -> torch.Tensor:
     """One-token attention against a dense cache ``(B, S_max, KH, Dh)``.
 
@@ -75,12 +83,14 @@ def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
     other slots decode and can pass the cache's end, where the
     reference's scatter drops the write; here it is clamped into the
     slot's own last row, which only a parked slot can reach and the next
-    admission rewrites."""
+    admission rewrites.  ``use_rope=False`` (the encoder-decoder, whose
+    positions are sinusoidal) skips the rotation."""
     B = x.shape[0]
     q, k, v = qkv(p, x, cfg, prefix)  # (B, 1, *, Dh)
-    cos, sin = rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if use_rope:
+        cos, sin = rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     bidx = torch.arange(B, device=x.device)
     idx = pos.long().clamp(max=cache_k.shape[1] - 1)
     cache_k[bidx, idx] = k[:, 0].to(cache_k.dtype)

@@ -1,10 +1,15 @@
-"""Decoder-only language model: the dense, MoE, hybrid and xLSTM branches.
+"""Decoder-only language model: the dense, VLM, MoE, hybrid and xLSTM
+branches.
 
 Counterpart of the reference package's ``models/lm.py`` for
 ``family="dense"`` — init, embedding and tied/untied head, the gated MLP,
 the train forward and the next-token loss, the dense and paged decode
 caches, ragged prefill, and the decode and speculative verify steps on
-both caches — and the train paths of ``family="moe"`` (each block's MLP
+both caches — and ``family="vlm"`` (phi-3-vision: the dense branch whose
+embedding takes ``extra["image_embeds"]`` over the first
+``num_image_tokens`` positions, and whose loss leaves out the positions
+that predict an image position), and the train paths of
+``family="moe"`` (each block's MLP
 replaced by the routed experts of ``models/moe.py``, whose aux loss the
 blocks carry into the loss), ``family="hybrid"`` (hymba: each block's
 attention, global or sliding-window by layer, and its SSM heads side by
@@ -12,8 +17,9 @@ side, fused) and ``family="ssm"`` (the xLSTM: the grouped block layout).
 The reference's ``scan`` over stacked layers is a Python loop here, so
 the hybrid's per-layer global/window flag is a static ``if``, not a
 ``cond``.  The serving paths (prefill, caches, decode) of the MoE
-decoders, the hybrid and the xLSTM, and the other families, raise
-``NotImplementedError`` naming the ROADMAP entry that brings them.
+decoders, the hybrid and the xLSTM raise ``NotImplementedError`` naming
+the ROADMAP entry that brings them.  The encoder-decoder is
+``models/encdec.py``.
 
 The train path (``forward_train``/``loss_fn``) has no counterpart of the
 reference's ``hints.*`` calls: those pin activations and logits to a
@@ -70,19 +76,20 @@ _SERVING_LATER = {
 
 
 def require_ported(cfg: ModelConfig, *, serving: bool = False) -> None:
-    """Raise ``NotImplementedError`` for what the port does not build:
-    families other than the dense decoder, the MoE decoder, the hybrid
-    and the xLSTM, and, with ``serving``, the MoE decoder's, the hybrid's
-    and the xLSTM's serving paths (their train paths are ported)."""
-    built = (not cfg.is_encoder_decoder
-             and (cfg.num_experts > 0) == (cfg.family == "moe")
-             and cfg.family in ("dense", "moe", "hybrid", "ssm"))
+    """Raise for what the port does not build: ``ValueError`` for a
+    config no family of the reference builds either, and, with
+    ``serving``, ``NotImplementedError`` for the MoE decoder's, the
+    hybrid's and the xLSTM's serving paths (their train paths are
+    ported)."""
+    built = cfg.is_encoder_decoder or (
+        (cfg.num_experts > 0) == (cfg.family == "moe")
+        and cfg.family in ("dense", "vlm", "moe", "hybrid", "ssm"))
     if not built:
-        raise NotImplementedError(
-            f"family {cfg.family!r} of {cfg.name!r} is not ported to "
-            f"PyTorch yet: only the dense decoder, the MoE decoder, the "
-            f"hybrid and the xLSTM are (ROADMAP queue 1 lists the VLM and "
-            f"the encoder-decoder family)")
+        raise ValueError(
+            f"family {cfg.family!r} of {cfg.name!r} (experts "
+            f"{cfg.num_experts}) is no model family: the port builds the "
+            f"dense decoder, the VLM, the MoE decoder, the hybrid, the "
+            f"xLSTM and the encoder-decoder")
     if serving and cfg.family in _SERVING_LATER:
         item, what = _SERVING_LATER[cfg.family]
         raise NotImplementedError(
@@ -120,19 +127,8 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
             blocks = {f"mlstm/{k}": v for k, v in
                       rec.mlstm_shapes(cfg, L).items()}
     else:
-        blocks = {
-            "norm1_g": ((L, D), "ones"), "norm2_g": ((L, D), "ones"),
-            "attn_wq": ((L, D, H, Dh), "normal"),
-            "attn_wk": ((L, D, KH, Dh), "normal"),
-            "attn_wv": ((L, D, KH, Dh), "normal"),
-            "attn_wo": ((L, H, Dh, D), "normal"),
-        }
-        if cfg.norm == "layernorm":
-            blocks.update(norm1_b=((L, D), "zeros"), norm2_b=((L, D), "zeros"))
-        if cfg.qkv_bias:
-            blocks.update(attn_bq=((L, H, Dh), "zeros"),
-                          attn_bk=((L, KH, Dh), "zeros"),
-                          attn_bv=((L, KH, Dh), "zeros"))
+        blocks = {**norm_shapes(cfg, L, ("norm1", "norm2")),
+                  **attention_shapes(cfg, L)}
         if cfg.family == "hybrid":
             blocks.update(rec.ssm_shapes(cfg, L))
             blocks.update(fuse_attn=((L, D), "ones"),
@@ -140,23 +136,54 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
         if cfg.num_experts > 0:
             blocks.update(moe.moe_shapes(cfg, L))
         elif F > 0:
-            if cfg.act == "silu":
-                blocks["mlp_wg"] = ((L, D, F), "normal")
-            blocks.update(mlp_wu=((L, D, F), "normal"),
-                          mlp_wd=((L, F, D), "normal"))
+            blocks.update(mlp_shapes(cfg, L))
     out.update({f"blocks/{k}": v for k, v in blocks.items()})
     return out
 
 
-def init_lm(cfg: ModelConfig, seed: int, device: torch.device) -> Params:
-    """Parameters with the reference's names and shapes, drawn as
-    :func:`repro_torch.models.common.init_param` says, in
-    ``cfg.param_dtype``."""
+def norm_shapes(cfg: ModelConfig, L: int, names) -> Dict[str, Tuple]:
+    """Stacked gains (and, for layer norm, biases) of the norms ``names``."""
+    out = {}
+    for n in names:
+        out[f"{n}_g"] = ((L, cfg.d_model), "ones")
+        if cfg.norm == "layernorm":
+            out[f"{n}_b"] = ((L, cfg.d_model), "zeros")
+    return out
+
+
+def attention_shapes(cfg: ModelConfig, L: int,
+                     prefix: str = "attn") -> Dict[str, Tuple]:
+    """Stacked projections (and QKV biases) of ``L`` attention layers."""
+    D, H, KH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {f"{prefix}_wq": ((L, D, H, Dh), "normal"),
+           f"{prefix}_wk": ((L, D, KH, Dh), "normal"),
+           f"{prefix}_wv": ((L, D, KH, Dh), "normal"),
+           f"{prefix}_wo": ((L, H, Dh, D), "normal")}
+    if cfg.qkv_bias:
+        out.update({f"{prefix}_bq": ((L, H, Dh), "zeros"),
+                    f"{prefix}_bk": ((L, KH, Dh), "zeros"),
+                    f"{prefix}_bv": ((L, KH, Dh), "zeros")})
+    return out
+
+
+def mlp_shapes(cfg: ModelConfig, L: int) -> Dict[str, Tuple]:
+    """Stacked weights of ``L`` MLPs (gated for SiLU)."""
+    D, F = cfg.d_model, cfg.d_ff
+    out = {"mlp_wg": ((L, D, F), "normal")} if cfg.act == "silu" else {}
+    out.update(mlp_wu=((L, D, F), "normal"), mlp_wd=((L, F, D), "normal"))
+    return out
+
+
+def init_params(cfg: ModelConfig, shapes, seed: int,
+                device: torch.device) -> Params:
+    """Parameters of ``shapes`` (``path -> (shape, init)``) with the
+    reference's names, drawn as :func:`repro_torch.models.common.init_param`
+    says, in ``cfg.param_dtype``."""
     dtype = getattr(torch, cfg.param_dtype)
     return unflatten(
         (path, init_param(path, shape, seed=seed, device=device, dtype=dtype,
                           init=init))
-        for path, (shape, init) in param_shapes(cfg).items())
+        for path, (shape, init) in shapes.items())
 
 
 def _unstack(blocks: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
@@ -177,11 +204,22 @@ def layers(cfg: ModelConfig, blocks) -> List[Dict[str, torch.Tensor]]:
 # ===========================================================================
 # Shared pieces
 # ===========================================================================
-def embed_tokens(params: Params, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 extra: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """Token embeddings in ``cfg.dtype``; for the VLM, ``image_embeds``
+    ``(B, n_img, D)`` in place of the first ``n_img`` positions when the
+    sequence holds them (the reference's ``dynamic_update_slice``: the
+    overlaid positions take no gradient into ``embed``)."""
+    dt = getattr(torch, cfg.dtype)
     # index_select: its gradient has a deterministic CUDA implementation
     x = params["embed"].index_select(0, tokens.reshape(-1).long())
-    return x.view(*tokens.shape, -1).to(getattr(torch, cfg.dtype))
+    x = x.view(*tokens.shape, -1).to(dt)
+    if cfg.family == "vlm" and extra and "image_embeds" in extra:
+        img = extra["image_embeds"]
+        if tokens.shape[1] >= img.shape[1]:
+            x = torch.cat([img.to(dt), x[:, img.shape[1]:]], dim=1)
+    return x
 
 
 def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -295,10 +333,12 @@ def _xlstm_forward(cfg: ModelConfig, blocks: Params, x: torch.Tensor,
 
 
 def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  extra: Optional[Dict[str, torch.Tensor]] = None,
                   remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens ``(B, S)`` -> ``(logits (B, S, V) in cfg.dtype, aux loss)``."""
+    """tokens ``(B, S)`` (and, for the VLM, ``extra["image_embeds"]``) ->
+    ``(logits (B, S, V) in cfg.dtype, aux loss)``."""
     require_ported(cfg)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, extra)
     if cfg.family == "ssm":
         x = _xlstm_forward(cfg, params["blocks"], x, remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -307,22 +347,34 @@ def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return lm_logits(params, cfg, x), aux
 
 
+def token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``(B, S-1)`` float32 negative log-likelihood of each next token:
+    position ``t``'s logits against token ``t + 1``."""
+    logits = logits[:, :-1].float()
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - torch.gather(logits, -1, targets[..., None])[..., 0]
+
+
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             remat: str = "none"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in float32 over ``batch["tokens"]`` plus the
     aux loss; returns ``(loss, {"loss", "ce", "aux", "tokens"})`` as the
-    reference's ``loss_fn`` does (every position counts: the dense, MoE,
-    hybrid and xLSTM families have no image-token mask)."""
+    reference's ``loss_fn`` does.  Every position counts, except for the
+    VLM, whose loss leaves out the predictions at positions
+    ``< num_image_tokens - 1`` (those of an image position)."""
     tokens = batch["tokens"]
-    logits, aux = forward_train(params, cfg, tokens, remat)
-    logits = logits[:, :-1].float()
-    targets = tokens[:, 1:].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    nll = logz - gold  # (B, S-1)
-    denom = torch.tensor(float(max(nll.numel(), 1)), device=nll.device)
-    ce = nll.sum() / denom
+    logits, aux = forward_train(params, cfg, tokens, batch, remat)
+    nll = token_nll(logits, tokens)
+    if cfg.family == "vlm" and cfg.num_image_tokens:
+        pos = torch.arange(nll.shape[1], device=nll.device)[None]
+        mask = (pos >= cfg.num_image_tokens - 1).to(nll.dtype).expand_as(nll)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = (nll * mask).sum() / denom
+    else:
+        denom = torch.tensor(float(max(nll.numel(), 1)), device=nll.device)
+        ce = nll.sum() / denom
     total = ce + aux
     return total, {"loss": total, "ce": ce, "aux": aux, "tokens": denom}
 
@@ -367,6 +419,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
 # Prefill / decode
 # ===========================================================================
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            extra: Optional[Dict[str, torch.Tensor]] = None,
             max_seq: Optional[int] = None,
             lens: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
     """Full forward emitting the dense cache.  Returns (last-token logits
@@ -375,11 +428,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``lens`` (B,) marks ragged rows of a right-padded batch: logits come
     from position ``lens[b] - 1`` and the cache position is ``lens[b]``,
     so decode's ``kv_len`` masking hides the pad positions' K/V.
-    Causality makes every real position independent of the padding."""
+    Causality makes every real position independent of the padding.
+    ``extra`` carries the VLM's ``image_embeds``."""
     require_ported(cfg, serving=True)
     B, S = tokens.shape
     max_seq = max_seq or S
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, extra)
     cos, sin = rope_angles(torch.arange(S, device=tokens.device),
                            cfg.head_dim, cfg.rope_theta)
     per_layer = layers(cfg, params["blocks"])

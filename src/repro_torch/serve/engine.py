@@ -7,9 +7,11 @@ Counterpart of the reference package's ``serve/engine.py`` for
   * the engine owns a fixed decode batch of ``max_batch`` slots and
     decodes the whole batch per step;
   * queued requests are admitted in groups: every request whose prompt
-    shares the head-of-queue's power-of-two length bucket is prefilled in
-    one call (right-padded, exact per-row ``lens``), then scattered into
-    the batch cache;
+    shares the head-of-queue's power-of-two length bucket (and the shapes
+    of its extra inputs) is prefilled in one call (right-padded, exact
+    per-row ``lens``), then scattered into the batch cache leaf by leaf;
+    a model whose prefill takes no padding (the encoder-decoder) groups
+    requests of exactly equal prompt length instead;
   * sampling follows the decode step on the device, so each step moves
     one ``(B,)`` token array to the host — never the ``(B, V)`` logits;
   * ``decode_chunk > 1`` decodes that many tokens per host transfer in a
@@ -17,8 +19,9 @@ Counterpart of the reference package's ``serve/engine.py`` for
   * ``engine="paged"`` keeps K/V in a global page pool: pages are
     reserved at admission for the request's whole budget, full prompt
     pages are shared across requests by a chain hash of the prefix they
-    cover, and pool page 0 is the null page where retired slots' writes
-    land;
+    cover (and of the request's extra inputs, so two images never share
+    a page), and pool page 0 is the null page where retired slots'
+    writes land;
   * ``spec_k > 0`` decodes speculatively on either engine: each round
     drafts ``spec_k`` tokens per slot (n-gram prompt lookup, or a draft
     model with the same vocabulary and its own dense cache), verifies
@@ -60,6 +63,9 @@ class Request:
     prompt: np.ndarray  # (S,) int32
     max_new_tokens: int = 32
     temperature: float = 0.0
+    # per-request model inputs besides the prompt, one row each (the
+    # encoder-decoder's "frames" (T, D), the VLM's "image_embeds" (n, D))
+    extra: Optional[Dict[str, np.ndarray]] = None
 
 
 @dataclasses.dataclass
@@ -156,11 +162,49 @@ class PagePool:
             self._free.append(pid)
 
 
-def _chain_hash(prompt: np.ndarray, end: int) -> bytes:
-    """Digest of ``prompt[:end]`` — the sharing key for the page whose
-    last covered position is ``end - 1``."""
-    return hashlib.sha1(np.ascontiguousarray(
+def _chain_hash(prompt: np.ndarray, end: int, salt: bytes = b"") -> bytes:
+    """Digest of ``salt`` and ``prompt[:end]`` — the sharing key for the
+    page whose last covered position is ``end - 1``.  ``salt`` is
+    :func:`_extra_digest` of the request's extra inputs (empty without
+    them, which gives the reference's key)."""
+    return hashlib.sha1(salt + np.ascontiguousarray(
         prompt[:end], dtype=np.int32).tobytes()).digest()
+
+
+def _extra_digest(extra: Optional[Dict[str, np.ndarray]]) -> bytes:
+    """Digest of a request's extra inputs (names, shapes, dtypes and
+    bytes), or ``b""`` without them.  A page's K/V depends on the image
+    embeddings overlaid on the prompt as much as on its tokens, so the
+    chain hash takes them in: the reference keys by tokens alone and
+    shares one request's image pages with another that has the same
+    tokens and a different image."""
+    if not extra:
+        return b""
+    h = hashlib.sha1()
+    for k in sorted(extra):
+        v = np.ascontiguousarray(extra[k])
+        h.update(f"{k}{v.shape}{v.dtype.str}".encode())
+        h.update(v.tobytes())
+    return h.digest()
+
+
+def _cache_batch_axes(model: Model, max_seq: int) -> Dict[str, int]:
+    """Each decode-cache leaf's batch axis, found by comparing the cache's
+    shapes at batch 1 and 2 on the meta device (no allocation)."""
+    a, b = model.cache_specs(1, max_seq), model.cache_specs(2, max_seq)
+    return {k: next(i for i, (p, q) in enumerate(zip(a[k].shape, b[k].shape))
+                    if p != q)
+            for k in a}
+
+
+def _insert_rows(cache: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor],
+                 idx: torch.Tensor, axes: Dict[str, int]) -> None:
+    """Copy the first ``len(idx)`` rows of a prefilled group cache into
+    the batch cache's slots ``idx``, in place, leaf by leaf along each
+    leaf's batch axis."""
+    n = len(idx)
+    for name, ax in axes.items():
+        cache[name].index_copy_(ax, idx, rows[name].narrow(ax, 0, n))
 
 
 class ServeEngine:
@@ -182,6 +226,11 @@ class ServeEngine:
         if spec_k == 0 and draft is not None:
             raise ValueError("a draft model requires spec_k >= 1")
         if spec_k > 0:
+            if model.cfg.family == "vlm":
+                raise NotImplementedError(
+                    f"speculative serving of {model.cfg.name!r} (family "
+                    f"'vlm') is not ported to PyTorch yet: ROADMAP queue 1, "
+                    f"VLM speculation")
             if not model.supports_speculative():
                 raise ValueError(
                     f"speculative decoding unsupported for family "
@@ -245,6 +294,7 @@ class ServeEngine:
             self._slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
         else:
             self.cache = model.init_cache(max_batch, max_seq)
+            self._axes = _cache_batch_axes(model, max_seq)
         self.active = np.zeros(max_batch, dtype=bool)
         self.req: List[Optional[Request]] = [None] * max_batch
         self.emitted: List[List[int]] = [[] for _ in range(max_batch)]
@@ -281,6 +331,7 @@ class ServeEngine:
                 # target's reachable positions, admitted with the target
                 self.draft_params = draft.serving_params(draft_params)
                 self._draft_cache = draft.init_cache(max_batch, cap)
+                self._draft_axes = _cache_batch_axes(draft, cap)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -331,16 +382,32 @@ class ServeEngine:
     # ------------------------------------------------------------------
     # admission
     # ------------------------------------------------------------------
-    def _group_key(self, req: Request) -> int:
-        """Admission-group key, the padded prompt length: requests sharing
-        it prefill in one call, right-padded with exact per-row ``lens``
-        (causality keeps every real position exact).  Paged groups bucket
-        to at least one page so every prompt page of the mini-cache is
-        whole."""
-        seq = _pow2_bucket(max(len(req.prompt), _MIN_SEQ_BUCKET), self.max_seq)
-        if self.engine == "paged":
-            seq = max(seq, self.page_size)
-        return seq
+    @staticmethod
+    def _extra_sig(extra: Optional[Dict[str, np.ndarray]]):
+        """The names, shapes and dtypes of a request's extra inputs: rows
+        of one admission group stack into one batch."""
+        if not extra:
+            return None
+        return tuple(sorted(
+            (k, tuple(np.asarray(v).shape), np.asarray(v).dtype.str)
+            for k, v in extra.items()))
+
+    def _group_key(self, req: Request) -> Tuple:
+        """Admission-group key: requests sharing it prefill in one call.
+        ``("pad", bucket, sig)`` for models whose prefill takes padding:
+        the padded prompt length, right-padded with exact per-row
+        ``lens`` (causality keeps every real position exact); paged
+        groups bucket to at least one page so every prompt page of the
+        mini-cache is whole.  ``("exact", plen, sig)`` for the others
+        (the encoder-decoder): equal prompt lengths, no padding."""
+        plen = len(req.prompt)
+        sig = self._extra_sig(req.extra)
+        if self.model.supports_padded_prefill():
+            seq = _pow2_bucket(max(plen, _MIN_SEQ_BUCKET), self.max_seq)
+            if self.engine == "paged":
+                seq = max(seq, self.page_size)
+            return ("pad", seq, sig)
+        return ("exact", plen, sig)
 
     def _select(self, n_slots: int) -> List[Request]:
         """Prompt-length-aware two-pass selection: pass 0 pulls every
@@ -364,8 +431,11 @@ class ServeEngine:
 
     def _group_inputs(self, seq_len: int, members):
         """Host arrays of one admission group, rows padded to a power of
-        two: tokens (right-padded), lens, temperatures, slots."""
-        n_pad = _pow2_bucket(len(members), self.max_batch)
+        two: tokens (right-padded), lens, temperatures, slots, and each
+        extra input's rows stacked on the device (pad rows repeat row 0),
+        or None."""
+        n = len(members)
+        n_pad = _pow2_bucket(n, self.max_batch)
         tokens = np.zeros((n_pad, seq_len), np.int32)
         lens = np.ones(n_pad, np.int32)
         temps = np.zeros(n_pad, np.float32)
@@ -376,14 +446,24 @@ class ServeEngine:
             lens[i] = plen
             temps[i] = req.temperature
             slots[i] = slot
-        return tokens, lens, temps, slots
+        extra = None
+        first = members[0][1]
+        if first.extra:
+            extra = {}
+            for k in sorted(first.extra):
+                rows = [np.asarray(req.extra[k]) for _, req, *_ in members]
+                rows += [rows[0]] * (n_pad - n)
+                extra[k] = self._tensor(np.stack(rows))
+        return tokens, lens, temps, slots, extra
 
-    def _prefill_sample(self, tokens, lens, temps, slots, max_seq: int):
-        """Prefill one group and sample each row's first token on the
-        device: row ``i``'s stream is keyed by ``(slot, lens - 1)``."""
+    def _prefill_sample(self, kind: str, tokens, lens, temps, slots, extra,
+                        max_seq: int):
+        """Prefill one group (with ``lens`` for a padded group) and sample
+        each row's first token on the device: row ``i``'s stream is keyed
+        by ``(slot, lens - 1)``."""
         logits, cache1 = self.model.prefill(
-            self.params, self._tensor(tokens), max_seq=max_seq,
-            lens=self._tensor(lens))
+            self.params, self._tensor(tokens), extra, max_seq=max_seq,
+            lens=self._tensor(lens) if kind == "pad" else None)
         first = sampling.sample_tokens(
             logits, temps, seed=self.seed, slots=slots, pos=lens - 1,
             greedy_only=not bool((temps > 0).any()))
@@ -399,44 +479,42 @@ class ServeEngine:
         if free.size == 0:
             return
         selected = self._select(int(free.size))
-        groups: Dict[int, List[Tuple[int, Request]]] = {}
+        groups: Dict[Tuple, List[Tuple[int, Request]]] = {}
         for i, req in enumerate(selected):
             groups.setdefault(self._group_key(req), []).append(
                 (int(free[i]), req))
-        for seq_len, members in groups.items():
-            self._admit_group(seq_len, members)
+        for (kind, seq_len, _), members in groups.items():
+            self._admit_group(kind, seq_len, members)
 
-    def _admit_group(self, seq_len: int,
+    def _admit_group(self, kind: str, seq_len: int,
                      members: List[Tuple[int, Request]]) -> None:
         n = len(members)
-        tokens, lens, temps, slots = self._group_inputs(seq_len, members)
-        first, cache1 = self._prefill_sample(tokens, lens, temps, slots,
-                                             self.max_seq)
-        # scatter the group's first n rows into their slots: batch axis 1
-        # of the (L, B, S, KH, Dh) K/V, axis 0 of pos
+        tokens, lens, temps, slots, extra = self._group_inputs(seq_len,
+                                                               members)
+        first, cache1 = self._prefill_sample(kind, tokens, lens, temps, slots,
+                                             extra, self.max_seq)
+        # scatter the group's first n rows into their slots, each leaf
+        # along its batch axis (1 of the (L, B, ...) K/V and cross K/V,
+        # 0 of pos)
         idx = self._tensor(slots[:n]).long()
-        self.cache["k"][:, idx] = cache1["k"][:, :n]
-        self.cache["v"][:, idx] = cache1["v"][:, :n]
-        self.cache["pos"][idx] = cache1["pos"][:n]
-        self._admit_draft(tokens, lens, slots, n)
+        _insert_rows(self.cache, cache1, idx, self._axes)
+        self._admit_draft(kind, tokens, lens, slots, n)
         first = first.cpu().numpy()
         for i, (slot, req) in enumerate(members):
             self._place(slot, req, int(first[i]))
 
-    def _admit_draft(self, tokens, lens, slots, n: int) -> None:
+    def _admit_draft(self, kind: str, tokens, lens, slots, n: int) -> None:
         """Prefill the draft model's cache for a freshly admitted group
-        (same rows, same slots).  The target's prefill decides the first
-        token, so the draft's logits are dropped; its cache position
-        lands at ``lens``, in lockstep with the target."""
+        (same rows, same slots, no extra inputs).  The target's prefill
+        decides the first token, so the draft's logits are dropped; its
+        cache position lands at ``lens``, in lockstep with the target."""
         if self.draft is None:
             return
-        _, dc = self.draft.prefill(self.draft_params, self._tensor(tokens),
-                                   max_seq=self._hist_cap,
-                                   lens=self._tensor(lens))
-        idx = self._tensor(slots[:n]).long()
-        for name in ("k", "v"):
-            self._draft_cache[name][:, idx] = dc[name][:, :n]
-        self._draft_cache["pos"][idx] = dc["pos"][:n]
+        _, dc = self.draft.prefill(
+            self.draft_params, self._tensor(tokens), max_seq=self._hist_cap,
+            lens=self._tensor(lens) if kind == "pad" else None)
+        _insert_rows(self._draft_cache, dc, self._tensor(slots[:n]).long(),
+                     self._draft_axes)
 
     # ---- paged admission ---------------------------------------------
     def _plan_pages(self, req: Request):
@@ -454,13 +532,14 @@ class ServeEngine:
         n_prompt = -(-plen // self.page_size)
         n_full = plen // self.page_size  # only fully covered pages share
         prompt = np.asarray(req.prompt, np.int32)
+        salt = _extra_digest(req.extra)
         pages: List[int] = []
         copies: List[int] = []
         for k in range(n_total):
             h = None
             pid = None
             if k < n_full:
-                h = _chain_hash(prompt, (k + 1) * self.page_size)
+                h = _chain_hash(prompt, (k + 1) * self.page_size, salt)
                 pid = self.pool.lookup(h)
             if pid is None:
                 pid = self.pool.alloc(h)
@@ -490,20 +569,21 @@ class ServeEngine:
                 self.queue.extendleft(reversed(selected[i:]))
                 break
             admitted.append((int(free[len(admitted)]), req, *plan))
-        groups: Dict[int, list] = {}
+        groups: Dict[Tuple, list] = {}
         for entry in admitted:
             groups.setdefault(self._group_key(entry[1]), []).append(entry)
-        for seq_len, members in groups.items():
-            self._admit_group_paged(seq_len, members)
+        for (kind, seq_len, _), members in groups.items():
+            self._admit_group_paged(kind, seq_len, members)
 
-    def _admit_group_paged(self, seq_len: int, members) -> None:
+    def _admit_group_paged(self, kind: str, seq_len: int, members) -> None:
         """Prefill a group densely into a throwaway mini-cache padded to a
         page multiple, then copy its prompt pages into the pool: one
         indexed gather of every copied page (all layers at once) and one
         scatter into the pool.  Shared prefix pages already hold their
         data and are not copied."""
         n = len(members)
-        tokens, lens, temps, slots = self._group_inputs(seq_len, members)
+        tokens, lens, temps, slots, extra = self._group_inputs(seq_len,
+                                                               members)
         src_row: List[int] = []
         src_page: List[int] = []
         dst_page: List[int] = []
@@ -519,8 +599,8 @@ class ServeEngine:
         self._ptable_dirty = True
         page = self.page_size
         s_cache = -(-seq_len // page) * page
-        first, cache1 = self._prefill_sample(tokens, lens, temps, slots,
-                                             s_cache)
+        first, cache1 = self._prefill_sample(kind, tokens, lens, temps, slots,
+                                             extra, s_cache)
         if dst_page:
             r = self._tensor(np.asarray(src_row)).long()
             lp = self._tensor(np.asarray(src_page)).long()
@@ -532,7 +612,7 @@ class ServeEngine:
                 self.cache[pool][:, :, dp] = blocks.permute(0, 3, 1, 2, 4)
         idx = self._tensor(slots[:n]).long()
         self.cache["pos"][idx] = self._tensor(lens[:n])
-        self._admit_draft(tokens, lens, slots, n)
+        self._admit_draft(kind, tokens, lens, slots, n)
         first = first.cpu().numpy()
         for i, (slot, req, _, _) in enumerate(members):
             self._place(slot, req, int(first[i]))

@@ -81,6 +81,25 @@ def adamw_init(params: Tree, cfg: OptimizerConfig) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+# the update walks a leaf in blocks of rows of at most this many elements,
+# so its float32 temporaries stay small beside the state (a 3.2 GB leaf,
+# phi-3-vision's stacked MLP weight, would otherwise take about six 3.2 GB
+# temporaries at once); the update is elementwise, so the result is the
+# same bit for bit
+_BLOCK_ELEMS = 1 << 26
+
+
+def _row_blocks(*xs: torch.Tensor):
+    """Views of ``xs`` (tensors of one shape) over the same blocks of
+    rows of their leading axis, each of at most ``_BLOCK_ELEMS``
+    elements (one block per leaf for small leaves and scalars)."""
+    x = xs[0]
+    if x.dim() == 0 or x.numel() <= _BLOCK_ELEMS:
+        return [xs]
+    rows = max(1, _BLOCK_ELEMS // (x.numel() // x.shape[0]))
+    return list(zip(*(t.split(rows) for t in xs)))
+
+
 @torch.no_grad()
 def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree,
                  cfg: OptimizerConfig
@@ -100,14 +119,16 @@ def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree,
     mdt = getattr(torch, cfg.moment_dtype)
     for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
                           leaves(state["v"]), leaves(params)):
-        g32 = (g.float() * scale).to(g.dtype).float()  # the clipped gradient
-        m32 = m.float() * b1 + g32 * (1 - b1)
-        v32 = v.float() * b2 + torch.square(g32) * (1 - b2)
-        step_ = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-        if cfg.weight_decay and p.dim() > 1:
-            step_ = step_ + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * step_)
-        m.copy_(m32.to(mdt))
-        v.copy_(v32.to(mdt))
+        decay = cfg.weight_decay and p.dim() > 1
+        for g, m, v, p in _row_blocks(g, m, v, p):
+            g32 = (g.float() * scale).to(g.dtype).float()  # clipped gradient
+            m32 = m.float() * b1 + g32 * (1 - b1)
+            v32 = v.float() * b2 + torch.square(g32) * (1 - b2)
+            step_ = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+            if decay:
+                step_ = step_ + cfg.weight_decay * p.float()
+            p.copy_(p.float() - lr * step_)
+            m.copy_(m32.to(mdt))
+            v.copy_(v32.to(mdt))
     state["count"].copy_(count)
     return params, state, {"lr": lr, "grad_norm": gnorm}

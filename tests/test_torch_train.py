@@ -139,6 +139,34 @@ def test_adamw_update_matches_reference(moment_dtype):
                                        err_msg=f"{part}/{key}")
 
 
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_adamw_row_blocks_do_not_change_the_update(moment_dtype):
+    """The update walks a leaf in blocks of rows (``_BLOCK_ELEMS``, so its
+    temporaries stay small beside a large leaf): blocks of 8 elements give
+    the one-block update bit for bit."""
+    cfg = OptimizerConfig(lr=1e-2, clip_norm=1.0, weight_decay=0.1,
+                          warmup_steps=2, total_steps=20,
+                          moment_dtype=moment_dtype)
+    params, grads, m, v = _opt_trees(np.random.default_rng(0), moment_dtype)
+    tdt = getattr(torch, moment_dtype)
+
+    def run():
+        def tt(tree, dt=torch.float32):
+            return tree_map(lambda x: torch.from_numpy(x.copy()).to(dt), tree)
+        p = tt(params)
+        state = {"m": tt(m, tdt), "v": tt(v, tdt),
+                 "count": torch.tensor(3, dtype=torch.int32)}
+        adamw_update(tt(grads), state, p, cfg)
+        return flatten({"p": p, "m": state["m"], "v": state["v"]})
+
+    whole = run()
+    with mock.patch.object(topt, "_BLOCK_ELEMS", 8):
+        assert len(topt._row_blocks(torch.zeros(6, 5))) == 6
+        blocked = run()
+    for (key, a), (_, b) in zip(whole, blocked):
+        assert torch.equal(a, b), key
+
+
 def test_clip_and_norm_match_reference():
     _, grads, _, _ = _opt_trees(np.random.default_rng(1), "float32")
     jc, jn = jopt.clip_by_global_norm(jax.tree.map(jnp.asarray, grads), 2.0)

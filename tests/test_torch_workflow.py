@@ -147,6 +147,19 @@ def test_plan_stages_match_reference(name):
     assert (rt.remat, rt.microbatch) == (jrt.remat, jrt.microbatch)
 
 
+@pytest.mark.parametrize("name", TEMPLATES)
+def test_every_template_runs_at_reduced_scale(name, tmp_path):
+    """Each of the registry's templates (the serve template and the ten
+    train templates, the encoder-decoder's and the VLM's among them)
+    runs through the port's ``run_workflow`` on the CPU at its reduced
+    scale, with every check passing."""
+    res = workflow.run_workflow(workflow.REGISTRY.get(name),
+                                ProvenanceStore(str(tmp_path)),
+                                steps_override=STEPS, device="cpu")
+    assert res.ok and res.checks, res.checks
+    assert all(v[0] for v in res.checks.values()), res.checks
+
+
 @pytest.mark.parametrize("goal", ["production", "exploration", "quick_test"])
 def test_plan_goals_match_reference(goal):
     intent = ResourceIntent(arch="qwen2-1.5b", shape="train_4k", goal=goal)
