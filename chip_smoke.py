@@ -149,13 +149,13 @@ them, and on any mismatch.  Phases, one or more lines each:
      plan on the one-card slice;
  30. the train workflow at full width planned for the card:
      ``train-qwen2-1.5b`` with ``scale="full"`` (28 layers, d_model 1536,
-     seq 4096) at global batch 2 and 4 through ``run_workflow`` with an
-     intent naming the card (the plan's own remat and microbatch; counters
-     reset just before each run, read just after: K1 and K1-bwd all on
-     the tensor cores), the checks passing, the plan doc naming the
-     card's one-card slice, the peak memory beside the plan's
-     ``bytes_per_device``; each run's final checkpoint (18.5 GB) is
-     removed after its run;
+     seq 4096) at global batch 2 and 4, 9 steps each, through
+     ``run_workflow`` with an intent naming the card (the plan's own remat
+     and microbatch; counters reset just before each run, read just
+     after: K1 and K1-bwd all on the tensor cores), the checks passing,
+     the plan doc naming the card's one-card slice, the peak memory
+     beside the plan's ``bytes_per_device``; each run's final checkpoint
+     (18.5 GB) is removed after its run;
  31. harvest, calibrate and explore: each run harvests one sample under
      (h100, train); a workflow of the calibrate stage (activating the
      fit: the scale fallback at two samples) and the explore stage over
@@ -197,7 +197,40 @@ them, and on any mismatch.  Phases, one or more lines each:
      remat and microbatch), 6 steps each: launches by path, the checks
      passing, the peak beside the plan's ``bytes_per_device``, free disk
      checked before each run and each final checkpoint (18.4 and 45.9
-     GB) removed after it.
+     GB) removed after it;
+ 36. the serving kernels at this slice's shapes against their plain
+     versions: K5 with its final state at hymba's prefill (4 rows of
+     2080, d_inner 3200, state 16) and K6 with its final state at the
+     xLSTM's (8 rows of 512, 4 heads of 384), in both dtypes (the state
+     and float32 outputs against float64, as phases 13 and 17), each
+     deterministic and with the same output as without its state; K4 at
+     phi3.5-moe's serving capacity buffers in bf16: a prefill group's,
+     the decode step's and the verify step's (T = SPEC_K + 1), 16 groups
+     of 2 rows a slot at decode and verify;
+ 37. phi3.5-moe at full width, 4 of its 32 layers: 8 requests, two
+     exact-length groups (256 and 192 prompt tokens, each admitted whole
+     into 4 slots), 16 new tokens, on the fused engine, the paged engine
+     (pages of 16) and the paged engine with spec_k SPEC_K (counters
+     reset just before each run, read just after: K1, K4, K2 and K3 all
+     on the tensor cores), each run's tokens identical to the same
+     groups prefilled and decoded (or verified) directly;
+ 38. hymba-1.5b at full width and depth on the fused engine: a group of
+     2080-token prompts (past the window of 2048: the window layers'
+     prefill cache a ring) and a group of 2040 whose 32 decode steps
+     cross the window's edge, tokens identical to the groups run
+     directly; K1 with the window and without, K5 with its state once a
+     layer a group; for one request of each group, the prefill's and the
+     first decode steps' logits within 2e-2 of max |logit| of the train
+     forward at the same positions;
+ 39. xlstm-125m at full width on the fused engine, groups of 512 and 384
+     prompt tokens: tokens identical to the groups run directly, K6 with
+     its state once for each of the 9 mLSTM layers a group, on the
+     tensor cores;
+ 40. a serve template for hymba-1.5b, registered in a registry of its
+     own as a user registers one, at ``scale="full"`` through
+     ``run_workflow`` on the card (8 requests of 8 prompt tokens, under
+     the window): completions identical to ``smoke_serve`` called
+     directly on the same weights, K5 launched with its state.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -244,7 +277,7 @@ from repro_torch.kernels import moe_gmm, ref, ssm_scan  # noqa: E402
 from repro_torch.kernels.timing import (cold_copies,  # noqa: E402
                                         launch_floor_ms, time_ms)
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models import moe, recurrent  # noqa: E402
+from repro_torch.models import lm, moe, recurrent, speculate  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, smoke_serve  # noqa: E402
 from repro_torch.train import (OptimizerConfig, Plan,  # noqa: E402
                                init_train_state, make_train_step)
@@ -319,9 +352,15 @@ SSM_COMMON = "src/repro_torch/kernels/csrc/ssm_common.cuh"
 PAGED_COMMON = "src/repro_torch/kernels/csrc/paged_common.cuh"
 # the train workflow at full width planned for the card (phase 30): the
 # global batches of train_4k one card takes (batch 256 has no plan on one
-# card: the planner's microbatch grid stops at 4), and the steps a run
-# takes (the loss_decreased check needs 4; the harvester drops the first)
+# card: the planner's microbatch grid stops at 4), and the steps a run of
+# phase 35 takes (the loss_decreased check needs 4)
 CARD_BATCHES, CARD_STEPS = (2, 4), 6
+# the steps of phase 30's runs, whose median step after the first the
+# calibration fits: 8 timed, so that a few slow steps (those just after
+# the first, or a host busy elsewhere) do not move the median; short of
+# the template's checkpoint_every of 10, whose background write slows the
+# steps after it
+CARD_FIT_STEPS = 9
 # the calibration fit's relative residual on its samples (phase 31)
 CARD_FIT_RESIDUAL = 0.15
 # phi3.5-moe training: train_4k's length, its global batch of 256 cut to
@@ -334,6 +373,28 @@ GMM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # kernel path vs plain path of one MoE step in float32: every gradient
 # leaf within this share of its max |g| (as hymba's phase 20)
 MOE_LEAF_BOUND = 1e-3
+# serving the MoE decoders, hymba and the xLSTM (phases 36-40): 4 slots,
+# 8 requests in two exact-length groups of 4.  phi3.5-moe cut to 4 of its
+# 32 layers (5.46 B parameters: 10.9 GB of bf16 serving weights, 21.8 GB
+# of float32 master weights at init); max_seq a page multiple past the
+# longer prompt, its budget and a verify pass's SPEC_K rows
+SV_SLOTS, SV_REQUESTS = 4, 8
+MOE_SV_LAYERS, MOE_SV_PROMPTS, MOE_SV_NEW = 4, (256, 192), 16
+MOE_SV_MAX_SEQ = 288
+# hymba at full depth: a group of prompts past the window of 2048 (the
+# prefill lays the window layers out as a ring) and a group whose decode
+# crosses the window's edge (positions 2040 .. 2071)
+HY_SV_PROMPTS, HY_SV_NEW, HY_SV_MAX_SEQ = (2080, 2040), (16, 32), 2096
+# the decode steps held against the train forward, and the bound on
+# max |decode - forward| / max |forward logit| by compute dtype: bf16 the
+# full-width bound of phase 6 (activations rounded at other points by the
+# decode reads and K1, K5 through 32 layers); float32 where the mask's
+# work shows (an empty ring slot attended to moves the logits by about
+# 15% of their max at reduced width, ROADMAP §3)
+HY_SV_FWD_STEPS = 4
+HY_SV_FWD_BOUND = {"bfloat16": LOGIT_REL_BOUND, "float32": 1e-3}
+# xlstm-125m at full width: groups of 512 and 384 prompt tokens
+XL_SV_PROMPTS, XL_SV_NEW, XL_SV_MAX_SEQ = (512, 384), 16, 528
 
 
 def log(msg: str) -> None:
@@ -379,7 +440,7 @@ def _path(tc_launches: int) -> str:
     return "tensor-cores" if tc_launches == 1 else "fma"
 
 
-def _k1_case(name, dtype, B, S, T, H, KH, D, window, gen):
+def _k1_case(name, dtype, B, S, T, H, KH, D, window, gen, tag="3 K1"):
     dev = torch.device("cuda")
     q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, T, KH, D), generator=gen, device=dev).to(dtype)
@@ -414,7 +475,7 @@ def _k1_case(name, dtype, B, S, T, H, KH, D, window, gen):
     flops = 4.0 * B * H * D * pairs
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     bms, by = bound_ms(nbytes, flops, peak)
-    log(f"[3 K1] {name} {str(dtype)[6:]} B={B} S={S} T={T} H={H} KH={KH} "
+    log(f"[{tag}] {name} {str(dtype)[6:]} B={B} S={S} T={T} H={H} KH={KH} "
         f"D={D} window={window}: path={path} max_abs_err={err:.3g} (tol "
         f"{TOL[dtype]:g} abs+rel) ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms:.4f} ms/library_ms={ms / lib_ms:.2f} "
@@ -1243,16 +1304,24 @@ def _grad_err(got, want, tol: float) -> float:
     return err
 
 
-def _k6_case(name, dtype, B, H, S, D, DV, gen):
+def _mlstm_inputs(gen, dtype, B, H, S, D, DV, with_dh=False):
+    """q, k, v and the gate pre-activations of an mLSTM on the card
+    (and, with ``with_dh``, an incoming gradient dh drawn after v)."""
     dev = torch.device("cuda")
-    chunk = mlstm_scan.kernel_chunk(dtype, D, DV)  # the plain versions' too
     q, k = (torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype)
             for _ in range(2))
-    v, dh = (torch.randn((B, H, S, DV), generator=gen, device=dev).to(dtype)
-             for _ in range(2))
+    v = torch.randn((B, H, S, DV), generator=gen, device=dev).to(dtype)
+    dh = (torch.randn((B, H, S, DV), generator=gen, device=dev).to(dtype)
+          if with_dh else None)
     i_pre = torch.randn((B, H, S), generator=gen, device=dev).to(dtype)
     f_pre = (torch.randn((B, H, S), generator=gen, device=dev) + 1).to(dtype)
-    xs = (q, k, v, i_pre, f_pre)
+    return (q, k, v, i_pre, f_pre), dh
+
+
+def _k6_case(name, dtype, B, H, S, D, DV, gen):
+    chunk = mlstm_scan.kernel_chunk(dtype, D, DV)  # the plain versions' too
+    xs, dh = _mlstm_inputs(gen, dtype, B, H, S, D, DV, with_dh=True)
+    q, k, v, i_pre, f_pre = xs
     tc0 = (mlstm_scan.tc_launches, mlstm_scan.bwd_tc_launches)
     h, m, qn = mlstm_scan.mlstm_scan_cuda(*xs, with_stats=True)
     path = _path(mlstm_scan.tc_launches - tc0[0])
@@ -1397,11 +1466,11 @@ def _marked_slstm_loop(wx, r, state):
     _mark()
     if wx.requires_grad:
         wx.register_hook(_mark)
-    hs = _SLSTM_LOOP(wx, r, state)
+    hs, state = _SLSTM_LOOP(wx, r, state)
     _mark()
     if hs.requires_grad:
         hs.register_hook(_mark)
-    return hs
+    return hs, state
 
 
 def _xlstm_split(prof, n_slstm: int):
@@ -1593,7 +1662,7 @@ def ssm_bound_ms(nbytes: float, flops: float, exps: float):
 
 def _ssm_fwd_ckpt64(x, dt, A, Bmat, Cmat, D):
     """K5's plain version, ``ref.ssm_scan_fwd_ckpt``'s chunk walk, run in
-    float64: ``(y, ckpt)``."""
+    float64: ``(y, ckpt, the final state)``."""
     S, chunk = x.shape[1], ref.SSM_CHUNK
     xf, dtf, bf, cf = (F.pad(t.double(), (0, 0, 0, -S % chunk))
                        for t in (x, dt, Bmat, Cmat))
@@ -1608,10 +1677,11 @@ def _ssm_fwd_ckpt64(x, dt, A, Bmat, Cmat, D):
         ys.append((hs[:, 1:] * cf[:, sl, None, :]).sum(-1))
         h = hs[:, -1]
     return (torch.cat(ys, 1)[:, :S] + x.double() * D.double(),
-            torch.stack(ckpts))
+            torch.stack(ckpts), h)
 
 
-def _k5_case(name, dtype, B, S, Din, N, gen):
+def _ssm_inputs(gen, dtype, B, S, Din, N):
+    """x, dt (softplus-sized steps), A, B, C and D of a scan on the card."""
     dev = torch.device("cuda")
     x = torch.randn((B, S, Din), generator=gen, device=dev).to(dtype)
     dt = (torch.rand((B, S, Din), generator=gen, device=dev) * 0.2
@@ -1620,8 +1690,12 @@ def _k5_case(name, dtype, B, S, Din, N, gen):
     Bm, Cm = (torch.randn((B, S, N), generator=gen, device=dev)
               for _ in range(2))
     D = torch.randn((Din,), generator=gen, device=dev)
-    dy = torch.randn((B, S, Din), generator=gen, device=dev).to(dtype)
-    xs = (x, dt, A, Bm, Cm, D)
+    return x, dt, A, Bm, Cm, D
+
+
+def _k5_case(name, dtype, B, S, Din, N, gen):
+    xs = _ssm_inputs(gen, dtype, B, S, Din, N)
+    dy = torch.randn((B, S, Din), generator=gen, device="cuda").to(dtype)
     y, ckpt = ssm_scan.ssm_scan_cuda(*xs, with_ckpt=True)
     want = ref.ssm_scan_fwd_ckpt(*xs)
     torch.cuda.synchronize()
@@ -1882,7 +1956,7 @@ def _gmm_err(got, want, dtype) -> float:
 
 
 def _k4_case(name, dtype, M, K, N, sizes, gen, transpose_w=False,
-             timed=True):
+             timed=True, tag="22 K4"):
     dev = torch.device("cuda")
     E = len(sizes)
     x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
@@ -1923,7 +1997,7 @@ def _k4_case(name, dtype, M, K, N, sizes, gen, transpose_w=False,
                                       inner=2 if slow else 5)
     fmt = (lambda v: "null" if v is None else f"{v:.4f}")
     how = "abs+rel" if dtype == torch.bfloat16 else "of max |y|"
-    log(f"[22 K4] {name} {str(dtype)[6:]} M={M} K={K} N={N} E={E} "
+    log(f"[{tag}] {name} {str(dtype)[6:]} M={M} K={K} N={N} E={E} "
         f"live_rows={n} transposed_w={transpose_w} path={path}: "
         f"max_abs_err={err:.3g} ({how} tol {GMM_TOL[dtype]:g}) "
         f"rows_past_sum_zero=True deterministic=True "
@@ -2398,12 +2472,12 @@ def _tree_gb(path: str) -> float:
                for r, _, fs in os.walk(path) for f in fs) / 1e9
 
 
-def phase_card_train_workflow(runs: str):
+def phase_card_train_workflow(runs: str, n_steps: int = CARD_FIT_STEPS):
     """``train-qwen2-1.5b`` at full width through ``run_workflow`` with an
-    intent naming the card, at each of ``CARD_BATCHES``: each run's
-    launches by path, peak memory and plan; its final checkpoint removed
-    after it.  Returns K1's and K1-bwd's launches over the runs, and each
-    run's id and plan doc by global batch."""
+    intent naming the card, at each of ``CARD_BATCHES``, ``n_steps`` steps
+    a run: each run's launches by path, peak memory and plan; its final
+    checkpoint removed after it.  Returns K1's and K1-bwd's launches over
+    the runs, and each run's id and plan doc by global batch."""
     cfg = get_config("qwen2-1.5b")
     totals = {"flash_attention": 0, "flash_attention_bwd": 0}
     out = {}
@@ -2418,7 +2492,7 @@ def phase_card_train_workflow(runs: str):
         _reset_k1_counters()
         t0 = time.perf_counter()
         res = run_workflow(t, ProvenanceStore(runs), device="cuda",
-                           intent=intent, steps_override=CARD_STEPS)
+                           intent=intent, steps_override=n_steps)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         launches = {"flash_attention": flash_attention.launches,
@@ -2427,7 +2501,7 @@ def phase_card_train_workflow(runs: str):
         est = res.plan_choice.est
         # remat full runs each layer's forward again in the backward
         passes = 2 if doc["remat"] == "full" else 1
-        want = cfg.num_layers * CARD_STEPS * doc["microbatch"]
+        want = cfg.num_layers * n_steps * doc["microbatch"]
         paths = {f"{m.__name__.rsplit('.', 1)[1]}_{p}":
                  getattr(m, f"{p}_launches")
                  for m in (flash_attention, flash_attention_bwd)
@@ -2631,23 +2705,6 @@ def _serve(model, params, reqs, **kw):
     return {c.uid: c.tokens for c in done}, wall, eng
 
 
-def _direct_greedy(model, params, group, max_seq, steps):
-    """One admission group the way the engine runs it, called directly:
-    prefill the rows together, then greedy decode steps of the whole
-    group; each row's tokens."""
-    dev = torch.device("cuda")
-    tokens = torch.tensor(np.stack([r.prompt for r in group]),
-                          dtype=torch.int32, device=dev)
-    extra = {k: torch.from_numpy(np.stack([r.extra[k] for r in group])).to(
-        dev) for k in group[0].extra}
-    logits, cache = model.prefill(params, tokens, extra, max_seq=max_seq)
-    out = [logits.argmax(-1).to(torch.int32)]
-    for _ in range(steps - 1):
-        logits, cache = model.decode_step(params, cache, out[-1][:, None])
-        out.append(logits.argmax(-1).to(torch.int32))
-    return torch.stack(out, 1).cpu().tolist()
-
-
 def _slice_train(tag, cfg, seq, batch, steps, remat, want_fwd, want_bwd,
                  opt=OptimizerConfig(lr=1e-4, warmup_steps=2,
                                      total_steps=100)):
@@ -2769,7 +2826,7 @@ def phase_whisper(cfg) -> dict:
     for r in reqs:
         by_len.setdefault(len(r.prompt), []).append(r)
     for n, group in sorted(by_len.items()):
-        direct = _direct_greedy(model, params, group, max_seq, WH_MAX_NEW)
+        direct = _direct(model, params, group, max_seq, WH_MAX_NEW)[0]
         mine = [got[r.uid] for r in group]
         log(f"[33 whisper serve]   group of length {n}: uids "
             f"{[r.uid for r in group]} tokens {[t[:6] for t in mine]}; "
@@ -2953,6 +3010,516 @@ def phase_slice_workflows(runs: str) -> dict:
     return totals
 
 
+
+# ---------------------------------------------------------------------------
+def _k5_state_case(name, dtype, B, S, Din, N, gen) -> dict:
+    """K5 with its final state at a prefill's shape against its plain
+    version (``ref.ssm_scan_chunked`` at K5's chunk): the state (and, in
+    float32, y) against the scan run in float64, within max(2e-5, 4x the
+    float32 plain version's own error), as phase 17 holds the
+    checkpoints; bf16 y at 2e-2 abs+rel."""
+    xs = _ssm_inputs(gen, dtype, B, S, Din, N)
+    y, h = ssm_scan.ssm_scan_cuda(*xs, with_state=True)
+    want = ref.ssm_scan_chunked(*xs, chunk=ref.SSM_CHUNK)
+    exact = _ssm_fwd_ckpt64(*xs)
+    torch.cuda.synchronize()
+    pairs = [(h, want[1], exact[2])]
+    if dtype == torch.float32:
+        pairs.append((y, want[0], exact[0]))
+    plain = max(_abs_rel_err(w, e) for _, w, e in pairs)
+    bound = max(TOL[torch.float32], 4 * plain)
+    each = ", ".join(f"{n} {_abs_rel_err(g, e):.3g} (plain "
+                     f"{_abs_rel_err(w, e):.3g})"
+                     for n, (g, w, e) in zip(("state", "y"), pairs))
+    err = max(max_err(g, e, dtype, bound) for g, _, e in pairs)
+    kern = max(_abs_rel_err(g, e) for g, _, e in pairs)
+    if dtype == torch.bfloat16:
+        err = max(err, max_err(y, want[0], dtype))
+    again = ssm_scan.ssm_scan_cuda(*xs, with_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], y) and torch.equal(again[1], h), \
+        "K5 with its state is not deterministic"
+    assert torch.equal(ssm_scan.ssm_scan_cuda(*xs), y), \
+        "K5's y changed with the state output"
+    del want, exact, pairs, again
+    ms = time_ms(lambda: ssm_scan.ssm_scan_cuda(*xs, with_state=True),
+                 reps=5, inner=5)
+    plain_ms = time_events_ms(lambda: ref.ssm_scan_chunked(
+        *xs, chunk=ref.SSM_CHUNK), reps=2)
+    # x and dt read, y written, B and C read, A and D read, the state
+    # written; per (b, t, channel, n) one exponential and 7 float32 ops
+    elems = B * S * Din * N
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (size * 3 * B * S * Din + 4 * 2 * B * S * N
+              + 4 * (Din * N + Din) + 4 * B * Din * N)
+    bms, by = ssm_bound_ms(nbytes, 7.0 * elems, elems)
+    log(f"[36 K5+state] {name} {str(dtype)[6:]} B={B} S={S} Din={Din} N={N}: "
+        f"max_abs_err={err:.3g} (final state"
+        f"{' and y' if dtype == torch.float32 else ''} against float64: "
+        f"{kern:.3g} abs+rel, bound {bound:.3g} = max(2e-05, 4 x the float32 "
+        f"plain version's {plain:.3g}); {each}"
+        + (f"; y tol {TOL[dtype]:g} abs+rel against the plain version"
+           if dtype == torch.bfloat16 else "")
+        + f") deterministic=True y_unchanged=True ms={ms:.4f} "
+        f"plain_ms={plain_ms:.3f} library_ms=None bound_ms={bms:.5f} ({by}:"
+        f" {nbytes / 1e6:.1f} MB, {elems / 1e6:.1f} M exponentials)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def _k6_state_case(name, dtype, B, H, S, D, DV, gen) -> dict:
+    """K6 with its final state at a prefill's shape against its plain
+    version (``ref.mlstm_scan_chunked`` with its state, at the kernel's
+    chunk): h, C, n and m in float32 against float64 within max(2e-5, 4x
+    the float32 plain version's error), as phase 13; bf16 h, C and n at
+    2e-2 abs+rel, m at 2e-5."""
+    chunk = mlstm_scan.kernel_chunk(dtype, D, DV)
+    xs, _ = _mlstm_inputs(gen, dtype, B, H, S, D, DV)
+    tc0 = mlstm_scan.tc_launches
+    h, st = mlstm_scan.mlstm_scan_cuda(*xs, with_state=True)
+    path = _path(mlstm_scan.tc_launches - tc0)
+    got = (h,) + tuple(st)
+    wh, wst = ref.mlstm_scan_chunked(*xs, chunk=chunk, with_state=True)
+    want = (wh,) + tuple(wst)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        x64 = tuple(x.double() for x in xs)
+        h64, st64 = ref.mlstm_scan_chunked(*x64, chunk=chunk,
+                                           with_state=True)
+        exact = (h64,) + tuple(st64)
+        plain = max(_abs_rel_err(w, e) for w, e in zip(want, exact))
+        bound = max(TOL[dtype], 4 * plain)
+        err = max(max_err(g, e, dtype, bound) for g, e in zip(got, exact))
+        kern = max(_abs_rel_err(g, e) for g, e in zip(got, exact))
+        note = (f"h, C, n, m against float64: {kern:.3g} abs+rel (bound "
+                f"{bound:.3g} = max(2e-05, 4 x the float32 plain version's "
+                f"{plain:.3g}))")
+        del x64, exact
+    else:
+        err = max(max_err(got[0], want[0], dtype),
+                  max_err(got[1], want[1], dtype),
+                  max_err(got[2], want[2], dtype),
+                  max_err(got[3], want[3], dtype, TOL[torch.float32]))
+        note = f"tol {TOL[dtype]:g} abs+rel, h, C, n; m at 2e-05"
+    again = mlstm_scan.mlstm_scan_cuda(*xs, with_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], h) and all(
+        torch.equal(a, b) for a, b in zip(again[1], st)), \
+        "K6 with its state is not deterministic"
+    assert torch.equal(mlstm_scan.mlstm_scan_cuda(*xs), h), \
+        "K6's h changed with the state output"
+    del want, again
+    ms = time_ms(lambda: mlstm_scan.mlstm_scan_cuda(*xs, with_state=True),
+                 reps=5, inner=3)
+    plain_ms = time_ms(lambda: ref.mlstm_scan_chunked(
+        *xs, chunk=chunk, with_state=True), reps=3, inner=1)
+    # as phase 13's forward bound, the final state written instead of the
+    # per-row stats
+    L, rows = K6_BOUND_CHUNK, B * H * S
+    size = torch.finfo(dtype).bits // 8
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    nbytes = (rows * (size * (2 * D + 2 * DV) + 2 * size)
+              + 4 * B * H * (D * DV + D + 1))
+    bms, by = bound_ms(nbytes, rows * (2.0 * L * (D + DV) + 4.0 * D * DV),
+                       peak)
+    log(f"[36 K6+state] {name} {str(dtype)[6:]} B={B} H={H} S={S} D={D} "
+        f"DV={DV} path={path} chunk={chunk}: max_abs_err={err:.3g} ({note}) "
+        f"deterministic=True h_unchanged=True ms={ms:.4f} plain_ms="
+        f"{plain_ms:.4f} library_ms=None bound_ms={bms:.5f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None, path=path)
+
+
+def phase_serve_kernels(gen, hcfg, xcfg, mcfg) -> dict:
+    """K5 and K6 with their final state at hymba's and the xLSTM's
+    prefill shapes (4 and 8 rows), in both dtypes; K1 at hymba's prefill
+    (4 rows of 2080, with its window and global) and K4 at phi3.5-moe's
+    serving shapes (a prefill group's capacity buffer, and the decode
+    step's and the T = SPEC_K + 1 verify step's: 16 groups of 2 rows a
+    slot), in bf16.  Returns the bf16 rows of K5's and K6's state cases,
+    K1's windowed prefill and K4's decode case."""
+    out = {}
+    S = max(HY_SV_PROMPTS)
+    for window in (hcfg.sliding_window, 0):
+        r = _k1_case(f"hymba prefill window={window}", torch.bfloat16,
+                     SV_SLOTS, S, S, hcfg.num_heads, hcfg.num_kv_heads,
+                     hcfg.head_dim, window, gen, tag="36 K1")
+        out.setdefault("flash_attention", r)
+    d_in, N = recurrent.ssm_dims(hcfg)[:2]
+    for dtype in (torch.bfloat16, torch.float32):
+        r = _k5_state_case("hymba prefill", dtype, SV_SLOTS, S, d_in, N,
+                           gen)
+        out.setdefault("ssm_scan", r)
+        torch.cuda.empty_cache()
+    H, D = xcfg.num_heads, 2 * xcfg.d_model // xcfg.num_heads
+    for dtype in (torch.bfloat16, torch.float32):
+        r = _k6_state_case("xlstm prefill", dtype, 2 * SV_SLOTS, H,
+                           max(XL_SV_PROMPTS), D, D, gen)
+        out.setdefault("mlstm_scan", r)
+        torch.cuda.empty_cache()
+    E, Dm, F_ = mcfg.num_experts, mcfg.d_model, mcfg.d_ff
+    for step, S in (("prefill", max(MOE_SV_PROMPTS)), ("decode", 1),
+                    ("verify", SPEC_K + 1)):
+        G = SV_SLOTS * moe.moe_capacity(mcfg, S)
+        for what, K, N_ in (("gate/up", Dm, F_), ("down", F_, Dm)):
+            r = _k4_case(f"phi3.5 {step} {what} (capacity "
+                         f"{moe.moe_capacity(mcfg, S)})", torch.bfloat16,
+                         E * G, K, N_, [G] * E, gen, tag="36 K4")
+            if step == "decode" and what == "gate/up":
+                out["moe_gmm"] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+def _reset_serve_counters() -> None:
+    """Zero the counters of every kernel a serving path launches."""
+    flash_attention.launches = 0
+    flash_attention.tc_launches = flash_attention.fma_launches = 0
+    _reset_paged_counters(paged_attention, paged_attention_mq)
+    moe_gmm.launches = moe_gmm.tc_launches = moe_gmm.fma_launches = 0
+    ssm_scan.launches = ssm_scan.state_launches = 0
+    mlstm_scan.launches = mlstm_scan.state_launches = 0
+    mlstm_scan.tc_launches = mlstm_scan.fma_launches = 0
+    _K1_WINDOWED[0] = 0
+
+
+def _serve_counts() -> dict:
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_window": _K1_WINDOWED[0],
+            "flash_attention_tc": flash_attention.tc_launches,
+            "paged_attention": paged_attention.launches,
+            "paged_attention_tc": paged_attention.tc_launches,
+            "paged_attention_mq": paged_attention_mq.launches,
+            "paged_attention_mq_tc": paged_attention_mq.tc_launches,
+            "moe_gmm": moe_gmm.launches, "moe_gmm_tc": moe_gmm.tc_launches,
+            "ssm_scan": ssm_scan.launches,
+            "ssm_scan_state": ssm_scan.state_launches,
+            "mlstm_scan": mlstm_scan.launches,
+            "mlstm_scan_state": mlstm_scan.state_launches,
+            "mlstm_scan_tc": mlstm_scan.tc_launches}
+
+
+def _sv_requests(vocab, prompts, news, seed):
+    """SV_REQUESTS requests alternating between the two prompt lengths
+    (and their budgets)."""
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(1, vocab, prompts[i % 2]
+                                               ).astype(np.int32),
+                    max_new_tokens=news[i % 2])
+            for i in range(SV_REQUESTS)]
+
+
+def _groups(reqs):
+    by = {}
+    for r in reqs:
+        by.setdefault(len(r.prompt), []).append(r)
+    return sorted(by.items())
+
+
+def _direct(model, params, group, max_seq, steps, paged=False, spec_k=0):
+    """One admission group run the engine's way, called directly: the
+    rows prefilled together (with their extra inputs), then greedy decode
+    steps (the dense cache,
+    or its paged layout), or greedy speculative rounds on the paged
+    layout (n-gram drafts, one verify pass, the longest agreeing prefix
+    and the bonus token, ``pos`` rewound), each row cut at its budget.
+    Returns each row's tokens and the prefill's and each decode step's
+    wall ms (host clock, synchronized)."""
+    dev = model.device
+    tokens = torch.tensor(np.stack([r.prompt for r in group]),
+                          dtype=torch.int32, device=dev)
+    extra = {k: torch.from_numpy(np.stack([r.extra[k] for r in group])).to(
+        dev) for k in group[0].extra or {}}
+    B, S = tokens.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, tokens, extra, max_seq=max_seq)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if paged:
+        cache = _to_paged(cache, PAGE)
+    last = logits.argmax(-1).to(torch.int32)
+    out = [[t] for t in last.tolist()]
+    step_ms = []
+    if not spec_k:
+        for _ in range(steps - 1):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, last[:, None])
+            last = logits.argmax(-1).to(torch.int32)
+            for o, t in zip(out, last.tolist()):
+                o.append(t)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out, prefill_ms, step_ms
+    hist = torch.zeros((B, max_seq), dtype=torch.int32, device=dev)
+    hist[:, :S] = tokens
+    hist[:, S] = last
+    zeros = np.zeros(B, np.float32)
+    while min(len(o) for o in out) < steps:
+        t0 = time.perf_counter()
+        pos = cache["pos"]
+        drafts = speculate.ngram_propose(hist, pos + 1, k=spec_k, n=3)
+        logits, cache = model.verify_step(
+            params, cache, torch.cat([last[:, None], drafts], dim=1))
+        emitted, m, _ = speculate.accept_and_emit(
+            logits, drafts, None, zeros, seed=0, slots=range(B), pos0=pos + 1,
+            bonus=True, greedy_only=True)
+        left = torch.tensor([steps - len(o) for o in out], dtype=torch.int32,
+                            device=dev)
+        m = torch.minimum(m, torch.clamp(left, min=0)).to(torch.int32)
+        speculate.update_history(hist, pos, emitted, m, left > 0)
+        cache = dict(cache, pos=pos + m)
+        for o, row, n in zip(out, emitted.tolist(), m.tolist()):
+            o += row[:n]
+        idx = torch.clamp(m - 1, 0, spec_k).long()
+        last = torch.where(m > 0, emitted.gather(1, idx[:, None])[:, 0],
+                           last)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return out, prefill_ms, step_ms
+
+
+def _serve_run(tag, model, params, reqs, max_seq, **kw):
+    """The engine over ``reqs``, one burst a prompt length (each group
+    admitted whole into the SV_SLOTS slots; counters reset just before,
+    read just after), then each group run directly: asserts the tokens
+    identical; returns (launches, tokens)."""
+    _reset_serve_counters()
+    eng = ServeEngine(model, params, max_batch=SV_SLOTS, max_seq=max_seq,
+                      eos_id=-1, page_size=PAGE, **kw)
+    t0 = time.perf_counter()
+    for _, group in _groups(reqs):
+        for r in group:
+            eng.submit(r)
+        eng.run()
+    wall = time.perf_counter() - t0
+    got = {c.uid: c.tokens for c in eng.done}
+    counts = _serve_counts()
+    toks = sum(len(v) for v in got.values())
+    keys = sorted({eng._group_key(r)[:2] for r in reqs})
+    assert keys == [("exact", n) for n, _ in _groups(reqs)], keys
+    assert len(got) == len(reqs), got
+    paged = kw.get("engine") == "paged"
+    if paged:
+        assert eng.pool.pages_in_use == 0, "pages leaked after the drain"
+    same, prefill, steps = True, [], []
+    for n, group in _groups(reqs):
+        direct, p_ms, s_ms = _direct(model, params, group, max_seq,
+                                     group[0].max_new_tokens, paged=paged,
+                                     spec_k=kw.get("spec_k", 0))
+        mine = [got[r.uid] for r in group]
+        prefill.append(p_ms)
+        steps += s_ms
+        if mine != direct:
+            same = False
+            log(f"[{tag}]   group of length {n}: engine {mine} != direct "
+                f"{direct}")
+    step = statistics.median(steps) if steps else float("nan")
+    log(f"[{tag}] {kw}: requests={len(got)} tokens={toks} wall_s={wall:.3f} "
+        f"tok_per_s={toks / wall:.1f} (first run, set-up included) "
+        f"groups={keys} direct prefill_ms={[round(x, 1) for x in prefill]} "
+        f"{'verify round' if kw.get('spec_k') else 'decode step'} ms (host "
+        f"clock, synchronized, median)={step:.2f} tokens identical to the "
+        f"direct loop: {same} launches="
+        f"{ {k: v for k, v in counts.items() if v} }")
+    assert same, tag
+    return counts, got
+
+
+def phase_moe_serve(cfg) -> dict:
+    """phi3.5-moe at full width, 4 of its 32 layers: 8 requests in two
+    exact-length groups on the fused engine, the paged engine and the
+    paged engine with spec_k SPEC_K, each run's tokens identical to the
+    same groups run directly; K1, K4, K2 and K3 launched, all on the
+    tensor cores.  Returns the main path's launches."""
+    cut = dataclasses.replace(cfg, num_layers=MOE_SV_LAYERS,
+                              name=f"{cfg.name}-{MOE_SV_LAYERS}layer")
+    model = build_model(cut)
+    t0 = time.perf_counter()
+    master = model.init(seed=0)
+    params = model.serving_params(master)
+    del master
+    torch.cuda.synchronize()
+    log(f"[37 moe serve] {cut.name}: full width (d_model {cut.d_model}, "
+        f"{cut.num_experts} experts top-{cut.top_k}, d_ff {cut.d_ff}), "
+        f"{cut.num_layers} of {cfg.num_layers} layers, "
+        f"{cut.param_count() / 1e9:.3f} B params, {cut.dtype} serving "
+        f"weights (router and gains float32); init "
+        f"{time.perf_counter() - t0:.1f} s; capacity a row: prefill "
+        f"{[moe.moe_capacity(cut, n) for n in MOE_SV_PROMPTS]}, decode "
+        f"{moe.moe_capacity(cut, 1)}, verify "
+        f"{moe.moe_capacity(cut, SPEC_K + 1)}")
+    reqs = _sv_requests(cut.vocab_size, MOE_SV_PROMPTS, (MOE_SV_NEW,) * 2, 37)
+    total = {}
+    for kw in (dict(engine="fused"), dict(engine="paged"),
+               dict(engine="paged", spec_k=SPEC_K)):
+        counts, _ = _serve_run("37 moe serve", model, params, reqs,
+                               MOE_SV_MAX_SEQ, **kw)
+        assert counts["moe_gmm"] > 0 and counts["moe_gmm_tc"] == counts[
+            "moe_gmm"], counts
+        assert counts["flash_attention"] == 2 * cut.num_layers, counts
+        assert counts["flash_attention_tc"] == counts["flash_attention"]
+        if kw["engine"] == "paged":
+            key = "paged_attention_mq" if kw.get("spec_k") else \
+                "paged_attention"
+            assert counts[key] > 0 and counts[key + "_tc"] == counts[key], \
+                counts
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    del model, params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_hymba_serve(cfg) -> dict:
+    """hymba-1.5b at full width and depth on the fused engine: a group of
+    prompts past the window (the window layers' cache a ring at prefill)
+    and one whose decode crosses the window's edge; tokens identical to
+    the groups run directly; K1 with and without a window, K5 with its
+    state once a layer a group; for one request of each group, the first
+    decode steps' logits against the train forward at the same
+    positions.  Returns the main path's launches."""
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    master = model.init(seed=0)
+    params = model.serving_params(master)
+    torch.cuda.synchronize()
+    log(f"[38 hymba serve] {cfg.name}: full width and depth ({cfg.num_layers}"
+        f" layers, global {cfg.global_attn_layers}, window "
+        f"{cfg.sliding_window}, d_model {cfg.d_model}, SSM d_inner "
+        f"{recurrent.ssm_dims(cfg)[0]}), {cfg.param_count() / 1e9:.3f} B "
+        f"params; init {time.perf_counter() - t0:.1f} s")
+    reqs = _sv_requests(cfg.vocab_size, HY_SV_PROMPTS, HY_SV_NEW, 38)
+    with mock.patch.object(ops, "flash_attention", _window_counting):
+        counts, got = _serve_run("38 hymba serve", model, params, reqs,
+                                 HY_SV_MAX_SEQ, engine="fused")
+    n_global = len(cfg.global_attn_layers)
+    want = {"flash_attention": 2 * cfg.num_layers,
+            "flash_attention_window": 2 * (cfg.num_layers - n_global),
+            "ssm_scan": 2 * cfg.num_layers,
+            "ssm_scan_state": 2 * cfg.num_layers}
+    assert {k: counts[k] for k in want} == want, counts
+    assert counts["flash_attention_tc"] == counts["flash_attention"], counts
+    log(f"[38 hymba serve]   K1 launches with the window "
+        f"{cfg.sliding_window}: {counts['flash_attention_window']}, global: "
+        f"{counts['flash_attention'] - counts['flash_attention_window']}; K5 "
+        f"with its state: {counts['ssm_scan_state']} (one a layer a group)")
+    # the decode path against the train forward, one request a group, in
+    # the served bf16 and in float32 compute on the same weights
+    f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    worst = {}
+    for m, p in ((model, params), (f32, f32.serving_params(master))):
+        for n, group in _groups(reqs):
+            r = group[0]
+            seq = np.concatenate([r.prompt, got[r.uid][:HY_SV_FWD_STEPS]])
+            rel = _decode_vs_forward(m, p, seq, n)
+            bound = HY_SV_FWD_BOUND[m.cfg.dtype]
+            log(f"[38 hymba serve]   {m.cfg.dtype} uid {r.uid} (prompt {n}):"
+                f" prefill and decode logits at positions {n - 1}.."
+                f"{n - 1 + HY_SV_FWD_STEPS} against the train forward: "
+                f"max|diff|/max|logit| = {[round(x, 6) for x in rel]} "
+                f"(bound {bound:g})")
+            worst[m.cfg.dtype, n] = max(rel)
+    assert all(v <= HY_SV_FWD_BOUND[d] for (d, _), v in worst.items()), worst
+    del f32, master
+    del model, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _decode_vs_forward(model, params, seq, n) -> list:
+    """max |decode - forward| / max |forward logit| at each position n - 1
+    .. len(seq) - 2: the prefill of ``seq[:n]`` and decode steps
+    teacher-forced on ``seq``, against ``forward_train`` of ``seq``."""
+    tokens = torch.tensor(seq[None], dtype=torch.int32, device=model.device)
+    logits, cache = model.prefill(params, tokens[:, :n],
+                                  max_seq=HY_SV_MAX_SEQ)
+    dec = [logits[0]]
+    for t in range(n, len(seq) - 1):
+        logits, cache = model.decode_step(params, cache, tokens[:, t:t + 1])
+        dec.append(logits[0])
+    full, _ = lm.forward_train(params, model.cfg, tokens)
+    fwd = full[0, n - 1:len(seq) - 1].float()
+    return [float((d.float() - f).abs().max() / f.abs().max())
+            for d, f in zip(dec, fwd)]
+
+
+_FLASH = ops.flash_attention
+_K1_WINDOWED = [0]  # K1's launches with a window, while counted
+
+
+def _window_counting(q, k, v, *, causal=True, window=0):
+    """``ops.flash_attention`` that also counts the calls with a
+    window."""
+    _K1_WINDOWED[0] += window > 0
+    return _FLASH(q, k, v, causal=causal, window=window)
+
+
+def phase_xlstm_serve(cfg) -> dict:
+    """xlstm-125m at full width on the fused engine, groups of 512 and
+    384 prompt tokens: tokens identical to the groups run directly; K6
+    with its state once for each mLSTM layer a group.  Returns the main
+    path's launches."""
+    model = build_model(cfg)
+    params = model.serving_params(model.init(seed=0))
+    n_m = cfg.num_layers // cfg.slstm_every * (cfg.slstm_every - 1)
+    log(f"[39 xlstm serve] {cfg.name}: full width ({cfg.num_layers} layers: "
+        f"{n_m} mLSTM, {cfg.num_layers - n_m} sLSTM; d_model {cfg.d_model}), "
+        f"{cfg.param_count() / 1e9:.4f} B params")
+    reqs = _sv_requests(cfg.vocab_size, XL_SV_PROMPTS, (XL_SV_NEW,) * 2, 39)
+    counts, _ = _serve_run("39 xlstm serve", model, params, reqs,
+                           XL_SV_MAX_SEQ, engine="fused")
+    assert counts["mlstm_scan"] == counts["mlstm_scan_state"] == 2 * n_m, \
+        counts
+    assert counts["mlstm_scan_tc"] == counts["mlstm_scan"], counts
+    del model, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_hymba_template(runs: str) -> dict:
+    """A serve template for hymba-1.5b, registered as a user registers
+    one, at ``scale="full"`` through ``run_workflow`` on the card: its
+    completions identical to ``smoke_serve`` called directly on the same
+    weights (its 8-token prompts under the window: the ring's empty slots
+    masked).  Returns K1's and K5's launches."""
+    from repro_torch.core import WorkflowRegistry, WorkflowTemplate
+
+    reg = WorkflowRegistry()
+    reg.register(WorkflowTemplate(
+        name="serve-hymba-1.5b", version="1.0.0",
+        description="Batched serving recipe for hymba-1.5b",
+        arch="hymba-1.5b", shape="decode_32k", kind="serve",
+        checks=("throughput_positive",)))
+    t = reg.get("serve-hymba-1.5b").with_overrides(scale="full")
+    cfg = get_config(t.arch)
+    _reset_serve_counters()
+    res = run_workflow(t, ProvenanceStore(runs), device="cuda",
+                       smoke_batch=WF_SMOKE_BATCH)
+    counts = _serve_counts()
+    done = {c.uid: c.tokens for c in res.final_state}
+    assert res.ok and all(ok for ok, _ in res.checks.values()), res.checks
+    model = build_model(cfg)
+    params = model.serving_params(model.init(t.data.seed))
+    direct, _ = smoke_serve(
+        model, params, num_requests=2 * WF_SMOKE_BATCH,
+        max_batch=WF_SMOKE_BATCH, max_seq=WF_SMOKE_SEQ + 64,
+        vocab_size=cfg.vocab_size, seed=t.data.seed)
+    del model, params
+    torch.cuda.empty_cache()
+    same = done == {c.uid: c.tokens for c in direct}
+    stats = [r for r in res.record.metrics() if r.get("stage") == "serve"][0]
+    log(f"[40 hymba template] {t.name} scale=full ({cfg.num_layers} layers) "
+        f"fused: requests={len(done)} tokens={int(stats['tokens'])} "
+        f"tok_per_s={stats['tok_per_s']:.1f} launches="
+        f"{ {k: v for k, v in counts.items() if v} }; checks {res.checks}; "
+        f"stage walls s {_stage_walls(res)}")
+    log(f"[40 hymba template]   completions "
+        f"{ {u: v[:8] for u, v in sorted(done.items())} }; token-identical "
+        f"to smoke_serve called directly: {same}")
+    assert len(done) == 2 * WF_SMOKE_BATCH and same, (done, direct)
+    assert counts["ssm_scan_state"] == counts["ssm_scan"] > 0, counts
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3049,6 +3616,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as runs:
         sw = phase_slice_workflows(runs)
 
+    # serving the MoE decoders, hymba and the xLSTM: K5 and K6 with their
+    # final state and K4 at the serving shapes, then each main path
+    # (counters reset just before, read just after each run)
+    sk = phase_serve_kernels(torch.Generator(device="cuda").manual_seed(36),
+                             hcfg, xcfg, mcfg)
+    ms = phase_moe_serve(mcfg)
+    hs = phase_hymba_serve(hcfg)
+    xs = phase_xlstm_serve(xcfg)
+    with tempfile.TemporaryDirectory() as runs:
+        ht = phase_hymba_template(runs)
+    state = {"ssm_scan": hs["ssm_scan_state"] + ht["ssm_scan_state"],
+             "mlstm_scan": xs["mlstm_scan_state"]}
+
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3056,20 +3636,23 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:115",
              launches=(launches["flash_attention"] + wf["flash_attention"]
                        + card["flash_attention"] + wh["flash_attention"]
-                       + pv["flash_attention"] + sw["flash_attention"]),
-             **k1),
+                       + pv["flash_attention"] + sw["flash_attention"]
+                       + ms["flash_attention"] + hs["flash_attention"]
+                       + xs["flash_attention"] + ht["flash_attention"]),
+             hymba_prefill=sk["flash_attention"], **k1),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
              includes=[PAGED_COMMON, HOPPER_COMMON],
              replaces="src/repro/kernels/paged_attention.py:230",
              launches=(launches["paged_attention"] + wf["paged_attention"]
-                       + pv["paged_attention"]),
+                       + pv["paged_attention"] + ms["paged_attention"]),
              **k2),
         dict(name="paged_attention_mq", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention_mq.cu",
              includes=[PAGED_COMMON, HOPPER_COMMON],
              replaces="src/repro/kernels/paged_attention.py:170",
-             launches=k3_launches + wf["paged_attention_mq"], **k3),
+             launches=(k3_launches + wf["paged_attention_mq"]
+                       + ms["paged_attention_mq"]), **k3),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              includes=[HOPPER_COMMON],
@@ -3082,7 +3665,9 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
              includes=[MLSTM_TC, HOPPER_COMMON],
              replaces="src/repro/kernels/mlstm_scan.py:117",
-             launches=xl_launches["mlstm_scan"], **k6),
+             launches=xl_launches["mlstm_scan"] + xs["mlstm_scan"],
+             state_launches=state["mlstm_scan"],
+             with_state=sk["mlstm_scan"], **k6),
         dict(name="mlstm_scan_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/mlstm_scan_bwd.cu",
              includes=[MLSTM_TC, HOPPER_COMMON],
@@ -3092,7 +3677,10 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/ssm_scan.cu",
              includes=[SSM_COMMON],
              replaces="src/repro/kernels/ssm_scan.py:63",
-             launches=hy_launches["ssm_scan"], **k5),
+             launches=(hy_launches["ssm_scan"] + hs["ssm_scan"]
+                       + ht["ssm_scan"]),
+             state_launches=state["ssm_scan"],
+             with_state=sk["ssm_scan"], **k5),
         dict(name="ssm_scan_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
              includes=[SSM_COMMON],
@@ -3102,7 +3690,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/moe_gmm.cu",
              includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/moe_gmm.py:65",
-             launches=moe_launches["moe_gmm"], **k4),
+             launches=moe_launches["moe_gmm"] + ms["moe_gmm"],
+             serving_decode=sk["moe_gmm"], **k4),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

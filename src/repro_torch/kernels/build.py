@@ -58,10 +58,10 @@ _SIGNATURES = {
     "repro_paged_split_pages": [_I, _I, _I],
     # stream: one launch of an empty kernel (the launch floor)
     "repro_launch_floor": [_P],
-    # q, k, v, i_pre, f_pre, h, m (nullable), qn (nullable), B, H, S, D,
-    # DV, scale, dtype, stream, tensor_cores (host int: 1 when the
-    # tensor-core kernel launched)
-    "repro_mlstm_scan": [_P] * 8 + [_I] * 5 + [_F, _I, _P, _P],
+    # q, k, v, i_pre, f_pre, h, m (nullable), qn (nullable), the final
+    # state C, n, m (nullable), B, H, S, D, DV, scale, dtype, stream,
+    # tensor_cores (host int: 1 when the tensor-core kernel launched)
+    "repro_mlstm_scan": [_P] * 11 + [_I] * 5 + [_F, _I, _P, _P],
     # D, DV, dtype -> 1 when K6 and K6-bwd run on the tensor cores
     "repro_mlstm_scan_tensor_cores": [_I, _I, _I],
     # D -> bytes of shared memory K6's FMA kernel needs
@@ -73,8 +73,9 @@ _SIGNATURES = {
     "repro_mlstm_scan_bwd": [_P] * 18 + [_I] * 5 + [_F, _I, _P, _P],
     # D, DV -> bytes of shared memory K6-bwd's larger FMA walk needs
     "repro_mlstm_scan_bwd_smem": [_I, _I],
-    # x, dt, A, B, C, D, y, ckpt (nullable), B, S, Din, N, dtype, stream
-    "repro_ssm_scan": [_P] * 8 + [_I] * 5 + [_P],
+    # x, dt, A, B, C, D, y, ckpt (nullable), the final state (nullable),
+    # B, S, Din, N, dtype, stream
+    "repro_ssm_scan": [_P] * 9 + [_I] * 5 + [_P],
     # () -> the steps between K5's checkpoints
     "repro_ssm_scan_chunk": [],
     # () -> the largest state size N of K5 and K5-bwd

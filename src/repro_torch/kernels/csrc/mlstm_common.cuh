@@ -155,6 +155,14 @@ __device__ __forceinline__ void pair_dots(const float* A, const float* B,
     }
 }
 
+// Where K6 writes the final state for serving (all null: not asked for):
+// C (B, H, D, DV), n (B, H, D) and m (B, H), float32.
+struct FinalState {
+    float* C;
+    float* n;
+    float* m;
+};
+
 // The walk over the chunks of one DV tile (columns [v0, v0 + TILE)) of one
 // (batch, head), one block of THREADS threads.
 //
@@ -164,6 +172,11 @@ __device__ __forceinline__ void pair_dots(const float* A, const float* B,
 // (D x TILE) and n stay in shared memory for the whole walk; every tile
 // recomputes the scores and n, which cost little beside C.  Tile 0 writes
 // each row's m and qn when stats are asked for.
+//
+// With `fin` (forward only), the walk also writes the final state: its
+// (D, TILE) slice of C, and (tile 0) n and the last row's m, the
+// sequential oracle's (C, n, m) after the last row (the chunkwise m is the
+// oracle's: both are max_j (log i_j + the log forgets after j)).
 //
 // Backward's dv (BWD = true), in reverse chunk order, carrying dC's slice:
 // dv_j = sum_t S[t, j] dO_t + wk_j k_j dC, then dC = c_decay dC +
@@ -176,8 +189,8 @@ __device__ void vtile_walk(float* smem, const T* __restrict__ q,
                            const float* __restrict__ m_saved,
                            const float* __restrict__ rden,
                            T* __restrict__ out, float* __restrict__ m_out,
-                           float* __restrict__ qn_out, int S, int D, int DV,
-                           float scale) {
+                           float* __restrict__ qn_out, FinalState fin, int S,
+                           int D, int DV, float scale) {
     const int DP = D + 4;
     float* Cs = smem;                // D x TILE
     float* ns = Cs + D * TILE;       // D
@@ -324,6 +337,17 @@ __device__ void vtile_walk(float* smem, const T* __restrict__ q,
                 for (int r = 0; r < L; ++r) acc += Ks[r * DP + d];
                 ns[d] = c_decay * ns[d] + acc;
             }
+        }
+    }
+    if (!BWD && fin.C != nullptr) {
+        __syncthreads();  // the last chunk's update of C and n
+        for (int i = tid; i < D * TILE; i += THREADS) {
+            const int d = i / TILE, col = v0 + i % TILE;
+            if (col < DV) fin.C[(bh * D + d) * DV + col] = Cs[i];
+        }
+        if (blockIdx.x == 0) {
+            for (int d = tid; d < D; d += THREADS) fin.n[bh * D + d] = ns[d];
+            if (tid == 0) fin.m[bh] = g.sc[1];
         }
     }
 }

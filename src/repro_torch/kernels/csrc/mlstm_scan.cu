@@ -12,7 +12,14 @@
 // q, k (B, H, S, D) and v (B, H, S, DV) in float32 or bfloat16, the gate
 // pre-activations (B, H, S) float32; h (B, H, S, DV) in the input type.
 // For training it also writes each row's stabiliser m and normaliser qn
-// (float32), what K6-bwd needs; serving-style callers pass none.
+// (float32), what K6-bwd needs.  For serving it can write the final
+// float32 state instead, C (B, H, D, DV), n (B, H, D) and m (B, H), the
+// state the xLSTM's prefill hands to decode (the reference gets it from
+// its sequential oracle, src/repro/models/lm.py, _mlstm_prefill_layer):
+// each block its DV tile of C as the walk leaves it, tile 0 n and the last
+// row's m.  The chunkwise m is the oracle's (both are the max over j of
+// log i_j plus the log forgets after j), so the state is the oracle's,
+// not one rescaled by another stabiliser.
 //
 // What bounds it on the H100: at the training shape (B = 8, H = 4,
 // S = 4096, D = DV = 384, bf16) it reads q, k, v and writes h, about
@@ -74,18 +81,19 @@ __global__ void __launch_bounds__(THREADS)
 mlstm_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ ip,
                  const float* __restrict__ fp, T* __restrict__ h,
-                 float* __restrict__ m_out, float* __restrict__ qn_out, int S,
-                 int D, int DV, float scale) {
+                 float* __restrict__ m_out, float* __restrict__ qn_out,
+                 FinalState fin, int S, int D, int DV, float scale) {
     extern __shared__ float4 smem4[];
     vtile_walk<T, false>(reinterpret_cast<float*>(smem4), q, k, v, ip, fp,
-                         nullptr, nullptr, h, m_out, qn_out, S, D, DV, scale);
+                         nullptr, nullptr, h, m_out, qn_out, fin, S, D, DV,
+                         scale);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* ip, const float* fp, void* h, float* m_out,
-                   float* qn_out, int B, int H, int S, int D, int DV,
-                   float scale, cudaStream_t stream) {
+                   float* qn_out, FinalState fin, int B, int H, int S, int D,
+                   int DV, float scale, cudaStream_t stream) {
     auto kern = mlstm_fwd_kernel<T>;
     // allow the largest layout
     const cudaError_t attr = repro::allow_smem<mlstm_fwd_kernel<T>>(
@@ -95,7 +103,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     kern<<<grid, THREADS, sizeof(float) * vtile_floats(D), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), ip, fp, static_cast<T*>(h), m_out, qn_out,
-        S, D, DV, scale);
+        fin, S, D, DV, scale);
     return cudaGetLastError();
 }
 
@@ -124,8 +132,9 @@ cudaError_t launch_tc_p(const CUtensorMap& mq, const CUtensorMap& mk,
 
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const float* ip, const float* fp, void* h,
-                      float* m_out, float* qn_out, int B, int H, int S,
-                      int D, int DV, float scale, cudaStream_t stream) {
+                      float* m_out, float* qn_out, FinalState fin, int B,
+                      int H, int S, int D, int DV, float scale,
+                      cudaStream_t stream) {
     using repro::hopper::make_map_bf16_rows;
     CUtensorMap mq, mk, mv;
     cudaError_t err = make_map_bf16_rows(&mq, q, B, H, S, D, tc::L);
@@ -134,7 +143,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     const tc::Params p{ip, fp, nullptr, nullptr, nullptr,
                        static_cast<__nv_bfloat16*>(h), m_out, qn_out,
-                       nullptr, nullptr, S, DV, 0, scale};
+                       nullptr, nullptr, S, DV, 0, scale, fin};
     switch (D / 64) {  // the panels of q and k: the walk's P
         case 1: return launch_tc_p<1>(mq, mk, mv, p, B, H, DV, stream);
         case 2: return launch_tc_p<2>(mq, mk, mv, p, B, H, DV, stream);
@@ -165,26 +174,32 @@ extern "C" int repro_mlstm_scan_smem(int D) {
 extern "C" int repro_mlstm_scan_tc_smem() { return tc::SMEM; }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, h); gates float32.  m_out and
-// qn_out: both null, or (B, H, S) float32 each.  scale = D^-0.5.
+// qn_out: both null, or (B, H, S) float32 each.  c_fin, n_fin, m_fin: all
+// null, or the final state C (B, H, D, DV), n (B, H, D) and m (B, H),
+// float32.  scale = D^-0.5.
 // *tensor_cores (host memory) gets 1 when the tensor-core kernel was
 // launched, 0 when the FMA kernel was.  Returns a cudaError_t.
 extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v,
                                 const float* ip, const float* fp, void* h,
-                                float* m_out, float* qn_out, int B, int H,
+                                float* m_out, float* qn_out, float* c_fin,
+                                float* n_fin, float* m_fin, int B, int H,
                                 int S, int D, int DV, float scale,
                                 int dtype, void* stream, int* tensor_cores) {
     if (B < 1 || H < 1 || S < 1 || D < 8 || D > MAXDIM || D % 8 != 0 ||
         DV < 8 || DV > MAXDIM || DV % 8 != 0 || (dtype != 0 && dtype != 1) ||
-        (m_out == nullptr) != (qn_out == nullptr) || tensor_cores == nullptr)
+        (m_out == nullptr) != (qn_out == nullptr) ||
+        (c_fin == nullptr) != (n_fin == nullptr) ||
+        (c_fin == nullptr) != (m_fin == nullptr) || tensor_cores == nullptr)
         return (int)cudaErrorInvalidValue;
+    const FinalState fin{c_fin, n_fin, m_fin};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     *tensor_cores = repro_mlstm_scan_tensor_cores(D, DV, dtype);
     if (*tensor_cores)
-        return (int)launch_tc(q, k, v, ip, fp, h, m_out, qn_out, B, H, S, D,
-                              DV, scale, st);
+        return (int)launch_tc(q, k, v, ip, fp, h, m_out, qn_out, fin, B, H, S,
+                              D, DV, scale, st);
     if (dtype == 0)
-        return (int)launch<float>(q, k, v, ip, fp, h, m_out, qn_out, B, H, S,
-                                  D, DV, scale, st);
-    return (int)launch<__nv_bfloat16>(q, k, v, ip, fp, h, m_out, qn_out, B, H,
-                                      S, D, DV, scale, st);
+        return (int)launch<float>(q, k, v, ip, fp, h, m_out, qn_out, fin, B, H,
+                                  S, D, DV, scale, st);
+    return (int)launch<__nv_bfloat16>(q, k, v, ip, fp, h, m_out, qn_out, fin,
+                                      B, H, S, D, DV, scale, st);
 }

@@ -111,7 +111,8 @@ mlstm_dv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 int D, int DV, float scale) {
     extern __shared__ float4 smem4[];
     vtile_walk<T, true>(reinterpret_cast<float*>(smem4), q, k, dh, ip, fp, m,
-                        rden, dv, nullptr, nullptr, S, D, DV, scale);
+                        rden, dv, nullptr, nullptr, FinalState{}, S, D,
+                        DV, scale);
 }
 
 // The dq walk (blockIdx.x < ntd: forward, carrying C' rows [d0, d0 + 64))

@@ -63,6 +63,7 @@
 
 #include "common.cuh"
 #include "hopper_common.cuh"
+#include "mlstm_common.cuh"
 
 namespace repro {
 namespace mlstm {
@@ -120,6 +121,7 @@ struct Params {
     const __nv_bfloat16* u; // DQ: q, DK: k (B, H, S, Wout)
     int S, Wout, ntd;
     float scale;            // D^-0.5
+    FinalState fin;         // K6 for serving: the final state, or nulls
 };
 
 // The gate arrays of rows [c0, c0 + 64) from the pre-activations and the
@@ -393,6 +395,9 @@ __device__ __forceinline__ void make_chunks(const Smem& sm,
         mbar_arrive(&sm.cfull[s]);
         in = next;
     }
+    // K6's final m: the stabiliser after the last chunk
+    if (MODE == FWD && p.fin.m != nullptr && tile == 0 && lane == 0)
+        p.fin.m[bh] = m_carry;
 }
 
 // A consumer warpgroup: ROLE 0 is O (out and its epilogue), 1 is S (the
@@ -685,6 +690,22 @@ __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(&sm.cempty[s]);
+    }
+    if (MODE == FWD && p.fin.C != nullptr) {
+        // K6's final state: this warpgroup's tiles of C^T (rows the DV
+        // columns of this block, columns D in panel pp), and, from S, n
+        // (each thread the entries it updated last)
+        const int D = 64 * P;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+                const int a = r0 + 8 * ((e >> 1) & 1);
+                const int d = 64 * (2 * j + ROLE) + 8 * (e >> 2) + c2 + (e & 1);
+                p.fin.C[(bh * D + d) * p.Wout + 64 * tile + a] = st[j][e];
+            }
+        if (IS_S && tile == 0)
+            for (int d = t; d < D; d += 128) p.fin.n[bh * D + d] = sm.n[d];
     }
 }
 

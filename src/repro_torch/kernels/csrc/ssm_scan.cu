@@ -11,6 +11,11 @@
 // the float32 state at the start of every CHUNK-step chunk,
 // (ceil(S / CHUNK), B, Din, N), which K5-bwd recomputes each chunk from
 // (the reference's checkpointed adjoint, src/repro/kernels/ssm_vjp.py).
+// For serving it can also write the final float32 state (B, Din, N), the
+// state the prefill hands to decode (the reference gets it from its
+// sequential oracle, src/repro/kernels/ops.py, ssm_scan_with_state): the
+// carry each warp holds after its last pass, which steps past S leave as
+// it was.
 //
 // What bounds it on the H100: at hymba-1.5b's training shape (B = 2,
 // S = 4096, Din = 3200, N = 16, bf16) it reads x and dt (52 MB each) and
@@ -67,8 +72,8 @@ ssm_scan_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                     const float* __restrict__ A, const float* __restrict__ Bm,
                     const float* __restrict__ Cm,
                     const float* __restrict__ Dv, T* __restrict__ y,
-                    float* __restrict__ ckpt, int Bsz, int S, int Din,
-                    int N) {
+                    float* __restrict__ ckpt, float* __restrict__ fin,
+                    int Bsz, int S, int Din, int N) {
     extern __shared__ float4 smem4[];
     float* sx = reinterpret_cast<float*>(smem4);  // x, then y
     float* sdt = sx + NW * PASS;
@@ -196,12 +201,17 @@ ssm_scan_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         __syncthreads();
         tile_to_row(y, sx, it, b, S, Din, t0, c0, vec);
     }
+    // the final state: the carry after the last pass (its lane 31 wrote
+    // it before the pass's last __syncthreads)
+    if (fin != nullptr && valid)
+        for (int n = lane; n < N; n += 32)
+            fin[((size_t)b * Din + c) * N + n] = wcarry[n];
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* dt, const float* A,
                    const float* Bm, const float* Cm, const float* Dv, void* y,
-                   float* ckpt, int Bsz, int S, int Din, int N,
+                   float* ckpt, float* fin, int Bsz, int S, int Din, int N,
                    cudaStream_t stream) {
     const cudaError_t attr =
         repro::allow_smem<ssm_scan_fwd_kernel<T>>(smem_bytes<T>(MAX_N));
@@ -209,7 +219,7 @@ cudaError_t launch(const void* x, const void* dt, const float* A,
     const dim3 grid((Din + NW - 1) / NW, Bsz);
     ssm_scan_fwd_kernel<T><<<grid, THREADS, smem_bytes<T>(N), stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(dt), A, Bm, Cm, Dv,
-        static_cast<T*>(y), ckpt, Bsz, S, Din, N);
+        static_cast<T*>(y), ckpt, fin, Bsz, S, Din, N);
     return cudaGetLastError();
 }
 
@@ -222,20 +232,21 @@ extern "C" int repro_ssm_scan_chunk() { return CHUNK; }
 extern "C" int repro_ssm_scan_max_state() { return MAX_N; }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, dt, y); A, B, C, D float32;
-// 1 <= N <= 64.  ckpt: null, or (ceil(S / CHUNK), B, Din, N) float32.
-// Returns a cudaError_t.
+// 1 <= N <= 64.  ckpt: null, or (ceil(S / CHUNK), B, Din, N) float32;
+// fin: null, or the final state (B, Din, N) float32.  Returns a
+// cudaError_t.
 extern "C" int repro_ssm_scan(const void* x, const void* dt, const float* A,
                               const float* Bm, const float* Cm,
-                              const float* Dv, void* y, float* ckpt, int B,
-                              int S, int Din, int N, int dtype,
-                              void* stream) {
+                              const float* Dv, void* y, float* ckpt,
+                              float* fin, int B, int S, int Din, int N,
+                              int dtype, void* stream) {
     if (B < 1 || S < 1 || Din < 1 || N < 1 || N > MAX_N ||
         (dtype != 0 && dtype != 1))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return (int)launch<float>(x, dt, A, Bm, Cm, Dv, y, ckpt, B, S, Din, N,
-                                  st);
-    return (int)launch<__nv_bfloat16>(x, dt, A, Bm, Cm, Dv, y, ckpt, B, S,
-                                      Din, N, st);
+        return (int)launch<float>(x, dt, A, Bm, Cm, Dv, y, ckpt, fin, B, S,
+                                  Din, N, st);
+    return (int)launch<__nv_bfloat16>(x, dt, A, Bm, Cm, Dv, y, ckpt, fin, B,
+                                      S, Din, N, st);
 }

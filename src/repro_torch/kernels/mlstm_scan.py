@@ -35,6 +35,14 @@ each row's stabiliser ``m`` and normaliser ``qn`` and saves them with its
 inputs and output; the backward recomputes the chunk states from them.
 On CPU tensors the same Function runs the plain pair.  Both kernels are
 deterministic: no atomics, every sum in a fixed order.
+
+For serving, :func:`mlstm_scan_with_state` asks K6 for the final float32
+state ``(C (B, H, D, DV), n (B, H, D), m (B, H))`` beside h, which the
+xLSTM's prefill hands to decode; the reference runs its sequential
+oracle there, because its Pallas kernel is stateless.  The chunkwise
+``m`` is the oracle's, so the state is the oracle's too.  Its plain
+version is :func:`repro_torch.kernels.ref.mlstm_scan_chunked` with
+``with_state``.
 """
 from __future__ import annotations
 
@@ -48,9 +56,11 @@ from repro_torch.kernels import build, ref
 plain = ref.mlstm_scan_chunked
 plain_bwd = ref.mlstm_scan_bwd
 
-# kernel launches since the last reset: K6 (forward) and K6-bwd, all and
-# by path (tensor cores or FMAs)
+# kernel launches since the last reset: K6 (forward; ``state_launches``
+# of them with the final state) and K6-bwd, all and by path (tensor cores
+# or FMAs)
 launches = 0
+state_launches = 0
 bwd_launches = 0
 tc_launches = 0
 fma_launches = 0
@@ -161,26 +171,36 @@ def _check(name: str, tensors, q: torch.Tensor, v: torch.Tensor,
 
 def mlstm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     i_pre: torch.Tensor, f_pre: torch.Tensor, *,
-                    with_stats: bool = False):
+                    with_stats: bool = False, with_state: bool = False):
     """Launch K6 on the current stream.  Returns h ``(B, H, S, DV)`` in
     q's dtype, or ``(h, m, qn)`` with ``with_stats`` (each row's
-    stabiliser and normaliser, ``(B, H, S)`` float32)."""
-    global launches, tc_launches, fma_launches
+    stabiliser and normaliser, ``(B, H, S)`` float32), or ``(h, (C, n,
+    m))`` with ``with_state`` (the final float32 state)."""
+    global launches, state_launches, tc_launches, fma_launches
+    if with_stats and with_state:
+        raise ValueError("K6 writes the stats or the final state, not both")
     _check("mlstm_scan_cuda", (("q", q), ("k", k), ("v", v), ("i_pre", i_pre),
                                ("f_pre", f_pre)), q, v, i_pre, f_pre)
     B, H, S, D = q.shape
     DV = v.shape[-1]
     ip, fp = i_pre.float(), f_pre.float()
     h = torch.empty_like(v)
+    f32 = dict(dtype=torch.float32, device=q.device)
     m = qn = None
     if with_stats:
-        m = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        m = torch.empty((B, H, S), **f32)
         qn = torch.empty_like(m)
+    fin = ((torch.empty((B, H, D, DV), **f32), torch.empty((B, H, D), **f32),
+            torch.empty((B, H), **f32)) if with_state else None)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     tc = ctypes.c_int(-1)  # the path the library launched
     err = build.library().repro_mlstm_scan(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ip.data_ptr(),
-        fp.data_ptr(), h.data_ptr(), None if m is None else m.data_ptr(),
-        None if qn is None else qn.data_ptr(), B, H, S, D, DV, D ** -0.5,
+        fp.data_ptr(), h.data_ptr(), ptr(m), ptr(qn),
+        *(ptr(x) for x in (fin or (None,) * 3)), B, H, S, D, DV, D ** -0.5,
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
         ctypes.byref(tc))
     build.check(err, "repro_mlstm_scan")
@@ -189,6 +209,9 @@ def mlstm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         tc_launches += 1
     else:
         fma_launches += 1
+    if with_state:
+        state_launches += 1
+        return h, fin
     return (h, m, qn) if with_stats else h
 
 
@@ -278,3 +301,14 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return plain(q, k, v, i_pre, f_pre)
     return mlstm_scan_cuda(*(x.contiguous() for x in (q, k, v, i_pre,
                                                       f_pre)))
+
+
+def mlstm_scan_with_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          i_pre: torch.Tensor, f_pre: torch.Tensor):
+    """``(h (B, H, S, DV), (C, n, m))`` of the chunkwise mLSTM, the final
+    state in float32, for the prefill (no autograd): the plain version on
+    a CPU tensor, K6 with its state output on a CUDA tensor."""
+    if q.device.type == "cpu":
+        return plain(q, k, v, i_pre, f_pre, with_state=True)
+    return mlstm_scan_cuda(*(x.contiguous() for x in (q, k, v, i_pre, f_pre)),
+                           with_state=True)

@@ -17,16 +17,22 @@ transposing or padding happens here.
     page table (K3), q ``(B, T, H, D)`` with ``T = k + 1`` draft
     positions, row ``t`` seeing the kv positions ``< base_len + t``;
   * :func:`decode_attention` and :func:`decode_attention_mq` — one decode
-    token, or the ``T`` verify rows, against a dense cache: the plain
-    version on every device, as in the reference, where the dense decode
-    and verify reads are never a Pallas kernel;
+    token, or the ``T`` verify rows, against a dense cache, and
+    :func:`masked_decode_attention`, one token against a window layer's
+    ring buffer: the plain version on every device, as in the reference,
+    where the dense decode and verify reads are never a Pallas kernel;
   * :func:`mlstm_scan` — the xLSTM matrix memory of the train path (K6,
     and K6-bwd under autograd), q/k ``(B, H, S, D)``, v ``(B, H, S, DV)``,
-    gates ``(B, H, S)``; :func:`mlstm_step` — one recurrent step, the
+    gates ``(B, H, S)``; :func:`mlstm_scan_with_state` — the prefill's,
+    K6 with its final ``(C, n, m)`` (the reference runs its sequential
+    oracle there); :func:`mlstm_step` — one recurrent step of decode, the
     sequential oracle, as in the reference;
   * :func:`ssm_scan` — the selective scan of the hybrid's train path (K5,
     and K5-bwd under autograd), x/dt ``(B, S, Din)``, A ``(Din, N)``,
-    B/C ``(B, S, N)``, D ``(Din,)``;
+    B/C ``(B, S, N)``, D ``(Din,)``; :func:`ssm_scan_with_state` — the
+    prefill's, K5 with its final state (the reference's oracle there);
+    :func:`ssm_step` — one recurrent step of decode, the sequential
+    oracle, as in the reference;
   * :func:`moe_gmm` — the grouped matmul over expert-sorted rows of the
     MoE layer's expert FFN (K4, with K4 on the transposed weights for dX
     under autograd), tokens ``(M, K)``, group sizes ``(E,)``, w
@@ -47,8 +53,10 @@ from repro_torch.kernels.paged_attention_mq import (
     paged_attention_mq as paged_decode_attention_mq)
 
 __all__ = ["decode_attention", "decode_attention_mq", "flash_attention",
-           "mlstm_scan", "mlstm_step", "moe_gmm", "paged_decode_attention",
-           "paged_decode_attention_mq", "ssm_scan"]
+           "masked_decode_attention",
+           "mlstm_scan", "mlstm_scan_with_state", "mlstm_step", "moe_gmm",
+           "paged_decode_attention", "paged_decode_attention_mq", "ssm_scan",
+           "ssm_scan_with_state", "ssm_step"]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -56,6 +64,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Single-token attention against a dense cache: q ``(B, 1, H, D)``,
     k/v ``(B, T, KH, D)``, valid lengths ``(B,)``."""
     return ref.attention(q, k, v, causal=False, window=0, kv_len=kv_len)
+
+
+def masked_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, valid: torch.Tensor
+                            ) -> torch.Tensor:
+    """Single-token attention against the slots of a ring-buffer cache
+    that ``valid`` ``(B, T)`` marks: q ``(B, 1, H, D)``, k/v ``(B, T, KH,
+    D)``."""
+    return ref.masked_decode_attention(q, k, v, valid)
 
 
 def decode_attention_mq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -77,6 +94,15 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunkwise form is exact for any chunk length, up to rounding)."""
     del chunk
     return _mlstm.mlstm_scan(q, k, v, i_pre, f_pre)
+
+
+def mlstm_scan_with_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          i_pre: torch.Tensor, f_pre: torch.Tensor):
+    """The prefill's mLSTM: ``(h (B, H, S, DV), (C, n, m))``, the final
+    state in float32 — K6 with its state output on the card, its plain
+    version on the CPU.  The reference's prefill gets the same state from
+    its sequential oracle (``kref.mlstm_scan``)."""
+    return _mlstm.mlstm_scan_with_state(q, k, v, i_pre, f_pre)
 
 
 def mlstm_step(q, k, v, i_pre, f_pre, state):
@@ -108,6 +134,25 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     blocking, up to rounding)."""
     del block_d, chunk
     return _ssm.ssm_scan(x, dt, A, Bmat, Cmat, D)
+
+
+def ssm_scan_with_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        Bmat: torch.Tensor, Cmat: torch.Tensor,
+                        D: torch.Tensor):
+    """The prefill's selective scan: ``(y (B, S, Din), final float32
+    state (B, Din, N))`` — K5 with its state output on the card, its
+    plain version on the CPU.  The reference's prefill gets the same
+    state from its oracle (or its chunked scan)."""
+    return _ssm.ssm_scan_with_state(x, dt, A, Bmat, Cmat, D)
+
+
+def ssm_step(x, dt, A, Bmat, Cmat, D, state):
+    """One recurrent step (the decode path): the sequential oracle from
+    ``state`` ``(B, Din, N)``, x/dt ``(B, Din)``, B/C ``(B, N)``.  Returns
+    ``(y (B, Din), new float32 state)``."""
+    y, state = ref.ssm_scan(x[:, None], dt[:, None], A, Bmat[:, None],
+                            Cmat[:, None], D, initial=state)
+    return y[:, 0], state
 
 
 def moe_gmm(tokens: torch.Tensor, group_sizes, w: torch.Tensor, *,

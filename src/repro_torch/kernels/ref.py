@@ -70,6 +70,22 @@ def attention(
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def masked_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, valid: torch.Tensor
+                            ) -> torch.Tensor:
+    """One decode token against cache slots chosen by ``valid`` ``(B,
+    T)`` (the ring buffer of a window layer), q ``(B, 1, H, D)``, k/v
+    ``(B, T, KH, D)``: the reference's ``_masked_decode_attention``."""
+    B, _, H, D = q.shape
+    KH = k.shape[2]
+    qf = q.float().reshape(B, 1, KH, H // KH, D) * (D ** -0.5)
+    scores = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
+    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    out = torch.einsum("bkgst,btkd->bskgd", torch.softmax(scores, dim=-1),
+                       v.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
 def _masked_scores(q, k, causal, window, q_offset):
     """float32 scores ``(B, KH, G, S, T)`` of ``q * D**-0.5`` against k,
     ``NEG_INF`` where the causal / window mask rules a pair out."""
@@ -358,6 +374,7 @@ def mlstm_scan_chunked(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     i_pre: torch.Tensor, f_pre: torch.Tensor, *,
     chunk: int = MLSTM_CHUNK, with_stats: bool = False,
+    with_state: bool = False,
 ):
     """K6's plain version: the chunkwise-parallel mLSTM of the reference's
     ``_mlstm_kernel``, one chunk of ``chunk`` rows at a time, the
@@ -365,7 +382,10 @@ def mlstm_scan_chunked(
     :func:`_mlstm_gates` says.  Returns h ``(B, H, S, DV)`` in v's dtype;
     with ``with_stats`` also each row's stabiliser ``m`` and
     normaliser ``qn = q_t . n_t / sqrt(D)`` ``(B, H, S)`` float32, what
-    the backward needs."""
+    the backward needs; with ``with_state`` instead ``(h, (C, n, m))``,
+    the final carry: the state :func:`mlstm_scan` returns (the chunkwise
+    ``m`` is the sequential one: both are the max over j of ``log i_j``
+    plus the log forgets after j)."""
     B, H, S, D = q.shape
     DV = v.shape[-1]
     scale = D ** -0.5
@@ -394,6 +414,8 @@ def mlstm_scan_chunked(
         n = c_decay[..., None] * n + kw.sum(-2)
         m_prev = m[..., -1]
     h = torch.cat(hs, dim=2)[:, :, :S].to(v.dtype).contiguous()
+    if with_state:
+        return h, (C, n, m_prev)
     if not with_stats:
         return h
     return (h, torch.cat(ms, dim=2)[..., :S].contiguous(),

@@ -11,6 +11,12 @@ counterpart.  The plain versions are
 :func:`repro_torch.kernels.ref.ssm_scan_fwd_ckpt` and
 :func:`repro_torch.kernels.ref.ssm_scan_bwd`.
 
+For serving, :func:`ssm_scan_with_state` asks K5 for the final float32
+state ``(B, Din, N)`` beside y, which the hybrid's prefill hands to
+decode; the reference runs its sequential oracle there, because its
+Pallas kernel is stateless.  Its plain version is
+:func:`repro_torch.kernels.ref.ssm_scan_chunked` at K5's chunk.
+
 Each function chooses by the tensors' device: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel (or raises).  The
 kernels read the reference layout as it is — x, dt ``(B, S, Din)`` in
@@ -37,8 +43,10 @@ from repro_torch.kernels import build, ref
 plain = ref.ssm_scan_fwd_ckpt
 plain_bwd = ref.ssm_scan_bwd
 
-# kernel launches since the last reset: K5 (forward) and K5-bwd
+# kernel launches since the last reset: K5 (forward; ``state_launches``
+# of them with the final state) and K5-bwd
 launches = 0
+state_launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,26 +93,36 @@ def _f32(*xs):
 
 def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor, *,
-                  with_ckpt: bool = False):
+                  with_ckpt: bool = False, with_state: bool = False):
     """Launch K5 on the current stream.  Returns y ``(B, S, Din)`` in x's
     dtype, or ``(y, ckpt)`` with ``with_ckpt`` (the float32 state at each
-    chunk start, ``(ceil(S / CHUNK), B, Din, N)``)."""
-    global launches
+    chunk start, ``(ceil(S / CHUNK), B, Din, N)``), or ``(y, state)``
+    with ``with_state`` (the final float32 state ``(B, Din, N)``)."""
+    global launches, state_launches
+    if with_ckpt and with_state:
+        raise ValueError("K5 writes the checkpoints or the final state, "
+                         "not both")
     _check("ssm_scan_cuda", x, dt, A, Bmat, Cmat, D)
     Bsz, S, Din = x.shape
     N = A.shape[-1]
     x, dt = x.contiguous(), dt.contiguous()
     Af, Bf, Cf, Df = _f32(A, Bmat, Cmat, D)
     y = torch.empty_like(x)
-    ckpt = (torch.empty((-(-S // CHUNK), Bsz, Din, N), dtype=torch.float32,
-                        device=x.device) if with_ckpt else None)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ckpt = (torch.empty((-(-S // CHUNK), Bsz, Din, N), **f32)
+            if with_ckpt else None)
+    fin = torch.empty((Bsz, Din, N), **f32) if with_state else None
     err = build.library().repro_ssm_scan(
         x.data_ptr(), dt.data_ptr(), Af.data_ptr(), Bf.data_ptr(),
         Cf.data_ptr(), Df.data_ptr(), y.data_ptr(),
-        None if ckpt is None else ckpt.data_ptr(), Bsz, S, Din, N,
+        None if ckpt is None else ckpt.data_ptr(),
+        None if fin is None else fin.data_ptr(), Bsz, S, Din, N,
         _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "repro_ssm_scan")
     launches += 1
+    if with_state:
+        state_launches += 1
+        return y, fin
     return (y, ckpt) if with_ckpt else y
 
 
@@ -189,3 +207,14 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type == "cpu":
         return plain(*xs)[0]
     return ssm_scan_cuda(*xs)
+
+
+def ssm_scan_with_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        Bmat: torch.Tensor, Cmat: torch.Tensor,
+                        D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y (B, S, Din), final float32 state (B, Din, N))`` of the
+    selective scan, for the prefill (no autograd): the plain version on a
+    CPU tensor, K5 with its state output on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return ref.ssm_scan_chunked(x, dt, A, Bmat, Cmat, D, chunk=CHUNK)
+    return ssm_scan_cuda(x, dt, A, Bmat, Cmat, D, with_state=True)

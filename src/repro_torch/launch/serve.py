@@ -19,10 +19,18 @@
     # on the CPU (the plain versions of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
+    # any architecture of the reference: the MoE decoders (every engine),
+    # hymba and the xLSTM (the fused engine), whisper, phi-3-vision
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch phi3.5-moe-42b-a6.6b --engine paged --spec-k 4
+
 Like the reference entry point it serves the reduced config of ``--arch``
 with random weights from ``--seed`` (the draft's from ``--seed + 1``).
-``--engine legacy`` is accepted for the reference's command lines and
-raises ``NotImplementedError`` until that engine is ported.
+Requests of one prompt length make one admission group, which the
+models without padded prefill (the MoE decoders, hymba, the xLSTM)
+need.  ``--engine legacy`` is accepted for the reference's command lines
+and raises ``NotImplementedError`` until that engine is ported.
 """
 from __future__ import annotations
 

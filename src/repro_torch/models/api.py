@@ -1,8 +1,7 @@
 """Uniform model API: ``build_model(cfg, device) -> Model``.
 
 Counterpart of the reference package's ``models/api.py``: the train
-loss of every family, and the serving entry points of the dense
-decoders, the VLM and the encoder-decoder.  A :class:`Model` dispatches
+loss and the serving entry points of every family.  A :class:`Model` dispatches
 to ``models/encdec.py`` for the encoder-decoder and to ``models/lm.py``
 for the rest, as the reference does.  A :class:`Model` knows its config
 and its device; it holds no weights — parameters are passed to each
@@ -42,6 +41,14 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     return lm.param_shapes(cfg)
 
 
+# parameter names (prefixes) that the forward reads in float32, which
+# serving keeps in float32: casting them to a narrower dtype first would
+# round what the reference reads unrounded
+FLOAT32_PARAMS = ("norm", "final", "enc_final", "ln", "headnorm", "router",
+                  "w_gates", "r_gates", "b_gates", "ssm_w_B", "ssm_w_C",
+                  "ssm_w_dt", "ssm_b_dt", "ssm_A_log", "ssm_D")
+
+
 class Model:
     def __init__(self, cfg: ModelConfig, device: torch.device):
         lm.require_ported(cfg)
@@ -70,24 +77,32 @@ class Model:
     def serving_params(self, params: lm.Params) -> lm.Params:
         """Weights for serving, made once: every matrix, bias and the
         embedding in ``cfg.dtype`` (numerically what the reference's
-        per-use ``.astype(dtype)`` gives), norm gains kept in float32, and
-        the stacked blocks (the encoder's too) split into per-layer dicts.
-        Idempotent: params already prepared come back as they are.  Not
-        for the MoE decoders, the hybrid and the xLSTM, whose serving is
-        not ported."""
-        lm.require_ported(self.cfg, serving=True)
+        per-use ``.astype(dtype)`` gives), what the forward reads in
+        float32 kept in float32 (:data:`FLOAT32_PARAMS`: the norm gains,
+        the MoE router, the sLSTM's gates, the SSM's ``A``, ``D``, ``dt``
+        and B/C projections), and the stacked blocks (the encoder's, and
+        the xLSTM's mLSTM and sLSTM stacks too) split into per-layer
+        dicts.  Idempotent: params already prepared come back as they
+        are."""
         dt = getattr(torch, self.cfg.dtype)
-        stacks = ("blocks", "enc_blocks")
 
         def cast(name, x):
-            keep = name.startswith(("norm", "final", "enc_final"))
+            keep = name.startswith(FLOAT32_PARAMS)
             return x.to(self.device, torch.float32 if keep else dt)
 
+        def split(stack):
+            return [{k: cast(k, v) for k, v in layer.items()}
+                    for layer in lm.layers(self.cfg, stack)]
+
+        stacks = ("blocks", "enc_blocks")
         out = {k: cast(k, v) for k, v in params.items() if k not in stacks}
         for name in stacks:
-            if name in params:
-                out[name] = [{k: cast(k, v) for k, v in layer.items()}
-                             for layer in lm.layers(self.cfg, params[name])]
+            if name not in params:
+                continue
+            if self.cfg.family == "ssm":
+                out[name] = {k: split(v) for k, v in params[name].items()}
+            else:
+                out[name] = split(params[name])
         return out
 
     # ---- serve -----------------------------------------------------------
@@ -133,7 +148,7 @@ class Model:
         steps, MoE capacity depends on the padded length, and the
         encoder-decoder's prefill takes no lens)."""
         return (not self.cfg.is_encoder_decoder
-                and self.cfg.family not in ("ssm", "hybrid")
+                and self.cfg.family not in lm.RECURRENT
                 and self.cfg.num_experts == 0)
 
     def verify_step(self, params, cache, tokens: torch.Tensor):
@@ -153,14 +168,14 @@ class Model:
         paged attention K/V) so rejected drafts roll back by a ``pos``
         rewind.  Recurrent state cannot rewind."""
         return (not self.cfg.is_encoder_decoder
-                and self.cfg.family not in ("ssm", "hybrid"))
+                and self.cfg.family not in lm.RECURRENT)
 
     def supports_paged_cache(self) -> bool:
         """Whether the decode cache can be paged: dense ``{k, v, pos}``
         attention caches only (not recurrent state, not the
         encoder-decoder's cross cache)."""
         return (not self.cfg.is_encoder_decoder
-                and self.cfg.family not in ("ssm", "hybrid"))
+                and self.cfg.family not in lm.RECURRENT)
 
     def init_cache(self, batch: int, max_seq: int, device=None):
         """The dense decode cache on ``device`` (default: the model's)."""

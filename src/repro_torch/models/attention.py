@@ -9,7 +9,7 @@ axis).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -72,7 +72,8 @@ def cross_kv(p: Dict[str, torch.Tensor], enc: torch.Tensor,
 def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
                   cache_k: torch.Tensor, cache_v: torch.Tensor,
                   pos: torch.Tensor, cfg: ModelConfig, *,
-                  use_rope: bool = True,
+                  use_rope: bool = True, window: int = 0,
+                  slot_pos: Optional[torch.Tensor] = None,
                   prefix: str = "attn") -> torch.Tensor:
     """One-token attention against a dense cache ``(B, S_max, KH, Dh)``.
 
@@ -84,7 +85,18 @@ def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
     reference's scatter drops the write; here it is clamped into the
     slot's own last row, which only a parked slot can reach and the next
     admission rewrites.  ``use_rope=False`` (the encoder-decoder, whose
-    positions are sinusoidal) skips the rotation."""
+    positions are sinusoidal) skips the rotation.
+
+    ``window > 0`` (the hybrid's window layers) makes the cache a ring
+    of ``S_max`` slots with ``slot_pos`` ``(B, S_max)`` the position each
+    slot holds (-1: none yet): K/V and the position are written at
+    ``pos % S_max`` in place, and the read sees the slots with ``0 <=
+    slot_pos <= pos`` and ``pos - slot_pos < window``.  The reference's
+    mask (``attention.py:126``) lacks ``0 <=``, so until a prompt plus its
+    tokens fill the window its decode also attends to the zero K/V of
+    slots that hold no position, and disagrees with its own forward; the
+    port's decode computes the windowed attention its forward computes (a
+    difference by design, ROADMAP §3)."""
     B = x.shape[0]
     q, k, v = qkv(p, x, cfg, prefix)  # (B, 1, *, Dh)
     if use_rope:
@@ -92,10 +104,19 @@ def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     bidx = torch.arange(B, device=x.device)
-    idx = pos.long().clamp(max=cache_k.shape[1] - 1)
+    if window > 0:
+        idx = pos.long() % cache_k.shape[1]
+        slot_pos[bidx, idx] = pos.to(slot_pos.dtype)
+    else:
+        idx = pos.long().clamp(max=cache_k.shape[1] - 1)
     cache_k[bidx, idx] = k[:, 0].to(cache_k.dtype)
     cache_v[bidx, idx] = v[:, 0].to(cache_v.dtype)
-    out = ops.decode_attention(q, cache_k, cache_v, kv_len=pos + 1)
+    if window > 0:
+        at = pos[:, None]
+        valid = (slot_pos >= 0) & (slot_pos <= at) & (at - slot_pos < window)
+        out = ops.masked_decode_attention(q, cache_k, cache_v, valid)
+    else:
+        out = ops.decode_attention(q, cache_k, cache_v, kv_len=pos + 1)
     return out_proj(p, out, prefix)
 
 

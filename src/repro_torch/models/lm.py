@@ -8,18 +8,19 @@ caches, ragged prefill, and the decode and speculative verify steps on
 both caches — and ``family="vlm"`` (phi-3-vision: the dense branch whose
 embedding takes ``extra["image_embeds"]`` over the first
 ``num_image_tokens`` positions, and whose loss leaves out the positions
-that predict an image position), and the train paths of
-``family="moe"`` (each block's MLP
+that predict an image position), ``family="moe"`` (each block's MLP
 replaced by the routed experts of ``models/moe.py``, whose aux loss the
-blocks carry into the loss), ``family="hybrid"`` (hymba: each block's
+blocks carry into the loss; prefill, decode and verify route each step's
+rows with that step's capacity), ``family="hybrid"`` (hymba: each block's
 attention, global or sliding-window by layer, and its SSM heads side by
-side, fused) and ``family="ssm"`` (the xLSTM: the grouped block layout).
-The reference's ``scan`` over stacked layers is a Python loop here, so
-the hybrid's per-layer global/window flag is a static ``if``, not a
-``cond``.  The serving paths (prefill, caches, decode) of the MoE
-decoders, the hybrid and the xLSTM raise ``NotImplementedError`` naming
-the ROADMAP entry that brings them.  The encoder-decoder is
-``models/encdec.py``.
+side, fused; its cache one dict a layer, a window layer's K/V a ring of
+``min(window, max_seq)`` slots) and ``family="ssm"`` (the xLSTM: the
+grouped block layout; its cache the layers' recurrent states).  The
+reference's ``scan`` over stacked layers is a Python loop here, so the
+hybrid's per-layer global/window flag is a static ``if``, not a
+``cond``.  As in the reference, the hybrid and the xLSTM take no padded
+prefill, no paged cache and no verify, and the MoE decoders no padded
+prefill.  The encoder-decoder is ``models/encdec.py``.
 
 The train path (``forward_train``/``loss_fn``) has no counterpart of the
 reference's ``hints.*`` calls: those pin activations and logits to a
@@ -35,7 +36,8 @@ Parameters keep the reference's tree and shapes (:func:`param_shapes`):
 entry — for the MoE decoders ``blocks/router`` and ``blocks/moe_w*`` in
 place of ``blocks/mlp_*``, for the hybrid also ``blocks/ssm_*`` and
 ``blocks/fuse_*``, for the xLSTM ``blocks/mlstm`` and ``blocks/slstm``.
-Dense ``blocks`` may also be a list of per-layer dicts (what
+``blocks`` (for the xLSTM ``blocks/mlstm`` and ``blocks/slstm``) may
+also be a list of per-layer dicts (what
 :meth:`repro_torch.models.api.Model.serving_params` prepares once, so a
 decode step does not re-slice the stacked tensors).
 """
@@ -59,28 +61,12 @@ from repro_torch.tree import unflatten
 
 Params = Dict[str, Any]
 
-XLSTM_SERVING = "ROADMAP queue 1, xLSTM serving"
-HYMBA_SERVING = "ROADMAP queue 1, hymba serving"
-MOE_SERVING = "ROADMAP queue 1, MoE serving"
-_SERVING_LATER = {
-    "moe": (MOE_SERVING, "the engine's exact-length admission groups: "
-            "capacity dispatch makes a token's expert output depend on the "
-            "other tokens of its row, so padding or mixing lengths would "
-            "change the routing"),
-    "ssm": (XLSTM_SERVING, "prefill through K6 with a final state, the "
-            "recurrent decode, the engine's exact-length admission groups"),
-    "hybrid": (HYMBA_SERVING, "the hybrid prefill and decode blocks, the "
-               "ring-buffer window cache, the SSM decode state, the "
-               "engine's exact-length admission groups"),
-}
+RECURRENT = ("ssm", "hybrid")  # families whose decode cache holds state
 
 
-def require_ported(cfg: ModelConfig, *, serving: bool = False) -> None:
-    """Raise for what the port does not build: ``ValueError`` for a
-    config no family of the reference builds either, and, with
-    ``serving``, ``NotImplementedError`` for the MoE decoder's, the
-    hybrid's and the xLSTM's serving paths (their train paths are
-    ported)."""
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a config no family of the reference
+    builds either."""
     built = cfg.is_encoder_decoder or (
         (cfg.num_experts > 0) == (cfg.family == "moe")
         and cfg.family in ("dense", "vlm", "moe", "hybrid", "ssm"))
@@ -90,11 +76,6 @@ def require_ported(cfg: ModelConfig, *, serving: bool = False) -> None:
             f"{cfg.num_experts}) is no model family: the port builds the "
             f"dense decoder, the VLM, the MoE decoder, the hybrid, the "
             f"xLSTM and the encoder-decoder")
-    if serving and cfg.family in _SERVING_LATER:
-        item, what = _SERVING_LATER[cfg.family]
-        raise NotImplementedError(
-            f"serving {cfg.name!r} (family {cfg.family!r}) is not ported to "
-            f"PyTorch yet, only its train path is: {item} ({what})")
 
 
 # ===========================================================================
@@ -195,7 +176,7 @@ def _unstack(blocks: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
 
 
 def layers(cfg: ModelConfig, blocks) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer parameter dicts of the dense decoder."""
+    """Per-layer parameter dicts of a stack of layers."""
     if isinstance(blocks, list):
         return blocks
     return _unstack(blocks)
@@ -239,10 +220,24 @@ def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return h @ p["mlp_wd"].to(dt)
 
 
-def _mlp_residual(p, x, cfg):
+def _ffn_residual(p, x, cfg) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(x + its FFN on the norm2'ed x, the MoE layer's float32 aux
+    loss or None)``: the routed experts for the MoE decoders (capacity
+    from this call's sequence length, as in the reference), else the MLP
+    (none when ``d_ff`` is 0)."""
+    if cfg.num_experts > 0:
+        out, aux = moe.apply_moe(p, apply_norm(p, "norm2", x, cfg.norm), cfg)
+        return x + out, aux
     if cfg.d_ff > 0:
         x = x + apply_mlp(p, apply_norm(p, "norm2", x, cfg.norm), cfg)
-    return x
+    return x, None
+
+
+def _hybrid_mix(p, attn, ssm_out):
+    """The hybrid's fused mean of its attention and SSM outputs."""
+    dt = attn.dtype
+    return 0.5 * (attn * p["fuse_attn"].to(dt)
+                  + ssm_out * p["fuse_ssm"].to(dt))
 
 
 # ===========================================================================
@@ -258,15 +253,11 @@ def _block_train(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     h = apply_norm(p, "norm1", x, cfg.norm)
     mix = attend_train(p, h, cfg, causal=True, window=window)
     if cfg.family == "hybrid":
-        dt = x.dtype
-        mix = 0.5 * (mix * p["fuse_attn"].to(dt)
-                     + rec.apply_ssm(p, h, cfg) * p["fuse_ssm"].to(dt))
-    x = x + mix
-    if cfg.num_experts > 0:
-        out, aux = moe.apply_moe(p, apply_norm(p, "norm2", x, cfg.norm), cfg)
-        return x + out, aux
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _mlp_residual(p, x, cfg), aux
+        mix = _hybrid_mix(p, mix, rec.apply_ssm(p, h, cfg))
+    x, aux = _ffn_residual(p, x + mix, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def layer_window(cfg: ModelConfig, i: int) -> int:
@@ -308,6 +299,17 @@ def _xlstm_group(cfg: ModelConfig, x: torch.Tensor, mlayers, slayer):
     return x if slayer is None else rec.apply_slstm(slayer, x, cfg)
 
 
+def _xlstm_groups(cfg: ModelConfig, blocks: Params):
+    """``[(mLSTM layers, sLSTM layer or None), ...]``, one pair a group
+    (one mLSTM layer a group when ``slstm_every`` is 0)."""
+    mlayers = layers(cfg, blocks["mlstm"])
+    every = cfg.slstm_every
+    if not every:
+        return [([p], None) for p in mlayers]
+    return [(mlayers[g * (every - 1):(g + 1) * (every - 1)], sp)
+            for g, sp in enumerate(layers(cfg, blocks["slstm"]))]
+
+
 def _xlstm_forward(cfg: ModelConfig, blocks: Params, x: torch.Tensor,
                    remat: str = "none") -> torch.Tensor:
     """G groups of (slstm_every - 1) mLSTM + 1 sLSTM blocks, or only
@@ -316,15 +318,7 @@ def _xlstm_forward(cfg: ModelConfig, blocks: Params, x: torch.Tensor,
     mLSTM-only stack."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be none, full or dots; got {remat!r}")
-    mlayers = _unstack(blocks["mlstm"])
-    every = cfg.slstm_every
-    if every:
-        slayers = _unstack(blocks["slstm"])
-        groups = [(mlayers[g * (every - 1):(g + 1) * (every - 1)], sp)
-                  for g, sp in enumerate(slayers)]
-    else:
-        groups = [([p], None) for p in mlayers]
-    for mp, sp in groups:
+    for mp, sp in _xlstm_groups(cfg, blocks):
         if remat == "none":
             x = _xlstm_group(cfg, x, mp, sp)
         else:
@@ -382,16 +376,58 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ===========================================================================
 # Caches
 # ===========================================================================
+def _stack(states: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Per-layer state dicts stacked along a new leading axis."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: torch.device) -> Params:
-    """Dense decode cache: ``(L, B, max_seq, KH, Dh)`` K/V + ``pos``."""
-    require_ported(cfg, serving=True)
+    """The zero decode cache of ``batch`` slots and ``max_seq`` positions,
+    the reference's ``init_cache`` layouts:
+
+      * dense, VLM and MoE: ``(L, B, max_seq, KH, Dh)`` K/V and ``pos``;
+      * the hybrid: ``{"layers": [...], "pos"}``, one dict a layer, K/V
+        ``(B, size, KH, Dh)`` with ``size`` ``max_seq`` for a global
+        layer and ``min(window, max_seq)`` for a window layer (a ring),
+        ``slot_pos`` ``(B, size)`` -1 (no position held) and the SSM
+        state (:func:`repro_torch.models.recurrent.ssm_state_spec`);
+      * the xLSTM: ``{"mlstm", "slstm", "pos"}``, each layer's recurrent
+        state stacked, the mLSTM's ``(groups, slstm_every - 1, B, ...)``
+        and the sLSTM's ``(groups, B, ...)`` (``(L, B, ...)`` mLSTM
+        states alone when ``slstm_every`` is 0), float32."""
+    require_ported(cfg)
     dt = getattr(torch, cfg.dtype)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    KH, Dh, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        every = cfg.slstm_every
+        m = rec.mlstm_state_spec(cfg, batch, device)
+        if not every:
+            return {"mlstm": _stack([m] * L), "pos": pos}
+        groups = L // every
+        s = rec.slstm_state_spec(cfg, batch, device)
+        return {"mlstm": _stack([_stack([m] * (every - 1))] * groups),
+                "slstm": _stack([s] * groups), "pos": pos}
+    if cfg.family == "hybrid":
+        out = []
+        for i in range(L):
+            w = layer_window(cfg, i)
+            size = min(w, max_seq) if w else max_seq
+            out.append({
+                "k": torch.zeros((batch, size, KH, Dh), dtype=dt,
+                                 device=device),
+                "v": torch.zeros((batch, size, KH, Dh), dtype=dt,
+                                 device=device),
+                "slot_pos": torch.full((batch, size), -1, dtype=torch.int32,
+                                       device=device),
+                "ssm": rec.ssm_state_spec(cfg, batch, device)})
+        return {"layers": out, "pos": pos}
+    shape = (L, batch, max_seq, KH, Dh)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "pos": pos,
     }
 
 
@@ -401,8 +437,13 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
     """Paged decode cache: global ``(L, KH, num_pages, page, Dh)`` K/V
     pools shared by every slot plus a per-slot ``(batch, max_pages)``
     int32 page table (-1 = unmapped).  Pool page 0 is the engine's null
-    page and is never allocated."""
-    require_ported(cfg, serving=True)
+    page and is never allocated.  The hybrid's and the xLSTM's recurrent
+    state has no per-position pages: ``ValueError``, as in the
+    reference."""
+    require_ported(cfg)
+    if cfg.family in RECURRENT:
+        raise ValueError(f"paged KV cache unsupported for family "
+                         f"{cfg.family!r}: only dense-attention caches page")
     dt = getattr(torch, cfg.dtype)
     shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, page_size,
              cfg.head_dim)
@@ -422,21 +463,46 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             extra: Optional[Dict[str, torch.Tensor]] = None,
             max_seq: Optional[int] = None,
             lens: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
-    """Full forward emitting the dense cache.  Returns (last-token logits
-    ``(B, V)``, cache with K/V ``(L, B, max_seq, KH, Dh)``).
+    """Full forward emitting the decode cache (:func:`init_cache`'s
+    layout for ``max_seq`` positions).  Returns (last-token logits
+    ``(B, V)``, cache).
 
     ``lens`` (B,) marks ragged rows of a right-padded batch: logits come
     from position ``lens[b] - 1`` and the cache position is ``lens[b]``,
     so decode's ``kv_len`` masking hides the pad positions' K/V.
-    Causality makes every real position independent of the padding.
+    Causality makes every real position independent of the padding, for
+    attention-only models: the recurrent families would carry pad steps
+    in their state and the MoE decoders' capacity depends on the padded
+    length, so they raise ``ValueError``, as the reference does.
     ``extra`` carries the VLM's ``image_embeds``."""
-    require_ported(cfg, serving=True)
+    require_ported(cfg)
     B, S = tokens.shape
     max_seq = max_seq or S
+    if lens is not None and cfg.family in RECURRENT:
+        raise ValueError(f"padded prefill (lens) unsupported for family "
+                         f"{cfg.family!r}: recurrent state would include "
+                         f"pad steps")
+    if lens is not None and cfg.num_experts > 0:
+        raise ValueError("padded prefill (lens) unsupported for MoE: "
+                         "expert capacity scales with the padded length "
+                         "and pad tokens would evict real ones")
     x = embed_tokens(params, cfg, tokens, extra)
+    full = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    if cfg.family == "ssm":
+        x, cache = _xlstm_prefill(cfg, params["blocks"], x)
+        logits = lm_logits(params, cfg, x[:, -1:])
+        return logits[:, 0], dict(cache, pos=full)
     cos, sin = rope_angles(torch.arange(S, device=tokens.device),
                            cfg.head_dim, cfg.rope_theta)
     per_layer = layers(cfg, params["blocks"])
+    if cfg.family == "hybrid":
+        cache_layers = []
+        for i, p in enumerate(per_layer):
+            x, cl = _hybrid_block_prefill(cfg, p, x, layer_window(cfg, i),
+                                          max_seq, cos, sin)
+            cache_layers.append(cl)
+        logits = lm_logits(params, cfg, x[:, -1:])
+        return logits[:, 0], {"layers": cache_layers, "pos": full}
     shape = (len(per_layer), B, max_seq, cfg.num_kv_heads, cfg.head_dim)
     kcache = torch.zeros(shape, dtype=x.dtype, device=x.device)
     vcache = torch.zeros(shape, dtype=x.dtype, device=x.device)
@@ -446,13 +512,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = ops.flash_attention(q, k, v, causal=True)
-        x = x + out_proj(p, attn)
-        x = _mlp_residual(p, x, cfg)
+        x, _ = _ffn_residual(p, x + out_proj(p, attn), cfg)
         kcache[i, :, :S] = k
         vcache[i, :, :S] = v
     if lens is None:
         x_last = x[:, -1:]
-        pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        pos = full
     else:
         pos = lens.to(device=x.device, dtype=torch.int32)
         x_last = x[torch.arange(B, device=x.device), pos.long() - 1][:, None]
@@ -460,27 +525,128 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return logits[:, 0], {"k": kcache, "v": vcache, "pos": pos}
 
 
+def _hybrid_block_prefill(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                          x: torch.Tensor, window: int, max_seq: int, cos,
+                          sin) -> Tuple[torch.Tensor, Params]:
+    """One hybrid block over the prompt: attention through K1 (causal,
+    ``window`` 0 = global) beside the SSM heads through K5 with its final
+    state, then the block's cache entry (the reference's
+    ``_hybrid_block_prefill``).  A layer's K/V takes ``size`` slots
+    (:func:`init_cache`); when the prompt is longer, the ring holds its
+    last ``size`` positions, position ``t`` at slot ``t % size``."""
+    B, S, _ = x.shape
+    h = apply_norm(p, "norm1", x, cfg.norm)
+    q, k, v = qkv(p, h, cfg)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn = out_proj(p, ops.flash_attention(q, k, v, causal=True,
+                                           window=window))
+    ssm_out, ssm_state = rec.prefill_ssm(p, h, cfg)
+    x, _ = _ffn_residual(p, x + _hybrid_mix(p, attn, ssm_out), cfg)
+    size = min(window, max_seq) if window else max_seq
+    dev = x.device
+    if size >= S:
+        kc = k.new_zeros((B, size) + k.shape[2:])
+        vc = v.new_zeros((B, size) + v.shape[2:])
+        kc[:, :S], vc[:, :S] = k, v
+        sp = torch.full((B, size), -1, dtype=torch.int32, device=dev)
+        sp[:, :S] = torch.arange(S, dtype=torch.int32, device=dev)
+    else:  # the ring: slot j holds the t in [S - size, S) with t = j mod size
+        j = torch.arange(size, device=dev)
+        at = S - size + (j - (S - size)) % size
+        kc, vc = k[:, at], v[:, at]
+        sp = at.to(torch.int32).expand(B, size).contiguous()
+    return x, {"k": kc, "v": vc, "slot_pos": sp, "ssm": ssm_state}
+
+
+def _xlstm_prefill(cfg: ModelConfig, blocks: Params, x: torch.Tensor):
+    """The xLSTM over the prompt, each mLSTM block through K6 with its
+    final state and each sLSTM block's loop keeping its own: ``(x, the
+    cache's state leaves)`` in :func:`init_cache`'s layout (the
+    reference's ``_xlstm_prefill_cache``)."""
+    mstates, sstates = [], []
+    for mp, sp in _xlstm_groups(cfg, blocks):
+        group = []
+        for p in mp:
+            x, st = rec.prefill_mlstm(p, x, cfg)
+            group.append(st)
+        mstates.append(_stack(group))
+        if sp is not None:
+            x, st = rec.prefill_slstm(sp, x, cfg)
+            sstates.append(st)
+    if not cfg.slstm_every:  # (L, B, ...): one mLSTM layer a "group"
+        return x, {"mlstm": {k: v[:, 0] for k, v in _stack(mstates).items()}}
+    return x, {"mlstm": _stack(mstates), "slstm": _stack(sstates)}
+
+
+def _xlstm_decode(cfg: ModelConfig, blocks: Params, cache: Params,
+                  x: torch.Tensor) -> torch.Tensor:
+    """One token through the xLSTM, each layer's state read from the
+    cache and written back in place (the reference's ``_xlstm_decode``
+    returns new stacks)."""
+    every = cfg.slstm_every
+    for g, (mp, sp) in enumerate(_xlstm_groups(cfg, blocks)):
+        for j, p in enumerate(mp):
+            at = (g, j) if every else (g,)
+            state = {k: v[at] for k, v in cache["mlstm"].items()}
+            x, new = rec.decode_mlstm(p, state, x, cfg)
+            for k, v in new.items():
+                state[k].copy_(v)
+        if sp is not None:
+            state = {k: v[g] for k, v in cache["slstm"].items()}
+            x, new = rec.decode_slstm(sp, state, x, cfg)
+            for k, v in new.items():
+                state[k].copy_(v)
+    return x
+
+
+def _hybrid_block_decode(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                         cl: Params, x: torch.Tensor, pos: torch.Tensor,
+                         window: int) -> torch.Tensor:
+    """One token through a hybrid block: a global layer's dense read, a
+    window layer's ring (:func:`repro_torch.models.attention.attend_decode`
+    with ``window``), and the SSM heads' step, the state written back in
+    place."""
+    h = apply_norm(p, "norm1", x, cfg.norm)
+    attn = attend_decode(p, h, cl["k"], cl["v"], pos, cfg, window=window,
+                         slot_pos=cl["slot_pos"] if window else None)
+    ssm_out, new = rec.decode_ssm(p, cl["ssm"], h, cfg)
+    for k, v in new.items():
+        cl["ssm"][k].copy_(v)
+    return _ffn_residual(p, x + _hybrid_mix(p, attn, ssm_out), cfg)[0]
+
+
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
     """tokens: (B, 1).  Returns (logits (B, V), cache with ``pos + 1``).
 
-    Dispatches on the cache layout: a ``k_pool`` key marks the paged
-    cache.  The new token's K/V is written into the given cache in place
-    (the reference returns new arrays); the returned dict holds the same
-    K/V tensors and the advanced ``pos``."""
-    require_ported(cfg, serving=True)
+    Dispatches on the family and the cache layout: a ``k_pool`` key marks
+    the paged cache.  The new token's K/V (and a recurrent layer's new
+    state) is written into the given cache in place (the reference
+    returns new arrays); the returned dict holds the same tensors and the
+    advanced ``pos``."""
+    require_ported(cfg)
     pos = cache["pos"]
     x = embed_tokens(params, cfg, tokens)
-    paged = "k_pool" in cache
-    for i, p in enumerate(layers(cfg, params["blocks"])):
-        h = apply_norm(p, "norm1", x, cfg.norm)
-        if paged:
-            attn = attend_decode_paged(p, h, cache["k_pool"][i],
-                                       cache["v_pool"][i],
-                                       cache["page_table"], pos, cfg)
-        else:
-            attn = attend_decode(p, h, cache["k"][i], cache["v"][i], pos, cfg)
-        x = _mlp_residual(p, x + attn, cfg)
+    blocks = params["blocks"]
+    if cfg.family == "ssm":
+        x = _xlstm_decode(cfg, blocks, cache, x)
+    elif cfg.family == "hybrid":
+        for i, (p, cl) in enumerate(zip(layers(cfg, blocks),
+                                        cache["layers"])):
+            x = _hybrid_block_decode(cfg, p, cl, x, pos, layer_window(cfg, i))
+    else:
+        paged = "k_pool" in cache
+        for i, p in enumerate(layers(cfg, blocks)):
+            h = apply_norm(p, "norm1", x, cfg.norm)
+            if paged:
+                attn = attend_decode_paged(p, h, cache["k_pool"][i],
+                                           cache["v_pool"][i],
+                                           cache["page_table"], pos, cfg)
+            else:
+                attn = attend_decode(p, h, cache["k"][i], cache["v"][i], pos,
+                                     cfg)
+            x, _ = _ffn_residual(p, x + attn, cfg)
     logits = lm_logits(params, cfg, x)[:, 0]
     return logits, dict(cache, pos=pos + 1)
 
@@ -495,8 +661,15 @@ def verify_step(params: Params, cfg: ModelConfig, cache: Params,
     All T K/V rows are written into the given cache in place (dense or
     paged, by the ``k_pool`` key); the engine rewinds ``pos`` after
     acceptance, and rejected rows stay above ``pos``, hidden by the
-    per-row limits until real tokens overwrite them."""
-    require_ported(cfg, serving=True)
+    per-row limits until real tokens overwrite them.  A MoE layer routes
+    the T rows of a slot as one group, with the capacity of T tokens, as
+    the reference does.  The recurrent families raise ``ValueError``:
+    their state cannot roll back rejected drafts."""
+    require_ported(cfg)
+    if cfg.family in RECURRENT:
+        raise ValueError(f"speculative verify unsupported for family "
+                         f"{cfg.family!r}: recurrent state cannot roll back "
+                         f"rejected drafts")
     pos = cache["pos"]
     T = tokens.shape[1]
     x = embed_tokens(params, cfg, tokens)
@@ -509,6 +682,6 @@ def verify_step(params: Params, cfg: ModelConfig, cache: Params,
                                        cache["page_table"], pos, cfg)
         else:
             attn = attend_verify(p, h, cache["k"][i], cache["v"][i], pos, cfg)
-        x = _mlp_residual(p, x + attn, cfg)
+        x, _ = _ffn_residual(p, x + attn, cfg)
     logits = lm_logits(params, cfg, x)
     return logits, dict(cache, pos=pos + T)

@@ -1,27 +1,32 @@
 """Recurrent blocks: the xLSTM's mLSTM and sLSTM halves and the hybrid's
 Mamba-style SSM heads.
 
-Counterpart of the reference package's ``models/recurrent.py`` for the
-train path: the parameters' names and shapes (:func:`mlstm_shapes`,
-:func:`slstm_shapes`, :func:`ssm_shapes`), the projections, the blocks'
-forward and the sLSTM's initial state, at the reference's dtype at each
-operation.  The decode states (the mLSTM's, the SSM's
-``ssm_state_spec``/``decode_ssm``) come with the xLSTM's and hymba's
-serving (ROADMAP queue 1).
+Counterpart of the reference package's ``models/recurrent.py``: the
+parameters' names and shapes (:func:`mlstm_shapes`, :func:`slstm_shapes`,
+:func:`ssm_shapes`), the projections, the blocks' forward, and for
+serving their decode states (``*_state_spec``), a prefill that returns
+the final state (``prefill_*``) and the one-token decode (``decode_*``),
+at the reference's dtype at each operation.
 
 The mLSTM's matrix memory runs through ``ops.mlstm_scan`` (K6, and
 K6-bwd under autograd), the SSM's selective scan through
-``ops.ssm_scan`` (K5, and K5-bwd under autograd).  The sLSTM is a loop
-over time in plain PyTorch, as the reference's ``jax.lax.scan`` is no
-kernel; its input projection ``x_t . w_gates`` does not depend on the
-state, so it is one float32 product over all steps before the loop
-(:func:`slstm_loop`), and each step adds its recurrent part with one
-batched product (``baddbmm``): the same float32 sums in another order.
+``ops.ssm_scan`` (K5, and K5-bwd under autograd); their prefills through
+``ops.mlstm_scan_with_state`` and ``ops.ssm_scan_with_state``, K6 and K5
+with their final-state outputs (the reference's prefill runs its
+sequential oracles there), and their decode steps through
+``ops.mlstm_step`` and ``ops.ssm_step``, one step of the oracles on every
+device, as in the reference.  The sLSTM is a loop over time in plain
+PyTorch, as the reference's ``jax.lax.scan`` is no kernel; its input
+projection ``x_t . w_gates`` does not depend on the state, so it is one
+float32 product over all steps before the loop (:func:`slstm_loop`),
+and each step adds its recurrent part with one batched product
+(``baddbmm``): the same float32 sums in another order.  Its decode is
+the same loop over one step.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,19 +82,56 @@ def _mlstm_qkvif(p, h, cfg):
     return q, k, v, i_pre, f_pre
 
 
-def apply_mlstm(p: Dict[str, Any], x: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
-    """Train path.  x: (B, S, D)."""
+def _mlstm_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                 mix: Callable):
+    """The mLSTM block around its memory: ``mix(q, k, v, i_pre, f_pre)``
+    gives ``(h (B, NH, S, DH), state)``.  Returns ``(x + out, state)``."""
     d_in, NH, DH = mlstm_dims(cfg)
     B, S, D = x.shape
     xn = layer_norm(x, p["ln_g"], p["ln_b"])
     h = xn @ p["w_up_x"].to(x.dtype)
     z = xn @ p["w_up_z"].to(x.dtype)
-    q, k, v, i_pre, f_pre = _mlstm_qkvif(p, h, cfg)
-    out = ops.mlstm_scan(q, k, v, i_pre, f_pre)  # (B, NH, S, DH)
+    out, state = mix(*_mlstm_qkvif(p, h, cfg))  # (B, NH, S, DH)
     out = rms_norm(out.transpose(1, 2), p["headnorm_g"])  # (B, S, NH, DH)
     out = out.reshape(B, S, d_in) * F.silu(z)
-    return x + out @ p["w_down"].to(x.dtype)
+    return x + out @ p["w_down"].to(x.dtype), state
+
+
+def apply_mlstm(p: Dict[str, Any], x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """Train path.  x: (B, S, D)."""
+    return _mlstm_block(p, x, cfg,
+                        lambda *a: (ops.mlstm_scan(*a), None))[0]
+
+
+def mlstm_state_spec(cfg: ModelConfig, batch: int, device=None):
+    """The zero decode state of one mLSTM layer (float32)."""
+    d_in, NH, DH = mlstm_dims(cfg)
+    kw = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, NH, DH, DH), **kw),
+            "n": torch.zeros((batch, NH, DH), **kw),
+            "m": torch.full((batch, NH), NEG_INF, **kw)}
+
+
+def prefill_mlstm(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig):
+    """The prefill's mLSTM block, x ``(B, S, D)``: ``(x out, the final
+    state {C, n, m})`` through K6 with its state output (the reference's
+    ``_mlstm_prefill_layer``, which runs its sequential oracle)."""
+    def mix(*a):
+        h, (C, n, m) = ops.mlstm_scan_with_state(*a)
+        return h, {"C": C, "n": n, "m": m}
+    return _mlstm_block(p, x, cfg, mix)
+
+
+def decode_mlstm(p: Dict[str, Any], state: Dict[str, torch.Tensor],
+                 x: torch.Tensor, cfg: ModelConfig):
+    """One token, x ``(B, 1, D)``: ``(x out, new state)``, one step of
+    the sequential oracle (``ops.mlstm_step``)."""
+    def mix(*a):
+        h, (C, n, m) = ops.mlstm_step(*a, (state["C"], state["n"],
+                                           state["m"]))
+        return h[:, :, None], {"C": C, "n": n, "m": m}
+    return _mlstm_block(p, x, cfg, mix)
 
 
 # ===========================================================================
@@ -153,28 +195,28 @@ def _slstm_cell(state, pre):
 
 
 def slstm_loop(wx: torch.Tensor, r: torch.Tensor,
-               state: Dict[str, torch.Tensor]) -> torch.Tensor:
+               state: Dict[str, torch.Tensor]):
     """The sLSTM's recurrence over time, head-major: ``wx`` ``(S, NH, B,
     4 * DH)`` the input projections with the bias, ``r`` ``(NH, DH, 4 *
     DH)`` the recurrent weights, ``state`` the initial ``h, c, n, m`` ``(NH,
     B, DH)``.  Each step's recurrent product is one ``baddbmm`` over the
-    heads.  Returns every step's h, ``(S, NH, B, DH)``.  The steps' inputs
-    come from one ``unbind``, whose backward stacks their gradients once
-    (a slice per step would write a zero-filled copy of all of ``wx`` for
-    each step's gradient)."""
+    heads.  Returns every step's h, ``(S, NH, B, DH)``, and the final
+    state.  The steps' inputs come from one ``unbind``, whose backward
+    stacks their gradients once (a slice per step would write a
+    zero-filled copy of all of ``wx`` for each step's gradient)."""
     S, NH, B, G = wx.shape
     hs = []
     for wx_t in wx.unbind(0):
         pre = torch.baddbmm(wx_t, state["h"], r).view(NH, B, 4, G // 4)
         state = _slstm_cell(state, pre)
         hs.append(state["h"])
-    return torch.stack(hs)
+    return torch.stack(hs), state
 
 
-def apply_slstm(p: Dict[str, Any], x: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
-    """Train path: a sequential loop over time (the sLSTM is inherently
-    sequential — the xLSTM paper places few of these blocks)."""
+def _slstm_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                 state: Dict[str, torch.Tensor]):
+    """The sLSTM block over x ``(B, S, D)`` from ``state`` ``h, c, n, m``
+    ``(B, NH, DH)``: ``(x out, the final state)``."""
     B, S, D = x.shape
     NH, DH = slstm_dims(cfg)
     xn = layer_norm(x, p["ln_g"], p["ln_b"]).float()
@@ -184,15 +226,38 @@ def apply_slstm(p: Dict[str, Any], x: torch.Tensor,
           ).reshape(S, NH, B, 4 * DH)
     # r_gates (NH, 4, DH, DH) -> (NH, DH, 4 * DH): h (NH, B, DH) @ r
     r = p["r_gates"].float().permute(0, 2, 1, 3).reshape(NH, DH, 4 * DH)
-    state = {k: v.transpose(0, 1)
-             for k, v in slstm_state_spec(cfg, B, x.device).items()}
-    hs = slstm_loop(wx, r, state).permute(2, 0, 1, 3)  # (B, S, NH, DH)
+    hs, state = slstm_loop(wx, r, {k: v.transpose(0, 1)
+                                   for k, v in state.items()})
+    hs = hs.permute(2, 0, 1, 3)  # (B, S, NH, DH)
     out = rms_norm(hs, p["headnorm_g"]).reshape(B, S, D).to(x.dtype)
     x = x + out
     xn2 = layer_norm(x, p["ln2_g"], p["ln2_b"])
     hg = xn2 @ p["ffn_wg"].to(x.dtype)
     hu = xn2 @ p["ffn_wu"].to(x.dtype)
-    return x + (activation(hg, "gelu") * hu) @ p["ffn_wd"].to(x.dtype)
+    return (x + (activation(hg, "gelu") * hu) @ p["ffn_wd"].to(x.dtype),
+            {k: v.transpose(0, 1) for k, v in state.items()})
+
+
+def apply_slstm(p: Dict[str, Any], x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """Train path: a sequential loop over time (the sLSTM is inherently
+    sequential — the xLSTM paper places few of these blocks)."""
+    return prefill_slstm(p, x, cfg)[0]
+
+
+def prefill_slstm(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig):
+    """The sLSTM block from the zero state: ``(x out, the final state
+    {h, c, n, m} (B, NH, DH))`` (the reference's ``_slstm_prefill_layer``;
+    the train path keeps only x)."""
+    return _slstm_block(p, x, cfg, slstm_state_spec(cfg, x.shape[0],
+                                                    x.device))
+
+
+def decode_slstm(p: Dict[str, Any], state: Dict[str, torch.Tensor],
+                 x: torch.Tensor, cfg: ModelConfig):
+    """One token, x ``(B, 1, D)``: ``(x out, new state)``, the loop of
+    one step (the reference's ``decode_slstm``)."""
+    return _slstm_block(p, x, cfg, state)
 
 
 # ===========================================================================
@@ -234,9 +299,12 @@ def _ssm_coeffs(p, xc):
     return dt, A, Bm, Cm
 
 
-def apply_ssm(p: Dict[str, Any], xn: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    """Train path.  xn: (B, S, D) already normed.  Returns (B, S, D)."""
+def _ssm_branch(p: Dict[str, Any], xn: torch.Tensor, cfg: ModelConfig,
+                with_state: bool):
+    """The SSM heads over xn ``(B, S, D)`` normed: ``(out (B, S, D),
+    state)``, the state ``{h, conv}`` with ``with_state`` (K5 with its
+    final state, and the last ``ssm_conv - 1`` raw inputs in float32,
+    zeros before the first as the causal padding has them), else None."""
     S, dt_ = xn.shape[1], xn.dtype
     K = cfg.ssm_conv
     xin, z = xn @ p["ssm_w_in"].to(dt_), xn @ p["ssm_w_z"].to(dt_)
@@ -246,5 +314,50 @@ def apply_ssm(p: Dict[str, Any], xn: torch.Tensor,
     xpad = F.pad(xin, (0, 0, K - 1, 0))
     xc = F.silu(sum(xpad[:, i:i + S] * conv_w[i] for i in range(K)))
     dt, A, Bm, Cm = _ssm_coeffs(p, xc)
-    y = ops.ssm_scan(xc, dt.to(dt_), A, Bm, Cm, p["ssm_D"])
-    return (y * F.silu(z)) @ p["ssm_w_out"].to(dt_)
+    args = (xc, dt.to(dt_), A, Bm, Cm, p["ssm_D"])
+    state = None
+    if with_state:
+        y, h = ops.ssm_scan_with_state(*args)
+        state = {"h": h, "conv": xpad[:, S:].float()}
+    else:
+        y = ops.ssm_scan(*args)
+    return (y * F.silu(z)) @ p["ssm_w_out"].to(dt_), state
+
+
+def apply_ssm(p: Dict[str, Any], xn: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """Train path.  xn: (B, S, D) already normed.  Returns (B, S, D)."""
+    return _ssm_branch(p, xn, cfg, with_state=False)[0]
+
+
+def prefill_ssm(p: Dict[str, Any], xn: torch.Tensor, cfg: ModelConfig):
+    """The hybrid prefill's SSM heads: ``(out (B, S, D), state {h,
+    conv})`` (the reference's SSM branch of ``_hybrid_block_prefill``)."""
+    return _ssm_branch(p, xn, cfg, with_state=True)
+
+
+def ssm_state_spec(cfg: ModelConfig, batch: int, device=None):
+    """The zero decode state of one layer's SSM heads (float32): the
+    scan's ``h`` ``(B, d_inner, N)`` and the last ``ssm_conv - 1`` raw
+    inputs of the convolution, ``conv`` ``(B, ssm_conv - 1, d_inner)``."""
+    d_in, N, _ = ssm_dims(cfg)
+    kw = dict(dtype=torch.float32, device=device)
+    return {"h": torch.zeros((batch, d_in, N), **kw),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_in), **kw)}
+
+
+def decode_ssm(p: Dict[str, Any], state: Dict[str, torch.Tensor],
+               xn: torch.Tensor, cfg: ModelConfig):
+    """One token, xn ``(B, 1, D)`` normed: ``(out (B, 1, D), new
+    state)``, the convolution over the carried inputs and one step of the
+    sequential scan (``ops.ssm_step``), as the reference's
+    ``decode_ssm``."""
+    dt_ = xn.dtype
+    xin, z = xn @ p["ssm_w_in"].to(dt_), xn @ p["ssm_w_z"].to(dt_)
+    hist = torch.cat([state["conv"].to(dt_), xin], dim=1)  # (B, K, d_in)
+    xc = F.silu((hist * p["ssm_conv_w"].to(dt_)).sum(1, keepdim=True))
+    dt, A, Bm, Cm = _ssm_coeffs(p, xc)
+    y, h = ops.ssm_step(xc[:, 0], dt[:, 0].to(dt_), A, Bm[:, 0], Cm[:, 0],
+                        p["ssm_D"], state["h"])
+    out = (y[:, None] * F.silu(z)) @ p["ssm_w_out"].to(dt_)
+    return out, {"h": h, "conv": hist[:, 1:].float()}

@@ -10,8 +10,9 @@ Counterpart of the reference package's ``serve/engine.py`` for
     shares the head-of-queue's power-of-two length bucket (and the shapes
     of its extra inputs) is prefilled in one call (right-padded, exact
     per-row ``lens``), then scattered into the batch cache leaf by leaf;
-    a model whose prefill takes no padding (the encoder-decoder) groups
-    requests of exactly equal prompt length instead;
+    a model whose prefill takes no padding (the encoder-decoder, the MoE
+    decoders, the hybrid and the xLSTM) groups requests of exactly equal
+    prompt length instead;
   * sampling follows the decode step on the device, so each step moves
     one ``(B,)`` token array to the host — never the ``(B, V)`` logits;
   * ``decode_chunk > 1`` decodes that many tokens per host transfer in a
@@ -188,23 +189,43 @@ def _extra_digest(extra: Optional[Dict[str, np.ndarray]]) -> bytes:
     return h.digest()
 
 
+def _cache_leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """``[(path, tensor), ...]`` of a decode cache: nested dicts (keys in
+    sorted order) and lists (the hybrid's per-layer dicts), the path's
+    parts joined by ``/``."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    items = (sorted(tree.items()) if isinstance(tree, dict)
+             else enumerate(tree))
+    out: List[Tuple[str, torch.Tensor]] = []
+    for key, sub in items:
+        out += _cache_leaves(sub, f"{prefix}/{key}" if prefix else str(key))
+    return out
+
+
 def _cache_batch_axes(model: Model, max_seq: int) -> Dict[str, int]:
-    """Each decode-cache leaf's batch axis, found by comparing the cache's
-    shapes at batch 1 and 2 on the meta device (no allocation)."""
-    a, b = model.cache_specs(1, max_seq), model.cache_specs(2, max_seq)
-    return {k: next(i for i, (p, q) in enumerate(zip(a[k].shape, b[k].shape))
+    """Each decode-cache leaf's batch axis by its path
+    (:func:`_cache_leaves`), found by comparing the cache's shapes at
+    batch 1 and 2 on the meta device (no allocation): 1 for the stacked
+    K/V, 0 for ``pos`` and the hybrid's per-layer leaves, 2 and 1 for the
+    xLSTM's grouped mLSTM and sLSTM states."""
+    a = _cache_leaves(model.cache_specs(1, max_seq))
+    b = _cache_leaves(model.cache_specs(2, max_seq))
+    return {k: next(i for i, (p, q) in enumerate(zip(x.shape, y.shape))
                     if p != q)
-            for k in a}
+            for (k, x), (_, y) in zip(a, b)}
 
 
-def _insert_rows(cache: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor],
-                 idx: torch.Tensor, axes: Dict[str, int]) -> None:
+def _insert_rows(cache, rows, idx: torch.Tensor,
+                 axes: Dict[str, int]) -> None:
     """Copy the first ``len(idx)`` rows of a prefilled group cache into
     the batch cache's slots ``idx``, in place, leaf by leaf along each
     leaf's batch axis."""
     n = len(idx)
-    for name, ax in axes.items():
-        cache[name].index_copy_(ax, idx, rows[name].narrow(ax, 0, n))
+    for (name, dst), (_, src) in zip(_cache_leaves(cache),
+                                     _cache_leaves(rows)):
+        ax = axes[name]
+        dst.index_copy_(ax, idx, src.narrow(ax, 0, n))
 
 
 class ServeEngine:
@@ -494,8 +515,7 @@ class ServeEngine:
         first, cache1 = self._prefill_sample(kind, tokens, lens, temps, slots,
                                              extra, self.max_seq)
         # scatter the group's first n rows into their slots, each leaf
-        # along its batch axis (1 of the (L, B, ...) K/V and cross K/V,
-        # 0 of pos)
+        # along its batch axis (_cache_batch_axes)
         idx = self._tensor(slots[:n]).long()
         _insert_rows(self.cache, cache1, idx, self._axes)
         self._admit_draft(kind, tokens, lens, slots, n)

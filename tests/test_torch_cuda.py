@@ -690,6 +690,42 @@ def test_mlstm_kernel_matches_plain(dev, dtype, case):
     _check_mlstm_fwd(dev, dtype, case)
 
 
+def _check_mlstm_state(dev, dtype, case):
+    """K6 with its final state: h the same bits as without, and (C, n,
+    m) against the plain version's final carry at the kernel's chunk (C
+    and n within each tolerance of their max, m within 2e-5)."""
+    q, k, v, i_pre, f_pre, _ = _mlstm_inputs(dev, dtype, *case)
+    n0 = (mlstm_scan.launches, mlstm_scan.state_launches)
+    h, (C, n, m) = mlstm_scan.mlstm_scan_with_state(q, k, v, i_pre, f_pre)
+    torch.cuda.synchronize()
+    assert (mlstm_scan.launches, mlstm_scan.state_launches) == (n0[0] + 1,
+                                                                n0[1] + 1)
+    B, H, S, D = q.shape
+    assert (C.shape, n.shape, m.shape) == ((B, H, D, v.shape[-1]),
+                                           (B, H, D), (B, H))
+    assert C.dtype == n.dtype == m.dtype == torch.float32
+    torch.testing.assert_close(
+        h, mlstm_scan.mlstm_scan_cuda(q, k, v, i_pre, f_pre), rtol=0, atol=0)
+    _, (wC, wn, wm) = ref.mlstm_scan_chunked(
+        q, k, v, i_pre, f_pre, with_state=True, chunk=_mlstm_chunk(q, v))
+    _close_to_max(C, wC, TOL[dtype], "C")
+    _close_to_max(n, wn, TOL[dtype], "n")
+    torch.testing.assert_close(m, wm, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLSTM_CASES, ids=MLSTM_IDS)
+def test_mlstm_kernel_final_state_matches_plain(dev, dtype, case):
+    _check_mlstm_state(dev, dtype, case)
+
+
+@pytest.mark.parametrize("case", MLSTM_TC_CASES, ids=MLSTM_TC_IDS)
+def test_mlstm_tensor_cores_final_state_matches_plain(dev, case):
+    n0 = mlstm_scan.tc_launches
+    _check_mlstm_state(dev, torch.bfloat16, case)
+    assert mlstm_scan.tc_launches == n0 + 2  # with and without the state
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", MLSTM_CASES, ids=MLSTM_IDS)
 def test_mlstm_bwd_kernel_matches_plain(dev, dtype, case):
@@ -953,6 +989,19 @@ def _ssm_fwd_ckpt64(x, dt, A, Bm, Cm, D):
             torch.stack(ckpts))
 
 
+def _ssm_final64(x, dt, A, Bm, Cm, D):
+    """The scan's final state, walked chunk by chunk in float64."""
+    chunk = ref.SSM_CHUNK
+    h = torch.zeros((x.shape[0], x.shape[2], A.shape[1]), dtype=torch.float64,
+                    device=x.device)
+    for t0 in range(0, x.shape[1], chunk):
+        sl = slice(t0, t0 + chunk)
+        _, hs = ref._ssm_chunk_states(h, x[:, sl].double(), dt[:, sl].double(),
+                                      Bm[:, sl].double(), A.double())
+        h = hs[:, -1]
+    return h
+
+
 def _abs_rel_err(got, want):
     """The least tol with |got - want| <= tol + tol |want| everywhere."""
     return float(((got.double() - want.double()).abs()
@@ -990,6 +1039,27 @@ def test_ssm_kernel_matches_plain(dev, dtype, case):
             f"float64")
     # without the checkpoints the output is the same, bit for bit
     torch.testing.assert_close(ssm_scan.ssm_scan_cuda(*xs), y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSM_CASES, ids=SSM_IDS)
+def test_ssm_kernel_final_state_matches_plain(dev, dtype, case):
+    """K5 with its final state: y the same bits as without, the state
+    held as the checkpoints are (against the plain version run in
+    float64: 2e-5 abs+rel, or 4x the float32 plain version's error)."""
+    *xs, _ = _ssm_inputs(dev, dtype, *case)
+    n0 = (ssm_scan.launches, ssm_scan.state_launches)
+    y, h = ssm_scan.ssm_scan_with_state(*xs)
+    torch.cuda.synchronize()
+    assert (ssm_scan.launches, ssm_scan.state_launches) == (n0[0] + 1,
+                                                            n0[1] + 1)
+    x, A = xs[0], xs[2]
+    assert h.shape == (x.shape[0], x.shape[2], A.shape[1])
+    assert h.dtype == torch.float32
+    torch.testing.assert_close(ssm_scan.ssm_scan_cuda(*xs), y, rtol=0, atol=0)
+    _, plain = ref.ssm_scan_chunked(*xs, chunk=ref.SSM_CHUNK)
+    err, plain_err = (_abs_rel_err(t, _ssm_final64(*xs)) for t in (h, plain))
+    assert err <= max(2e-5, 4 * plain_err), (err, plain_err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

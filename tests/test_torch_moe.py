@@ -449,17 +449,21 @@ def test_reference_restores_port_checkpoint(phi, tmp_path):
 
 
 def test_serving_paths_raise(phi):
+    """The MoE decoders serve (prefill, the dense and paged caches, the
+    engine); the one refusal the reference keeps is padded prefill
+    (``lens``): capacity depends on the padded length."""
     model, state, _ = _port(phi)
     params = state["params"]
     tokens = torch.ones((1, 4), dtype=torch.int32)
-    for call in (lambda: model.prefill(params, tokens),
-                 lambda: model.init_cache(1, 8),
-                 lambda: model.init_paged_cache(1, 4, 8, 2),
-                 lambda: model.serving_params(params),
-                 lambda: ServeEngine(model, params)):
-        with pytest.raises(NotImplementedError, match="MoE serving"):
-            call()
+    with pytest.raises(ValueError, match="lens"):
+        model.prefill(params, tokens, lens=torch.tensor([3]))
     assert not model.supports_padded_prefill()
+    assert model.supports_paged_cache() and model.supports_speculative()
+    logits, cache = model.prefill(model.serving_params(params), tokens,
+                                  max_seq=8)
+    assert logits.shape == (1, model.cfg.vocab_size)
+    assert cache["k"].shape[:3] == (model.cfg.num_layers, 1, 8)
+    ServeEngine(model, params, engine="paged", spec_k=2)
 
 
 def test_train_cli_runs_reduced_moe(tmp_path, capsys):

@@ -153,10 +153,13 @@ def test_unported_paths_raise(setup):
     assert whisper.cfg.name == "whisper-large-v3-smoke"
     with pytest.raises(ValueError, match="paged"):
         ServeEngine(whisper, whisper.init(seed=0), engine="paged")
-    # the MoE decoders train in the port; their serving raises
+    # the MoE decoders serve on every engine; padded prefill raises, as in
+    # the reference (capacity depends on the padded length)
     moe = build_model(reduced(get_config("qwen3-moe")), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE serving"):
-        ServeEngine(moe, moe.init(seed=0))
+    assert ServeEngine(moe, moe.init(seed=0), engine="paged").pool
+    with pytest.raises(ValueError, match="lens"):
+        moe.prefill(moe.init(seed=0), torch.ones((1, 4), dtype=torch.int32),
+                    lens=torch.tensor([3]))
     eng = ServeEngine(model, tparams, max_batch=2, max_seq=16, engine="paged",
                       page_size=8)
     with pytest.raises(ValueError, match="KV pages"):

@@ -265,18 +265,29 @@ def test_resume_from_reference_checkpoint_is_exact(ref, tmp_path):
 
 
 def test_serving_paths_raise(ref):
+    """The xLSTM serves on the fused engine; the refusals the reference
+    keeps raise its ``ValueError``: padded prefill (the state would carry
+    pad steps), the paged cache and speculation (the state has no pages
+    and cannot roll back rejected drafts)."""
     model, state, _ = _port(ref)
     params = state["params"]
     tokens = torch.ones((1, 4), dtype=torch.int32)
-    for call in (lambda: model.prefill(params, tokens),
-                 lambda: model.init_cache(1, 8),
-                 lambda: model.init_paged_cache(1, 4, 8, 2),
-                 lambda: model.serving_params(params),
-                 lambda: ServeEngine(model, params)):
-        with pytest.raises(NotImplementedError, match="xLSTM serving"):
+    for call, what in ((lambda: model.prefill(params, tokens,
+                                              lens=torch.tensor([3])), "lens"),
+                       (lambda: model.init_paged_cache(1, 4, 8, 2), "paged"),
+                       (lambda: ServeEngine(model, params, engine="paged"),
+                        "paged"),
+                       (lambda: ServeEngine(model, params, spec_k=2),
+                        "speculative"),
+                       (lambda: model.verify_step(params,
+                                                  model.init_cache(1, 8),
+                                                  tokens), "speculative")):
+        with pytest.raises(ValueError, match=what):
             call()
     assert not model.supports_paged_cache()
     assert not model.supports_speculative()
+    assert not model.supports_padded_prefill()
+    assert ServeEngine(model, params).engine == "fused"
 
 
 def test_train_cli_runs_reduced_xlstm(tmp_path, capsys):
