@@ -1,8 +1,9 @@
 """Chip smoke of the PyTorch port: build the CUDA kernels, hold each one
 against its plain PyTorch version on the card, serve full-width
-qwen2-1.5b through the paged engine (main path), the fused engine and
-the paged engine's speculative path, train it at full width through
-the train step (K1 forward, K1-bwd backward), train xlstm-125m at full
+qwen2-1.5b through the paged engine (main path), the fused engine, the
+legacy engine and the paged engine's speculative path, train it at full
+width through the train step (K1 forward, K1-bwd backward; remat none
+and dots), train xlstm-125m at full
 width (K6 forward, K6-bwd backward, the sLSTM loop), train hymba-1.5b
 at full width (K1 and K1-bwd, global and sliding-window, and K5
 forward, K5-bwd backward for its SSM heads), and train phi3.5-moe at
@@ -38,7 +39,12 @@ them, and on any mismatch.  Phases, one or more lines each:
      launch on the tensor cores), then the serving bench's shared-prefix
      burst;
   6. the same workload on the fused engine, and the first admission
-     group's prefill and decode logits, kernel path vs plain path;
+     group's prefill and decode logits, kernel path vs plain path; then
+     the legacy engine on the same workload (counters reset just before,
+     read just after: K1 once a request a layer), its host transfers
+     (B x V logits a decode step) and tok/s beside the fused
+     engine's, greedy identity with the fused engine on one admission
+     group in float32 (and the agreeing share in bf16);
   7. K3 (paged verify) against its plain version at qwen2 shapes (the
      main path hot and cold, and the decode_32k and B 8 long shapes, as
      phase 4), and against K2 at one row, bit for bit; past 64 rows
@@ -58,7 +64,11 @@ them, and on any mismatch.  Phases, one or more lines each:
  10. training main path: qwen2-1.5b at full width and full depth, seq
      4096, through ``make_train_step`` (launch counters reset just before
      four steps, read just after: every bf16 K1 and K1-bwd launch on the
-     tensor cores), then one profiled step's device-time split;
+     tensor cores), then one profiled step's device-time split; then the
+     same four steps at remat ``dots`` from the same state (K1 twice a
+     layer a step, K1-bwd once, all on the tensor cores), the step wall
+     and the peak beside remat none's, the first step's loss within 1e-6
+     of none's;
  11. one step's loss and gradient norm at full width, kernel path vs
      plain path;
  12. resume is exact: 4 steps unbroken against 2 steps, a save and
@@ -154,8 +164,9 @@ them, and on any mismatch.  Phases, one or more lines each:
      and microbatch; counters reset just before each run, read just
      after: K1 and K1-bwd all on the tensor cores), the checks passing,
      the plan doc naming the card's one-card slice, the peak memory
-     beside the plan's ``bytes_per_device``; each run's final checkpoint
-     (18.5 GB) is removed after its run;
+     beside the plan's ``bytes_per_device``, the host's load average at
+     each run's start and end; each run's final checkpoint (18.5 GB) is
+     removed after its run;
  31. harvest, calibrate and explore: each run harvests one sample under
      (h100, train); a workflow of the calibrate stage (activating the
      fit: the scale fallback at two samples) and the explore stage over
@@ -170,8 +181,9 @@ them, and on any mismatch.  Phases, one or more lines each:
      cross attention (S 4096 against T 1500, non-causal), and
      phi-3-vision's causal attention at head dim 96 (B 1, S 4096, 32
      heads); and K2 at phi-3-vision's serving shape (4 slots, 32 heads
-     of 96, pages of 16, the first decode step's lengths) hot and cold,
-     in both dtypes (D 96 takes the FMA walk);
+     of 96, pages of 16, the first decode step's lengths) and K3 at its
+     verify shape (T = SPEC_K + 1) hot and cold, in both dtypes (D 96
+     takes the FMA walk);
  33. whisper-large-v3 at full width (32 encoder and 32 decoder layers,
      d_model 1280): 8 requests of 1500 frames on the fused engine, two
      prompt lengths admitted in exact-length groups (K1 counted by path),
@@ -186,7 +198,10 @@ them, and on any mismatch.  Phases, one or more lines each:
      the fused and the paged engine (counters reset just before, read
      just after: K2 at D 96 on its FMA walk), the agreeing share of
      their bf16 tokens, and in float32 compute identical tokens from both
-     and a shared prompt's pages reused; then training at seq 4096,
+     and a shared prompt's pages reused; the paged engine with spec_k
+     SPEC_K (n-gram) on the same requests (K3 at D 96 on its FMA walk):
+     acceptance and tokens per round, the agreeing share with the paged
+     run in bf16, identical tokens in float32; then training at seq 4096,
      batch 1, remat full, full depth, through ``make_train_step`` (K1 64
      and K1-bwd 32 a step, all on the tensor cores), the peak and one
      profiled step's split;
@@ -247,6 +262,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -784,6 +800,96 @@ def phase_serve_fused(model, params, cfg) -> float:
     return worst
 
 
+def _engine_group_tokens(model, params, cfg, engine):
+    """Greedy tokens of one admission group (the smoke burst's first
+    MAX_BATCH requests) on the fused or the legacy engine."""
+    eng = ServeEngine(model, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
+                      engine=engine)
+    done, _ = _burst(eng, cfg.vocab_size, MAX_BATCH)
+    return {c.uid: c.tokens for c in done}
+
+
+def _group_prompts(cfg) -> dict:
+    """The smoke burst's first MAX_BATCH prompts, by uid."""
+    rng = np.random.default_rng(0)
+    return {uid: rng.integers(1, cfg.vocab_size, PROMPT_LEN)
+            for uid in range(MAX_BATCH)}
+
+
+def _near_tie_divergences(tag, model, params, base, other, prompts,
+                          extras=None) -> int:
+    """Requests whose greedy tokens differ between two runs in float32:
+    each divergence is reported and must sit at a near-tie of the
+    target (top-2 margin under 1e-3 of max |logit|, after the request's
+    prompt and extra inputs, both by uid); returns how many requests are
+    token-identical."""
+    for uid in base:
+        a, b = base[uid], other[uid]
+        if a == b:
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        margin = _top2_margin(model, params, prompts[uid], a[:i],
+                              (extras or {}).get(uid))
+        log(f"[{tag}] uid={uid} diverges at token {i}: top-2 margin "
+            f"{margin:.3g} of max|logit|")
+        assert margin < 1e-3, (uid, i, margin)
+    return sum(base[u] == other[u] for u in base)
+
+
+def phase_serve_legacy(model, params, cfg) -> int:
+    """The legacy engine on the serving workload (counters reset just
+    before, read just after): K1 once a request a layer (each request
+    prefilled alone; its decode reads are the plain dense ones), the
+    full (B, V) logits to the host each decode step, host-clock
+    tok/s beside the fused engine's on the same burst; then greedy
+    identity with the fused engine in float32 compute on one admission
+    group, and the bf16 agreeing share.  Returns K1's launches."""
+    _reset_k1_counters()
+    eng = ServeEngine(model, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
+                      engine="legacy")
+    done, wall = _burst(eng, cfg.vocab_size)
+    k1, k1_tc = flash_attention.launches, flash_attention.tc_launches
+    toks = sum(len(c.tokens) for c in done)
+    assert len(done) == NUM_REQUESTS
+    assert all(1 <= len(c.tokens) <= MAX_NEW for c in done)
+    assert k1 == k1_tc == NUM_REQUESTS * cfg.num_layers, (k1, k1_tc)
+    assert eng.d2h_elems == eng.d2h_transfers * MAX_BATCH * cfg.vocab_size
+    log(f"[6 serve legacy] requests={len(done)} tokens={toks} wall_s="
+        f"{wall:.3f} tok_per_s={toks / wall:.1f} (first run) decode steps="
+        f"{eng.d2h_transfers} d2h_elems a step="
+        f"{eng.d2h_elems // eng.d2h_transfers} (B x V = {MAX_BATCH} x "
+        f"{cfg.vocab_size}; fused moves {MAX_BATCH}) K1 launches={k1} (one a "
+        f"request a layer: {NUM_REQUESTS} x {cfg.num_layers}, tensor-cores "
+        f"{k1_tc})")
+    # warm, in turns: legacy, fused, legacy, fused on the same burst
+    for engine in ("legacy", "fused") * 2:
+        d, w = _burst(ServeEngine(model, params, max_batch=MAX_BATCH,
+                                  max_seq=MAX_SEQ, engine=engine),
+                      cfg.vocab_size)
+        n = sum(len(c.tokens) for c in d)
+        log(f"[6 serve legacy] warm {engine}: tokens={n} wall_s={w:.3f} "
+            f"tok_per_s={n / w:.1f}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.serving_params(model32.init(seed=0))
+    base = _engine_group_tokens(model32, params32, cfg32, "fused")
+    legacy = _engine_group_tokens(model32, params32, cfg32, "legacy")
+    same = _near_tie_divergences("6 legacy f32", model32, params32, base,
+                                 legacy, _group_prompts(cfg32))
+    log(f"[6 legacy f32] {same}/{len(base)} requests token-identical on "
+        f"the legacy and the fused engine")
+    del model32, params32
+    torch.cuda.empty_cache()
+    base = _engine_group_tokens(model, params, cfg, "fused")
+    legacy = _engine_group_tokens(model, params, cfg, "legacy")
+    pairs = [(x, y) for u in base for x, y in zip(base[u], legacy[u])]
+    agree = sum(x == y for x, y in pairs) / len(pairs)
+    log(f"[6 legacy bf16] share of tokens that agree between the legacy "
+        f"and the fused engine: {agree:.4f} ({len(pairs)} positions)")
+    return k1
+
+
 # ---------------------------------------------------------------------------
 def phase_k3(gen) -> dict:
     rng = np.random.default_rng(1)
@@ -856,12 +962,14 @@ def _group_tokens(model, params, cfg, spec_k):
     return {c.uid: c.tokens for c in done}
 
 
-def _top2_margin(model, params, prompt, prefix) -> float:
-    """The target's top-2 logit margin after ``prompt + prefix``, as a
-    share of max |logit|."""
+def _top2_margin(model, params, prompt, prefix, extra=None) -> float:
+    """The target's top-2 logit margin after ``prompt + prefix`` (with the
+    request's extra inputs), as a share of max |logit|."""
     seq = np.concatenate([prompt, np.asarray(prefix, np.int64)])
     tokens = torch.tensor(seq[None], dtype=torch.int32, device="cuda")
-    logits, _ = model.prefill(params, tokens)
+    if extra:
+        extra = {k: torch.from_numpy(v[None]).cuda() for k, v in extra.items()}
+    logits, _ = model.prefill(params, tokens, extra)
     top = torch.topk(logits[0].float(), 2).values
     return float((top[0] - top[1]) / logits[0].float().abs().max())
 
@@ -916,20 +1024,8 @@ def phase_serve_spec(model, params, cfg) -> int:
     params32 = model32.serving_params(model32.init(seed=0))
     base = _group_tokens(model32, params32, cfg32, 0)
     spec = _group_tokens(model32, params32, cfg32, SPEC_K)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, PROMPT_LEN)
-               for _ in range(MAX_BATCH)]
-    for uid in base:
-        a, b = base[uid], spec[uid]
-        if a == b:
-            continue
-        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
-                 min(len(a), len(b)))
-        margin = _top2_margin(model32, params32, prompts[uid], a[:i])
-        log(f"[8 greedy f32] uid={uid} diverges at token {i}: top-2 margin "
-            f"{margin:.3g} of max|logit|")
-        assert margin < 1e-3, (uid, i, margin)
-    same = sum(base[u] == spec[u] for u in base)
+    same = _near_tie_divergences("8 greedy f32", model32, params32, base,
+                                 spec, _group_prompts(cfg32))
     log(f"[8 greedy f32] {same}/{len(base)} requests token-identical with "
         f"and without speculation")
     del model32, params32
@@ -942,6 +1038,9 @@ def phase_serve_spec(model, params, cfg) -> int:
         f"speculation: {agree:.4f} ({len(pairs)} positions)")
 
     # one verify step's logits, kernel path vs plain path, on one cache
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, PROMPT_LEN)
+               for _ in range(MAX_BATCH)]
     tokens = torch.tensor(np.stack(prompts), dtype=torch.int32, device="cuda")
     logits, cache = model.prefill(params, tokens, max_seq=SPEC_MAX_SEQ)
     paged = _to_paged(cache, PAGE)
@@ -1152,6 +1251,49 @@ def _device_split(prof, kinds=None):
     return split, by_name
 
 
+# what ``torch.cuda.set_sync_debug_mode("warn")`` says at each operation
+# that waits for the card
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _sync_sites(fn):
+    """``(fn(), the Python lines where fn waited for the card)``, as the
+    sync debug mode reports them."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename}:{w.lineno}" for w in caught
+                 if SYNC_WARNING in str(w.message)]
+
+
+def _unsynced_steps(step, state, batches):
+    """``TRAIN_STEPS`` steps of ``step``, each timed to its loss read; from
+    the second on, the step itself must wait for the card nowhere (a
+    scalar made on the host, a pageable copy, or a read of the device
+    would drain the queue, and the host's dispatch would then add to the
+    device's time instead of running ahead of it).  First the check is
+    shown to see such a wait: a scalar copied from the host."""
+    _, control = _sync_sites(lambda: torch.tensor(1.0, device="cuda"))
+    assert control, "the sync debug mode saw no host-to-device copy"
+    losses, walls, syncs = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        if i:
+            (state, metrics), sites = _sync_sites(
+                lambda s=state, b=batches[i]: step(s, b))
+            syncs += sites
+        else:
+            state, metrics = step(state, batches[i])
+        losses.append(float(metrics["loss"]))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+    assert not syncs, f"the train step waited for the card at {syncs}"
+    return state, losses, walls
+
+
 def phase_train(cfg):
     """The training main path: full width, full depth, seq 4096."""
     model = build_model(cfg)
@@ -1174,12 +1316,7 @@ def phase_train(cfg):
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     _reset_k1_counters()
-    losses, walls = [], []
-    for i in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batches[i])
-        losses.append(float(metrics["loss"]))  # waits for the step
-        walls.append(time.perf_counter() - t0)
+    state, losses, walls = _unsynced_steps(step, state, batches)
     launches = {"flash_attention": flash_attention.launches,
                 "flash_attention_bwd": flash_attention_bwd.launches}
     want = cfg.num_layers * TRAIN_STEPS * TRAIN_MICROBATCH
@@ -1194,7 +1331,7 @@ def phase_train(cfg):
         f"steady_step_s={steady:.3f} tok_per_s="
         f"{TRAIN_BATCH * TRAIN_SEQ / steady:.1f} max_memory_allocated_GB="
         f"{peak / 1e9:.2f} launches={launches} (want {want} each) "
-        f"paths={paths}")
+        f"paths={paths}; no host-device sync inside steps 2-{TRAIN_STEPS}")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1211,7 +1348,58 @@ def phase_train(cfg):
             for k, v in split.items()))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[10 train profile]   {ms:9.1f} ms  {name}")
-    return model, state, launches
+    none = dict(loss=losses[0], steady_s=steady, peak_gb=peak / 1e9)
+    return model, state, launches, none
+
+
+def phase_train_dots(cfg, none: dict) -> dict:
+    """The training main path at remat ``dots`` (each block's products
+    saved, the rest recomputed in the backward), from the state phase 10
+    started from: K1 twice a layer a step (the forward and its
+    recompute), K1-bwd once, all on the tensor cores (counters reset just
+    before the steps, read just after); the step wall and the peak beside
+    remat none's; the first step's loss against none's.  Returns K1's and
+    K1-bwd's launches."""
+    model = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    plan = Plan(remat="dots", microbatch=TRAIN_MICROBATCH)
+    state = init_train_state(model, 0, opt, plan)
+    step = make_train_step(model, opt, plan)
+    stream = make_stream(cfg, ShapeConfig("train_4k-cut", TRAIN_SEQ,
+                                          TRAIN_BATCH, "train"))
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()}
+               for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_k1_counters()
+    state, losses, walls = _unsynced_steps(step, state, batches)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    want = cfg.num_layers * TRAIN_STEPS * TRAIN_MICROBATCH
+    assert launches == {"flash_attention": 2 * want,
+                        "flash_attention_bwd": want}, (launches, want)
+    assert flash_attention.fma_launches == 0, flash_attention.fma_launches
+    assert flash_attention_bwd.fma_launches == 0
+    assert all(np.isfinite(losses)), losses
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steady = statistics.median(walls[1:])
+    rel = abs(losses[0] - none["loss"]) / abs(none["loss"])
+    log(f"[10 train dots] remat dots: losses={[round(x, 4) for x in losses]} "
+        f"step_wall_s={[round(x, 3) for x in walls]} steady_step_s="
+        f"{steady:.3f} (none {none['steady_s']:.3f}) tok_per_s="
+        f"{TRAIN_BATCH * TRAIN_SEQ / steady:.1f} max_memory_allocated_GB="
+        f"{peak:.2f} (none {none['peak_gb']:.2f}) launches={launches} (want "
+        f"{2 * want} and {want}: K1 {2 * cfg.num_layers} and K1-bwd "
+        f"{cfg.num_layers} a step, tensor-cores "
+        f"{flash_attention.tc_launches} and {flash_attention_bwd.tc_launches}"
+        f"); first step's loss {losses[0]!r} against none's "
+        f"{none['loss']!r}: rel {rel:.3g} (bound 1e-6), bit for bit: "
+        f"{losses[0] == none['loss']}")
+    assert rel <= 1e-6, (losses[0], none["loss"])
+    del state, batches, step, model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_train_plain(model, state, cfg) -> None:
@@ -2490,10 +2678,12 @@ def phase_card_train_workflow(runs: str, n_steps: int = CARD_FIT_STEPS):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _reset_k1_counters()
+        load0 = os.getloadavg()
         t0 = time.perf_counter()
         res = run_workflow(t, ProvenanceStore(runs), device="cuda",
                            intent=intent, steps_override=n_steps)
         wall = time.perf_counter() - t0
+        load1 = os.getloadavg()
         peak = torch.cuda.max_memory_allocated()
         launches = {"flash_attention": flash_attention.launches,
                     "flash_attention_bwd": flash_attention_bwd.launches}
@@ -2522,7 +2712,10 @@ def phase_card_train_workflow(runs: str, n_steps: int = CARD_FIT_STEPS):
             f"(want {passes * want} and {want}) paths={paths}")
         log(f"[30 card train workflow]   step_time_s (metrics.jsonl) "
             f"{[round(x, 4) for x in steps]} median after the first "
-            f"{statistics.median(steps[1:]):.4f}; max_memory_allocated_GB="
+            f"{statistics.median(steps[1:]):.4f}; host load average (1, 5, "
+            f"15 min) at the run's start {[round(x, 2) for x in load0]} and "
+            f"end {[round(x, 2) for x in load1]} on {os.cpu_count()} cores; "
+            f"max_memory_allocated_GB="
             f"{peak / 1e9:.2f} against the plan's bytes_per_device "
             f"{est.bytes_per_device / 1e9:.2f} GB (x"
             f"{peak / est.bytes_per_device:.2f}); final checkpoint "
@@ -2658,12 +2851,13 @@ SLICE_TEMPLATES = (
 SLICE_KINDS = dict(K1_KINDS)
 
 
-def phase_slice_kernels(gen) -> None:
+def phase_slice_kernels(gen) -> dict:
     """K1 with its LSE and K1-bwd at whisper's and phi-3-vision's
     attention shapes, in both dtypes, against their plain versions (bf16
     on the tensor cores at D 64 and D 96); K2 at phi-3-vision's serving
-    shape (D 96: bf16 on the FMA walk by the page walk's rule), hot and
-    cold, in both dtypes."""
+    shape and K3 at its verify shape (T = SPEC_K + 1; D 96: bf16 on the
+    FMA walk by the page walk's rule), hot and cold, in both dtypes.
+    Returns K3's bf16 row."""
     for dtype in (torch.bfloat16, torch.float32):
         for name, B, S, T, H, KH, D, causal in SLICE_K1_CASES:
             _k1_train_case(name, dtype, B, S, T, H, KH, D, 0, 0, gen,
@@ -2680,6 +2874,20 @@ def phase_slice_kernels(gen) -> None:
                         max_pages, [n + 1 for n in prompts], gen, rng,
                         cold=True, phase="32 K2")
         assert r["path"].startswith("fma"), r  # D 96: no tensor-core walk
+    # the verify batch of phase 34's speculative run: 4 slots, T = SPEC_K
+    # + 1 rows each from the first round's base lengths, 32 heads of 96
+    # (G = 1), pages of 16
+    max_pages = -(-(max(prompts) + PV_MAX_NEW + SPEC_K) // PAGE)
+    k3 = None
+    for dtype in (torch.bfloat16, torch.float32):
+        r = _paged_case("K3", "phi-3-vision verify (T = SPEC_K + 1)", dtype,
+                        PV_MAX_BATCH, SPEC_K + 1, cfg.num_kv_heads,
+                        cfg.num_heads // cfg.num_kv_heads, cfg.head_dim, PAGE,
+                        max_pages, [n + 1 for n in prompts], gen, rng,
+                        cold=True, phase="32 K3")
+        assert r["path"].startswith("fma"), r  # D 96: no tensor-core walk
+        k3 = k3 or r
+    return k3
 
 
 def _modal_requests(prompts, max_new, key, rows, d, vocab, seed,
@@ -2891,6 +3099,31 @@ def phase_phi3v(cfg) -> dict:
                      f"{eng.pool.prefix_hits}")
             paged_k1 = k1
         log(line)
+    # the paged engine with n-gram speculation on the same requests (the
+    # counters reset just before, read just after: K3 at D 96 on its FMA
+    # walk, no K2: every round is a verify)
+    kw_spec = dict(kw, max_seq=max_seq + SPEC_K)
+    _reset_k1_counters()
+    _reset_paged_counters(paged_attention, paged_attention_mq)
+    got["spec"], wall, eng = _serve(model, params, reqs, engine="paged",
+                                    spec_k=SPEC_K, **kw_spec)
+    spec_k1, k3 = flash_attention.launches, paged_attention_mq.launches
+    k3_paths = {"tensor-cores": paged_attention_mq.tc_launches,
+                "fma": paged_attention_mq.fma_launches,
+                "merged": paged_attention_mq.merge_launches}
+    st = eng.kv_stats()
+    toks = sum(len(v) for v in got["spec"].values())
+    assert k3 > 0 and k3_paths["fma"] == k3, k3_paths
+    assert paged_attention.launches == 0 and st["pages_in_use"] == 0
+    assert st["spec_tokens"] == toks - len(reqs), st
+    spec_agree = sum(a == b for u in got["paged"]
+                     for a, b in zip(got["paged"][u], got["spec"][u]))
+    log(f"[34 phi-3-vision serve] paged spec_k={SPEC_K} (n-gram): tokens="
+        f"{toks} wall_s={wall:.3f} tok_per_s={toks / wall:.1f} accept_rate="
+        f"{st['spec_accept_rate']:.4f} tokens_per_round="
+        f"{st['spec_tokens_per_round']:.3f} slot_rounds={st['spec_rounds']} "
+        f"K1 launches={spec_k1} K3 launches={k3} paths={k3_paths}; bf16 "
+        f"tokens agree with the paged run's at {spec_agree}/{toks} positions")
     agree = sum(a == b for u in got["fused"]
                 for a, b in zip(got["fused"][u], got["paged"][u]))
     total = sum(len(v) for v in got["fused"].values())
@@ -2918,6 +3151,17 @@ def phase_phi3v(cfg) -> dict:
         f"(uid 100's {prompts[0] // PAGE} full prompt pages)")
     assert same and res["paged"][0][100] == res["paged"][0][0], res
     assert hits == prompts[0] // PAGE, hits
+    # speculation in float32 compute: the 8 image requests with and
+    # without it on the paged engine, token for token (a divergence only
+    # at a near-tie of the target)
+    base, spec = (_serve(f32, params, reqs, engine="paged", spec_k=k,
+                         **kw_spec)[0] for k in (0, SPEC_K))
+    same = _near_tie_divergences(
+        "34 phi-3-vision spec f32", f32, params, base, spec,
+        {r.uid: r.prompt for r in reqs}, {r.uid: r.extra for r in reqs})
+    log(f"[34 phi-3-vision spec f32] {same}/{len(base)} requests "
+        f"token-identical on the paged engine with spec_k {SPEC_K} and "
+        f"without")
     del f32, params, res, master, model
     torch.cuda.empty_cache()
     mult = 2 if PV_REMAT == "full" else 1
@@ -2925,9 +3169,10 @@ def phase_phi3v(cfg) -> dict:
                          PV_REMAT, mult * cfg.num_layers, cfg.num_layers,
                          OptimizerConfig(lr=PV_LR, warmup_steps=1,
                                          total_steps=100))
-    return {"flash_attention": paged_k1 + train["flash_attention"],
+    return {"flash_attention": (paged_k1 + spec_k1
+                                + train["flash_attention"]),
             "flash_attention_bwd": train["flash_attention_bwd"],
-            "paged_attention": k2}
+            "paged_attention": k2, "paged_attention_mq": k3}
 
 
 def phase_slice_workflows(runs: str) -> dict:
@@ -3544,15 +3789,17 @@ def main() -> int:
         f"{cfg.dtype}; init {time.perf_counter() - t0:.1f} s")
     launches = phase_serve_paged(model, params, cfg)
     phase_serve_fused(model, params, cfg)
+    legacy_k1 = phase_serve_legacy(model, params, cfg)
     k3_launches = phase_serve_spec(model, params, cfg)
     del model, params
     torch.cuda.empty_cache()
 
     k1_bwd = phase_k1_train(gen)
-    model, state, train_launches = phase_train(cfg)
+    model, state, train_launches, none = phase_train(cfg)
     phase_train_plain(model, state, cfg)
     del model, state
     torch.cuda.empty_cache()
+    dots = phase_train_dots(cfg, none)
     phase_resume(dataclasses.replace(cfg, num_layers=2,
                                      name=cfg.name + "-2layer"), 12,
                  "depth cut to 2 layers")
@@ -3610,7 +3857,7 @@ def main() -> int:
     # whisper-large-v3 and phi-3-vision-4.2b: the slice's kernels at their
     # shapes, then each main path (counters reset just before, read just
     # after each run), then both templates planned for the card
-    phase_slice_kernels(gen)
+    k3_d96 = phase_slice_kernels(gen)
     wh = phase_whisper(get_config("whisper-large-v3"))
     pv = phase_phi3v(get_config("phi-3-vision-4.2b"))
     with tempfile.TemporaryDirectory() as runs:
@@ -3634,7 +3881,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/flash_attention.py:115",
-             launches=(launches["flash_attention"] + wf["flash_attention"]
+             launches=(launches["flash_attention"] + legacy_k1
+                       + dots["flash_attention"] + wf["flash_attention"]
                        + card["flash_attention"] + wh["flash_attention"]
                        + pv["flash_attention"] + sw["flash_attention"]
                        + ms["flash_attention"] + hs["flash_attention"]
@@ -3653,11 +3901,21 @@ def main() -> int:
              replaces="src/repro/kernels/paged_attention.py:170",
              launches=(k3_launches + wf["paged_attention_mq"]
                        + ms["paged_attention_mq"]), **k3),
+        dict(name="paged_attention_mq (phi-3-vision verify, D 96, fma walk)",
+             route="cuda",
+             source="src/repro_torch/kernels/csrc/paged_attention_mq.cu",
+             includes=[PAGED_COMMON, HOPPER_COMMON],
+             replaces="src/repro/kernels/paged_attention.py:170",
+             launches=pv["paged_attention_mq"],
+             **{k: k3_d96[k] for k in ("max_abs_err", "ms", "ms_cold",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "path")}),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/flash_xla.py:99",
              launches=(train_launches["flash_attention_bwd"]
+                       + dots["flash_attention_bwd"]
                        + card["flash_attention_bwd"]
                        + wh["flash_attention_bwd"] + pv["flash_attention_bwd"]
                        + sw["flash_attention_bwd"]), **k1_bwd),

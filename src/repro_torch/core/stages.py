@@ -407,8 +407,7 @@ class ServeStage(Stage):
     tokens — see docs/serving.md).  ``serve_spec_k`` / ``serve_draft``
     (the CLI's ``--serve-spec-k`` / ``--serve-draft``) turn on lossless
     speculative decoding: k drafts per verify round from the n-gram
-    proposer, or from a reduced draft model named by arch.  ``legacy``
-    is not ported: the port's engine raises for it."""
+    proposer, or from a reduced draft model named by arch."""
 
     inputs = ("cfg",)
     outputs = ("final_state", "completions")

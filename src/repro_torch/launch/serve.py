@@ -6,6 +6,9 @@
     # chunked decode: 8 tokens per host transfer
     PYTHONPATH=src python -m repro_torch.launch.serve --chunk 8
 
+    # the per-slot legacy baseline: (B, V) logits to the host each step
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine legacy
+
     # paged KV cache: pool pages + prefix sharing
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged
 
@@ -29,8 +32,8 @@ Like the reference entry point it serves the reduced config of ``--arch``
 with random weights from ``--seed`` (the draft's from ``--seed + 1``).
 Requests of one prompt length make one admission group, which the
 models without padded prefill (the MoE decoders, hymba, the xLSTM)
-need.  ``--engine legacy`` is accepted for the reference's command lines
-and raises ``NotImplementedError`` until that engine is ported.
+need.  ``--engine legacy`` serves through the reference's per-slot
+baseline (host sampling, one request a slot admitted at a time).
 """
 from __future__ import annotations
 
@@ -55,8 +58,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--engine", default="fused",
                     choices=["fused", "legacy", "paged"],
-                    help="fused on-device sampling or the paged KV cache "
-                         "(legacy is not ported yet)")
+                    help="fused on-device sampling, the per-slot legacy "
+                         "baseline (host sampling) or the paged KV cache")
     ap.add_argument("--chunk", type=int, default=1,
                     help="tokens decoded per host transfer")
     ap.add_argument("--page-size", type=int, default=16,

@@ -76,8 +76,10 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=positions.device), exps)
+    # the base made on the device: a scalar copied from the host would
+    # wait for the device's queue to drain, once per layer
+    freq = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=positions.device), exps)
     ang = positions.float()[..., None] * freq
     return torch.cos(ang), torch.sin(ang)
 

@@ -74,7 +74,7 @@ def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
     denominator)."""
     half = d // 2
     dev = positions.device
-    log_base = torch.log(torch.tensor(10000.0, device=dev))
+    log_base = torch.log(torch.full((), 10000.0, device=dev))
     freq = torch.exp(-log_base * torch.arange(half, device=dev,
                                               dtype=torch.float32)
                      / (half - 1))
@@ -160,7 +160,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     logits, aux = forward_train(params, cfg, tokens, batch, remat)
     nll = token_nll(logits, tokens)
     ce = nll.mean()
-    denom = torch.tensor(float(nll.numel()), device=ce.device)
+    denom = torch.full((), float(nll.numel()), device=ce.device)
     return ce, {"loss": ce, "ce": ce, "aux": aux, "tokens": denom}
 
 

@@ -30,6 +30,11 @@ device mesh's shardings, and the port runs on one card with no mesh
 reference's ``jax.checkpoint`` of the scan body; for the xLSTM around
 each group of blocks, and ``"dots"`` there is ``"full"``, as in the
 reference, whose ``_xlstm_forward`` checkpoints with no policy for both.
+Remat ``"dots"`` of the other blocks is the same checkpoint with a
+selective policy (:func:`dots_policy`), the reference's
+``checkpoint_dots_with_no_batch_dims``: the outputs of the block's
+products without batch dimensions are saved, everything else is
+recomputed in the backward.
 
 Parameters keep the reference's tree and shapes (:func:`param_shapes`):
 ``embed``, ``final_g``, and ``blocks`` with a leading layer axis on every
@@ -46,7 +51,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -269,15 +275,35 @@ def layer_window(cfg: ModelConfig, i: int) -> int:
     return 0
 
 
+def dots_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """Remat ``dots``: save the output of every product without batch
+    dimensions that autograd records, recompute the rest.  At dispatch
+    those products are ``aten.mm`` alone: each projection and FFN matmul
+    ``x @ W`` (``x`` ``(B, S, D)`` folded to rows) — q, k, v and the
+    output projection, the MLP's gate, up and down, the MoE router, the
+    hybrid's SSM in, z, B, C, dt and out projections.  No block reaches
+    ``aten.addmm`` (biases are added apart).  Recomputed: ``aten.bmm``
+    (batched products), the elementwise chain, and the kernels K1, K4
+    and K5.  A kernel's ``autograd.Function`` runs its forward with grad
+    mode off, so the products of its plain version on a CPU tensor
+    (K1's batched einsums, K4's per-group ``mm``) are not saved either:
+    a kernel is one opaque op, as a ``pallas_call`` is no
+    ``dot_general`` in the reference."""
+    del ctx, args, kwargs
+    if func is torch.ops.aten.mm.default and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
 def _scan_blocks(cfg: ModelConfig, blocks, x: torch.Tensor,
                  remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """``(x, aux)`` after every block, the blocks' aux losses summed in
     layer order from a float32 zero (the reference's scan carry)."""
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat 'dots' (save only the matmul outputs) is not ported yet: "
-            "ROADMAP queue 1, remat dots")
-    if remat not in ("none", "full"):
+    if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be none, full or dots; got {remat!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(layers(cfg, blocks)):
@@ -285,6 +311,9 @@ def _scan_blocks(cfg: ModelConfig, blocks, x: torch.Tensor,
         if remat == "full":
             x, a = checkpoint(_block_train, cfg, p, x, window,
                               use_reentrant=False)
+        elif remat == "dots":
+            x, a = checkpoint(_block_train, cfg, p, x, window,
+                              use_reentrant=False, context_fn=_dots_contexts)
         else:
             x, a = _block_train(cfg, p, x, window)
         aux = aux + a
@@ -367,7 +396,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         denom = torch.clamp(mask.sum(), min=1.0)
         ce = (nll * mask).sum() / denom
     else:
-        denom = torch.tensor(float(max(nll.numel(), 1)), device=nll.device)
+        denom = torch.full((), float(max(nll.numel(), 1)), device=nll.device)
         ce = nll.sum() / denom
     total = ce + aux
     return total, {"loss": total, "ce": ce, "aux": aux, "tokens": denom}

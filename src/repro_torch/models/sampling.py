@@ -40,16 +40,22 @@ def _generator(device, seed: int, slot: int, pos: int, tag) -> torch.Generator:
     return gen
 
 
-def gumbel_argmax(logits: torch.Tensor, *, seed: int, slot: int, pos: int,
-                  tag=None) -> torch.Tensor:
+def gumbel_draw(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     """One draw from ``softmax(logits)`` for a ``(V,)`` row by the
-    Gumbel-max trick, with the noise of stream ``(seed, slot, pos, tag)``;
-    returns a 0-d int64 tensor on the row's device."""
-    gen = _generator(logits.device, seed, slot, pos, tag)
+    Gumbel-max trick, with noise from ``gen`` (on the row's device);
+    returns a 0-d int64 tensor there."""
     u = torch.rand(logits.shape[-1], generator=gen,
                    device=logits.device).clamp_(min=1e-20)
     gumbel = -torch.log(-torch.log(u))
     return torch.argmax(logits + gumbel)
+
+
+def gumbel_argmax(logits: torch.Tensor, *, seed: int, slot: int, pos: int,
+                  tag=None) -> torch.Tensor:
+    """:func:`gumbel_draw` with the noise of stream ``(seed, slot, pos,
+    tag)``."""
+    return gumbel_draw(logits, _generator(logits.device, seed, slot, pos,
+                                          tag))
 
 
 def uniform(*, seed: int, slot: int, pos: int, tag, device) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Serving engine: slot-based continuous batching over the model's decode
 paths, in PyTorch.
 
-Counterpart of the reference package's ``serve/engine.py`` for
-``engine="fused"`` and ``engine="paged"``:
+Counterpart of the reference package's ``serve/engine.py``, its three
+engines.  ``engine="fused"`` and ``engine="paged"``:
 
   * the engine owns a fixed decode batch of ``max_batch`` slots and
     decodes the whole batch per step;
@@ -30,12 +30,21 @@ Counterpart of the reference package's ``serve/engine.py`` for
     agrees with (:mod:`repro_torch.models.speculate`); ``decode_chunk``
     rounds run per host transfer.
 
-Greedy tokens agree with the reference engine's on the same weights,
-with and without speculation.  Temperature draws are keyed by
-``(seed, slot, position)`` (plus a tag per speculative purpose) but are
-not the reference's bits (see :mod:`repro_torch.models.sampling`).
+``engine="legacy"`` keeps the reference's per-slot baseline: one
+request a slot prefilled at batch 1 and inserted into the dense cache,
+one decode step for all slots whose full ``(B, V)`` logits go to the
+host in the model's dtype and become float32 there, then one host
+sample a slot (greedy: the first index of
+the row's maximum; temperature: one serial ``torch.Generator`` seeded
+from ``seed``, one draw a sampled token in slot order).  It takes no
+``decode_chunk`` above 1 and no speculation, as in the reference.
 
-``engine="legacy"`` is not ported yet and raises ``NotImplementedError``.
+Greedy tokens agree with the reference engine's on the same weights,
+with and without speculation, on every engine.  Temperature draws are
+keyed by ``(seed, slot, position)`` (plus a tag per speculative purpose)
+on the fused and paged engines, and come from the one serial stream on
+the legacy engine; neither is the reference's bits (see
+:mod:`repro_torch.models.sampling`), only their distribution agrees.
 
 The engine runs on its model's device (``build_model`` defaults to the
 card).  K/V caches are updated in place.
@@ -55,7 +64,6 @@ from repro_torch.models import sampling, speculate
 from repro_torch.models.api import Model
 
 _MIN_SEQ_BUCKET = 8
-_LATER = "is not ported to PyTorch yet (ROADMAP queue 1, the control plane)"
 
 
 @dataclasses.dataclass
@@ -235,23 +243,22 @@ class ServeEngine:
                  page_size: int = 16, num_pages: Optional[int] = None,
                  spec_k: int = 0, spec_ngram_n: int = 3,
                  draft: Optional[Model] = None, draft_params=None):
-        if engine == "legacy":
-            raise NotImplementedError(f"engine='legacy' {_LATER}")
-        if engine not in ("fused", "paged"):
-            raise ValueError(f"engine must be 'fused' or 'paged', "
+        if engine not in ("fused", "legacy", "paged"):
+            raise ValueError(f"engine must be 'fused', 'legacy' or 'paged', "
                              f"got {engine!r}")
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
+        if engine == "legacy" and decode_chunk > 1:
+            raise ValueError("decode_chunk > 1 requires the fused engine: "
+                             "the legacy baseline decodes token-by-token")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if spec_k == 0 and draft is not None:
             raise ValueError("a draft model requires spec_k >= 1")
         if spec_k > 0:
-            if model.cfg.family == "vlm":
-                raise NotImplementedError(
-                    f"speculative serving of {model.cfg.name!r} (family "
-                    f"'vlm') is not ported to PyTorch yet: ROADMAP queue 1, "
-                    f"VLM speculation")
+            if engine == "legacy":
+                raise ValueError("speculative decoding (spec_k > 0) requires "
+                                 "the fused or paged engine")
             if not model.supports_speculative():
                 raise ValueError(
                     f"speculative decoding unsupported for family "
@@ -287,6 +294,8 @@ class ServeEngine:
         self.seed = seed
         self.engine = engine
         self.decode_chunk = decode_chunk
+        # the legacy engine's one serial host stream
+        self.rng = torch.Generator().manual_seed(seed)
 
         self.pool: Optional[PagePool] = None
         if engine == "paged":
@@ -389,7 +398,10 @@ class ServeEngine:
         self.queue.append(req)
 
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
-        out = t.cpu().numpy()
+        out = t.cpu()  # the copy moves the tensor's own dtype
+        if out.dtype == torch.bfloat16:  # numpy has none: cast on the host
+            out = out.float()
+        out = out.numpy()
         self.d2h_transfers += 1
         self.d2h_elems += out.size
         return out
@@ -491,6 +503,9 @@ class ServeEngine:
         return first, cache1
 
     def _admit(self) -> None:
+        if self.engine == "legacy":
+            self._admit_legacy()
+            return
         if self.engine == "paged":
             self._admit_paged()
             return
@@ -522,6 +537,34 @@ class ServeEngine:
         first = first.cpu().numpy()
         for i, (slot, req) in enumerate(members):
             self._place(slot, req, int(first[i]))
+
+    def _admit_legacy(self) -> None:
+        """One request a slot, in free-slot order: prefill at batch 1
+        (with the request's extra inputs), insert into the slot, sample
+        the first token on the host."""
+        while self.queue and not self.active.all():
+            slot = int(np.argmax(~self.active))
+            req = self.queue.popleft()
+            extra = ({k: self._tensor(np.asarray(v)[None])
+                      for k, v in req.extra.items()} if req.extra else None)
+            tokens = self._tensor(np.asarray(req.prompt, np.int32)[None])
+            logits, cache1 = self.model.prefill(self.params, tokens, extra,
+                                                max_seq=self.max_seq)
+            _insert_rows(self.cache, cache1,
+                         torch.tensor([slot], device=self.device), self._axes)
+            first = self._sample(logits[0].cpu().float().numpy(),
+                                 req.temperature)
+            self._place(slot, req, first)
+
+    def _sample(self, row: np.ndarray, temperature: float) -> int:
+        """The legacy engine's host sample of one float32 ``(V,)`` row:
+        the first index of its maximum (as ``jnp.argmax``), or one
+        Gumbel-max draw from ``softmax(row / temperature)`` with noise
+        from the engine's serial generator."""
+        if temperature <= 0:
+            return int(np.argmax(row))
+        return int(sampling.gumbel_draw(torch.from_numpy(row) / temperature,
+                                        self.rng))
 
     def _admit_draft(self, kind: str, tokens, lens, slots, n: int) -> None:
         """Prefill the draft model's cache for a freshly admitted group
@@ -725,6 +768,19 @@ class ServeEngine:
         self._admit()
         self._sync_ptable()
         if not self.active.any():
+            return
+        if self.engine == "legacy":
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache,
+                self._tensor(self.last_token)[:, None])
+            # the full (B, V) host copy the fused path removes, counted
+            logits = self._to_host(logits).astype(np.float32, copy=False)
+            row = np.zeros(self.max_batch, np.int32)
+            for slot in range(self.max_batch):  # one host sample a slot
+                if self.active[slot]:
+                    row[slot] = self._sample(logits[slot],
+                                             self.req[slot].temperature)
+            self._consume(row[None])
             return
         toks, self.cache = self.model.decode_and_sample(
             self.params, self.cache, self._tensor(self.last_token)[:, None],

@@ -19,7 +19,7 @@ Tolerances, each with its reason:
     sums in other orders);
   * the 5-step loss curve of the train step: rtol 1e-4 at every step
     (differences compound through AdamW's normalised updates);
-  * remat full against none in the port: 1e-6;
+  * remat full and dots against none in the port: 1e-6;
   * resume from the port's own checkpoint and from the reference's:
     bit-identical.
 """
@@ -238,9 +238,20 @@ def test_remat_full_does_not_change_the_step(ref):
 
 
 def test_remat_dots_raises(ref):
-    model, tstate, _ = _port(ref)
-    with pytest.raises(NotImplementedError, match="remat dots"):
-        model.loss(tstate["params"], _batch(ref, 0), remat="dots")
+    """Remat dots, refused until the port saved the block's products,
+    now runs: two steps equal remat none's (the reference's loss and
+    gradients at dots: tests/test_torch_remat_dots.py)."""
+    results = []
+    for plan in (Plan(remat="none"), Plan(remat="dots")):
+        _, state, step = _port(ref, plan=plan)
+        for i in range(2):
+            state, metrics = step(state, _batch(ref, i))
+        results.append((state, metrics))
+    (a, ma), (b, mb) = results
+    for name in ("loss", "grad_norm"):
+        np.testing.assert_allclose(_np(mb[name]), _np(ma[name]), atol=1e-6)
+    for (key, x), (_, y) in zip(flatten(a), flatten(b)):
+        np.testing.assert_allclose(_np(y), _np(x), atol=1e-6, err_msg=key)
 
 
 def test_resume_from_port_checkpoint_is_exact(ref, tmp_path):

@@ -141,8 +141,12 @@ def test_smoke_serve_and_temperature_streams(setup):
 
 def test_unported_paths_raise(setup):
     _, _, model, tparams = setup
-    with pytest.raises(NotImplementedError, match="legacy"):
-        ServeEngine(model, tparams, engine="legacy")
+    # the legacy engine builds, with the reference's dense per-slot cache
+    # and its refusals (tokens: tests/test_torch_legacy.py)
+    legacy = ServeEngine(model, tparams, engine="legacy")
+    assert legacy.pool is None and legacy.cache["k"].shape[1:3] == (8, 256)
+    with pytest.raises(ValueError, match="decode_chunk > 1"):
+        ServeEngine(model, tparams, engine="legacy", decode_chunk=4)
     # speculative decoding is ported: the engine builds on both engines
     for engine in ("fused", "paged"):
         eng = ServeEngine(model, tparams, spec_k=2, engine=engine)

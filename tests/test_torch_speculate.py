@@ -284,7 +284,7 @@ def test_spec_validation_errors(setup):
     with pytest.raises(ValueError, match="vocab"):
         ServeEngine(model, tparams, spec_k=2, draft=bad,
                     draft_params=bad.init(1), **kw)
-    with pytest.raises(NotImplementedError, match="legacy"):
+    with pytest.raises(ValueError, match="requires the fused or paged"):
         ServeEngine(model, tparams, engine="legacy", spec_k=2, **kw)
 
 

@@ -16,7 +16,7 @@ Tolerances, each with its reason:
     summation orders through two layers and the vocabulary projection);
   * the 5-step loss curve of the train step: rtol 1e-4 at every step
     (differences compound through AdamW's normalised updates);
-  * microbatch 2 vs 1 and remat full vs none in the port: 1e-6;
+  * microbatch 2 vs 1, and remat full and dots vs none in the port: 1e-6;
   * resume from the port's own checkpoint: bit-identical.
 """
 import os
@@ -280,12 +280,12 @@ def test_loss_curve_matches_reference(ref):
     assert int(tstate["opt"]["count"]) == STEPS
 
 
-@pytest.mark.parametrize("knob", ["microbatch", "remat"])
+@pytest.mark.parametrize("knob", ["microbatch", "remat", "dots"])
 def test_plan_knobs_do_not_change_the_step(ref, knob):
-    """Microbatch 2 against 1 and remat full against none: the same loss
-    metric for the last microbatch, the same update."""
-    plan = (Plan(remat="none", microbatch=2) if knob == "microbatch"
-            else Plan(remat="full"))
+    """Microbatch 2 against 1, and remat full and dots against none: the
+    same loss metric for the last microbatch, the same update."""
+    plan = {"microbatch": Plan(remat="none", microbatch=2),
+            "remat": Plan(remat="full"), "dots": Plan(remat="dots")}[knob]
     results = []
     for p in (Plan(remat="none"), plan):
         _, state, step = _port(ref, plan=p)
@@ -297,15 +297,17 @@ def test_plan_knobs_do_not_change_the_step(ref, knob):
         np.testing.assert_allclose(_np(mb[name]), _np(ma[name]), atol=1e-6)
     for (key, x), (_, y) in zip(flatten(a), flatten(b)):
         np.testing.assert_allclose(_np(y), _np(x), atol=1e-6, err_msg=key)
-    if knob == "remat":
+    if knob != "microbatch":
         np.testing.assert_allclose(_np(mb["loss"]), _np(ma["loss"]),
                                    atol=1e-6)
 
 
 def test_unported_train_paths_raise(ref):
     model, state, _ = _port(ref)
-    with pytest.raises(NotImplementedError, match="remat 'dots'"):
-        model.loss(state["params"], _batch(ref, 0), remat="dots")
+    # remat dots runs (tests/test_torch_remat_dots.py); an unknown policy
+    # raises
+    with pytest.raises(ValueError, match="none, full or dots"):
+        model.loss(state["params"], _batch(ref, 0), remat="everything")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(model, OptimizerConfig(), Plan(), mesh=object())
     with pytest.raises(NotImplementedError, match="compression"):

@@ -18,6 +18,9 @@ versions).  Tolerances, each with its reason:
   * the engines' greedy tokens, and the template's checks: identical; the
     template's losses (bf16 compute): rtol 1e-4.
 
+Speculation (n-gram and a draft model, fused and paged): greedy tokens
+identical to the reference engine's and to the port's without it.
+
 The reference's paged engine shares prompt pages by the prompt's tokens
 alone, so a request whose tokens equal another's but whose image differs
 decodes against the other's image pages; the port folds the image's
@@ -332,11 +335,45 @@ def test_paged_prefix_sharing_keeps_images_apart(ref):
     assert jeng.pool.prefix_hits == 12 // 4 and want[1] == want[0] != solo[1]
 
 
-def test_speculation_waits(ref):
-    model, tstate, _ = _port(ref)
+def _spec_tokens(ref_, burst, engine, draft: bool):
+    """``(reference's, port's, port's without speculation)`` tokens of
+    the burst at spec_k 3: n-gram drafts, or a reduced phi-3-vision draft
+    on the target's weights (prefilled without the images, as the
+    reference's ``_admit_draft``)."""
+    model, tstate, _ = _port(ref_)
+    jkw = tkw = {}
+    if draft:
+        jkw = dict(draft=ref_.model, draft_params=ref_.params)
+        tkw = dict(draft=model, draft_params=tstate["params"])
+    want, _ = _run(JServeEngine, JRequest, ref_.model, ref_.params,
+                   _requests(JRequest, *burst, max_new=10), engine=engine,
+                   spec_k=3, **jkw)
+    got, eng = _run(ServeEngine, Request, model, tstate["params"],
+                    _requests(Request, *burst, max_new=10), engine=engine,
+                    spec_k=3, **tkw)
+    plain, _ = _run(ServeEngine, Request, model, tstate["params"],
+                    _requests(Request, *burst, max_new=10), engine=engine)
+    return want, got, plain, eng
+
+
+def test_speculation_waits(ref, burst):
+    """VLM speculation, refused until the port's verify took image
+    requests, now runs: n-gram drafts on the fused and the paged engine
+    give the reference engine's greedy tokens (and the port's own without
+    speculation); verify steps take no extra input."""
     for engine in ("fused", "paged"):
-        with pytest.raises(NotImplementedError, match="VLM speculation"):
-            ServeEngine(model, tstate["params"], engine=engine, spec_k=2)
+        want, got, plain, eng = _spec_tokens(ref, burst, engine, False)
+        assert got == want == plain and len(got) == len(burst[0])
+        assert eng.spec_accepted > 0
+        if engine == "paged":
+            assert eng.pool.pages_in_use == 0
+
+
+@pytest.mark.parametrize("engine", ["fused", "paged"])
+def test_draft_speculation_matches_reference(ref, burst, engine):
+    want, got, plain, eng = _spec_tokens(ref, burst, engine, True)
+    assert got == want == plain and len(got) == len(burst[0])
+    assert 0 < eng.spec_accepted < eng.spec_proposed
 
 
 def test_input_specs_name_the_image():
