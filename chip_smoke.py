@@ -12,10 +12,11 @@ its dX, K1 and K1-bwd); then run the canonical serve and train workflows
 through the control plane (``repro_torch.core.run_workflow``), and the
 train workflow at full width planned for the card, whose runs then
 calibrate the cost model and feed an exploration of the card's slices;
-last, the encoder-decoder (whisper-large-v3) and the VLM
+then the encoder-decoder (whisper-large-v3) and the VLM
 (phi-3-vision-4.2b): K1 and K1-bwd at their shapes, each served and
 trained at full width, and their templates at full width planned for
-the card.
+the card; last, the parallel layer on an NCCL world of one (the sharded
+step, gradient compression, expert parallelism, elastic restore).
 
     python3 chip_smoke.py
 
@@ -245,7 +246,34 @@ them, and on any mismatch.  Phases, one or more lines each:
      own as a user registers one, at ``scale="full"`` through
      ``run_workflow`` on the card (8 requests of 8 prompt tokens, under
      the window): completions identical to ``smoke_serve`` called
-     directly on the same weights, K5 launched with its state.
+     directly on the same weights, K5 launched with its state;
+ 41. the sharded train step on an NCCL world of one (``local_mesh()``,
+     started here, after phase 31's host-clock fit, and destroyed after
+     phase 44): qwen2-1.5b at full width and depth, seq 4096, batch 2,
+     remat full, the plan ``to_runtime_plan`` gives the ``h100-1``
+     choice (FSDP on), through ``make_train_artifacts``; 4 steps from the
+     same init as the unsharded step (counters reset just before each
+     run, read just after: K1 and K1-bwd all on the tensor cores), every
+     loss and every parameter leaf bit for bit the unsharded step's (both
+     with deterministic algorithms on, as phase 12), no
+     leaf copied by the mesh of one, steps 2-4 synced nowhere; the
+     median step and peak beside the unsharded ones, and one profiled
+     sharded step's NCCL kernels;
+ 42. the same with ``compress_grads``: the first loss bit for bit the
+     uncompressed one's, ``grad_err`` non-zero after step 1, steps 2-4
+     synced nowhere, the step's overhead and peak;
+ 43. the expert-parallel MoE (``moe_impl="shard_map"``) on the mesh of
+     one: phi3.5-moe at full width, 2 of 32 layers, seq 4096, batch 2,
+     remat full, capacity factor 8: loss, aux and every gradient leaf
+     against the scatter path's within phase 24's bf16 bounds, K4's
+     launches counted in both (equal, all on the tensor cores); at the
+     config's factor, each path's dropped share;
+ 44. elastic restore: qwen2-1.5b at full width, 4 of 28 layers: a
+     sharded step, a save through the layouts, ``elastic_restart`` onto
+     ``Placement(h100-8, (8, 1))``'s mesh folded to the card, every leaf
+     and the next step bit for bit (deterministic algorithms on); then
+     ``train-qwen2-1.5b`` cut at step 3 and resumed through
+     ``run_workflow``, whose train stage logs ``reshard``.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -274,6 +302,7 @@ sys.path.insert(0, SRC)
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
@@ -284,7 +313,12 @@ from repro_torch.core import (CATALOG, REGISTRY,  # noqa: E402
                               calibrate, catalog_generation, plan,
                               register_card, run_workflow, unregister_card)
 from repro_torch.core.explore import ExploreSpec, derived_shape  # noqa: E402
+from repro_torch.core.graph import Placement  # noqa: E402
+from repro_torch.core.planner import to_runtime_plan  # noqa: E402
+from repro_torch.ft import elastic_restart  # noqa: E402
 from repro_torch.ft.failures import FailureSchedule  # noqa: E402
+from repro_torch.launch.mesh import local_mesh  # noqa: E402
+from repro_torch.parallel import shard_tree  # noqa: E402
 from repro_torch.data import make_stream  # noqa: E402
 from repro_torch.kernels import build, flash_attention, ops  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd, mlstm_scan  # noqa: E402
@@ -296,7 +330,8 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import lm, moe, recurrent, speculate  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, smoke_serve  # noqa: E402
 from repro_torch.train import (OptimizerConfig, Plan,  # noqa: E402
-                               init_train_state, make_train_step)
+                               init_train_state, make_grad_fn,
+                               make_train_artifacts, make_train_step)
 from repro_torch.train.optimizer import global_norm  # noqa: E402
 from repro_torch.tree import flatten, leaves  # noqa: E402
 
@@ -2547,13 +2582,27 @@ class _Cut(FailureSchedule):
             raise RuntimeError(f"cut at step {step}")
 
 
+def _committed(runs: str, run_id: str, timeout_s: float = 60.0) -> int:
+    """The newest checkpoint a cut run committed, waited for: the cut
+    leaves its last background write running in this process, and a
+    resume that looked before the write's rename would find nothing."""
+    ck = Checkpointer(os.path.join(runs, run_id, "artifacts", "ckpt-train"))
+    deadline = time.monotonic() + timeout_s
+    while ck.latest_step() is None:
+        assert time.monotonic() < deadline, "the cut run committed nothing"
+        time.sleep(0.05)
+    return ck.latest_step()
+
+
 def phase_train_workflow() -> dict:
     """``train-qwen2-1.5b`` at the template's own (reduced) scale on the
     card through ``run_workflow``: uninterrupted, with a failure at step
     3 (the envelope restores step 1 and replays), cut at step 3 then
-    resumed, and under ``executor="processes"`` with the eval stage (a
-    pool forked after CUDA is up: only the data stage goes to a child);
-    each final state against the first, bit for bit.  Returns K1's and
+    resumed (its train stage restores onto its placement's mesh, folded
+    to the card: an NCCL world of one, ended right after), and under
+    ``executor="processes"`` with the eval stage (a pool forked after
+    CUDA is up: only the data stage goes to a child); each final state
+    against the first, bit for bit.  Returns K1's and
     K1-bwd's launches in the uninterrupted run."""
     # checkpoints every 2 steps, so step 3's failure restores step 1
     t = REGISTRY.get("train-qwen2-1.5b").with_overrides(checkpoint_every=2)
@@ -2578,7 +2627,15 @@ def phase_train_workflow() -> dict:
             except RuntimeError as e:
                 assert "cut at step 3" in str(e), e
             (cut_id,) = set(store.list_runs()) - before
+            _committed(runs, cut_id)
             resumed = _train_workflow(t, runs, resume=cut_id)
+            # the resumed train stage restored onto its placement's mesh,
+            # which started an NCCL world of one: end it here, so that no
+            # NCCL thread runs beside phases 29-31's host clock
+            reshard = [e["kind"] for e in resumed.record.events()
+                       if e["kind"].startswith("reshard")]
+            assert reshard == ["reshard"], reshard
+            dist.destroy_process_group()
             # a process pool forked after this process initialised CUDA:
             # only the data stage (no tensor) goes to a child
             pooled = run_workflow(t, ProvenanceStore(runs), device="cuda",
@@ -3765,6 +3822,368 @@ def phase_hymba_template(runs: str) -> dict:
     return counts
 
 
+
+# ---------------------------------------------------------------------------
+# parallelism and elasticity on an NCCL world of one (phases 41-44)
+def _k4_counts() -> dict:
+    return {"moe_gmm": moe_gmm.launches, "tc": moe_gmm.tc_launches,
+            "fma": moe_gmm.fma_launches}
+
+
+def _reset_k4_counters() -> None:
+    moe_gmm.launches = moe_gmm.tc_launches = moe_gmm.fma_launches = 0
+
+
+def _k1_tc_only() -> dict:
+    """K1's and K1-bwd's launches by path since the counters were reset,
+    asserted all on the tensor cores (bf16 at qwen2's head dim)."""
+    paths = {f"{m.__name__.rsplit('.', 1)[1]}_{p}": getattr(m, f"{p}_launches")
+             for m in (flash_attention, flash_attention_bwd)
+             for p in ("tc", "fma")}
+    assert paths["flash_attention_fma"] == paths[
+        "flash_attention_bwd_fma"] == 0, paths
+    return paths
+
+
+def _card_plan(cfg):
+    """The runtime plan of qwen2-1.5b's one-card choice at train_4k's
+    global batch cut to 2 (``to_runtime_plan`` of the ``h100-1`` choice,
+    the card registered for the call)."""
+    register_card()
+    try:
+        shape = derived_shape("train_4k", TRAIN_BATCH)
+        (choice,) = plan(ResourceIntent(arch=cfg.name, shape=shape,
+                                        chip_generation="h100",
+                                        max_chips=1), top_k=1)
+    finally:
+        unregister_card()
+    assert choice.slice.name == "h100-1", choice.summary
+    return choice, to_runtime_plan(choice, cfg=cfg)
+
+
+def _host_params(state) -> dict:
+    return {k: v.detach().to("cpu") for k, v in flatten(state["params"])}
+
+
+def _nccl_ms(prof) -> tuple:
+    """Device ms and count of the NCCL kernels of a profiled run."""
+    ms, n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and "nccl" in e.name.lower():
+            ms += e.time_range.elapsed_us() / 1e3
+            n += 1
+    return ms, n
+
+
+def phase_mesh_train(cfg):
+    """41: the sharded train step (``make_train_artifacts`` on
+    ``local_mesh()``: an NCCL world of one) at full width and depth,
+    against the unsharded step from the same init, bit for bit (both
+    with deterministic algorithms on)."""
+    choice, rt = _card_plan(cfg)
+    assert rt.fsdp and rt.remat == "full", rt
+    t0 = time.perf_counter()
+    mesh = local_mesh()
+    assert dist.get_backend() == "nccl", dist.get_backend()
+    init_s = time.perf_counter() - t0
+    model = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    shape = ShapeConfig("train_4k-cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    stream = make_stream(cfg, shape)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    log(f"[41 mesh train] {cfg.name} full width, {cfg.num_layers} layers, "
+        f"seq {TRAIN_SEQ}, batch {TRAIN_BATCH}: plan {rt.name} from "
+        f"{choice.summary!r} (fsdp={rt.fsdp}, remat={rt.remat}, "
+        f"microbatch={rt.microbatch}, attn_impl={rt.attn_impl}: K1) on "
+        f"{mesh} (NCCL world of {dist.get_world_size()}, started in "
+        f"{init_s:.2f} s)")
+
+    runs = {}
+    # the embedding's gradient (an index_add) is bit-exact only with
+    # deterministic algorithms, as phase 12's resume
+    torch.use_deterministic_algorithms(True)
+    for name in ("unsharded", "sharded"):
+        state = init_train_state(model, 0, opt, rt)
+        if name == "unsharded":
+            step = make_train_step(model, opt, rt)
+        else:
+            art = make_train_artifacts(model, mesh, rt, opt, shape)
+            local = shard_tree(state, art.state_shardings)
+            assert all(a is b for a, b in zip(leaves(local),
+                                              leaves(state))), \
+                "a mesh of one copied a leaf"
+            state, step = local, art.step_fn
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_k1_counters()
+        state, losses, walls = _unsynced_steps(step, state, batches)
+        runs[name] = dict(
+            losses=losses, walls=walls, steady=statistics.median(walls[1:]),
+            peak=torch.cuda.max_memory_allocated() / 1e9,
+            launches={"flash_attention": flash_attention.launches,
+                      "flash_attention_bwd": flash_attention_bwd.launches},
+            paths=_k1_tc_only(),
+            params=_host_params(state))
+        if name == "sharded":
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                state, metrics = step(state, batches[TRAIN_STEPS])
+                float(metrics["loss"])
+            split, _ = _device_split(prof)
+            nccl_ms, nccl_n = _nccl_ms(prof)
+        del state, step
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    a, b = runs["unsharded"], runs["sharded"]
+    same_leaves = all(torch.equal(a["params"][k], b["params"][k])
+                      for k in a["params"])
+    want = cfg.num_layers * TRAIN_STEPS
+    log(f"[41 mesh train] unsharded losses={a['losses']} sharded "
+        f"losses={b['losses']}: bit for bit {a['losses'] == b['losses']}; "
+        f"every parameter leaf bit for bit: {same_leaves} "
+        f"({len(a['params'])} leaves)")
+    log(f"[41 mesh train] median step (2-{TRAIN_STEPS}) sharded "
+        f"{b['steady']:.4f} s vs unsharded {a['steady']:.4f} s "
+        f"({b['steady'] / a['steady'] - 1:+.2%}); step_wall_s sharded "
+        f"{[round(x, 4) for x in b['walls']]} unsharded "
+        f"{[round(x, 4) for x in a['walls']]}; max_memory_allocated_GB "
+        f"sharded {b['peak']:.3f} vs unsharded {a['peak']:.3f}; launches "
+        f"{b['launches']} (unsharded {a['launches']}; K1 twice a layer a "
+        f"step at remat full, K1-bwd once) paths={b['paths']}; one profiled "
+        f"sharded step: NCCL kernels {nccl_n}, {nccl_ms:.4f} ms of "
+        f"{sum(split.values()):.1f} ms device time; no host-device sync "
+        f"inside steps 2-{TRAIN_STEPS}; deterministic algorithms on")
+    assert a["losses"] == b["losses"] and same_leaves, (a["losses"],
+                                                        b["losses"])
+    assert b["launches"] == a["launches"] == {
+        "flash_attention": 2 * want, "flash_attention_bwd": want}, b
+    del runs
+    return mesh, rt, {k: a["launches"][k] + b["launches"][k]
+                      for k in a["launches"]}, b
+
+
+def phase_mesh_compress(cfg, mesh, rt, base) -> dict:
+    """42: phase 41's sharded run with ``compress_grads``: the first loss
+    bit for bit the uncompressed one's, ``grad_err`` non-zero after step
+    1, the step's overhead and peak beside phase 41's."""
+    plan_c = rt.with_(compress_grads=True)
+    model = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    shape = ShapeConfig("train_4k-cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    stream = make_stream(cfg, shape)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()}
+               for i in range(TRAIN_STEPS)]
+    art = make_train_artifacts(model, mesh, plan_c, opt, shape)
+    state = shard_tree(init_train_state(model, 0, opt, plan_c),
+                       art.state_shardings)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_k1_counters()
+    t0 = time.perf_counter()
+    state, metrics = art.step_fn(state, batches[0])
+    losses = [float(metrics["loss"])]
+    walls = [time.perf_counter() - t0]
+    first = losses[0]
+    err_max = max(float(e.abs().max()) for e in leaves(state["grad_err"]))
+    syncs = []
+    for i in range(1, TRAIN_STEPS):  # as _unsynced_steps' steps 2-4
+        t0 = time.perf_counter()
+        (state, metrics), sites = _sync_sites(
+            lambda s=state, b=batches[i]: art.step_fn(s, b))
+        syncs += sites
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+    assert not syncs, f"the compressed step waited for the card at {syncs}"
+    steady = statistics.median(walls[1:])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    log(f"[42 mesh compress] compress_grads: first loss {first!r} vs "
+        f"phase 41's {base['losses'][0]!r} (bit for bit: "
+        f"{first == base['losses'][0]}); max |grad_err| after step 1 "
+        f"{err_max:.3e}; losses {losses}; median step "
+        f"{steady:.4f} s vs {base['steady']:.4f} s uncompressed "
+        f"({steady / base['steady'] - 1:+.2%}); max_memory_allocated_GB "
+        f"{peak:.3f} vs {base['peak']:.3f} "
+        f"({peak - base['peak']:+.3f} GB; predicted +6.2: grad_err); "
+        f"no host-device sync inside steps 2-{TRAIN_STEPS}")
+    assert first == base["losses"][0] and err_max > 0
+    assert all(np.isfinite(losses))
+    del state, art
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _grads_of(model, plan_, mesh, batch):
+    fn = make_grad_fn(model, plan_, mesh)
+    params = model.init(seed=0)
+    loss, metrics, grads = fn(params, batch)
+    out = (float(loss), float(metrics["aux"]),
+           [g.detach() for g in grads])
+    del params
+    return out
+
+
+def phase_mesh_moe(mcfg, mesh) -> dict:
+    """43: the expert-parallel MoE (``moe_impl="shard_map"``) on the mesh
+    of one at full width, 2 of 32 layers, seq 4096, batch 2: at capacity
+    factor 8 the loss, aux and every gradient leaf against the scatter
+    path's (no token dropped by either), K4 counted; at the config's
+    factor the dropped share of each."""
+    cfg8 = dataclasses.replace(_moe_cut(mcfg), moe_capacity_factor=8.0)
+    model = build_model(cfg8)
+    stream = make_stream(cfg8, ShapeConfig("t", MOE_SEQ, MOE_BATCH, "train"))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in stream.batch_at(0).items()}
+    names = [k for k, _ in flatten(model.param_specs()[0])]
+    _reset_k4_counters()
+    t0 = time.perf_counter()
+    scat = _grads_of(model, Plan(remat="full"), None, batch)
+    k4_scatter = _k4_counts()
+    _reset_k4_counters()
+    t1 = time.perf_counter()
+    ep = _grads_of(model, Plan(remat="full", moe_impl="shard_map"), mesh,
+                   batch)
+    t2 = time.perf_counter()
+    k4_ep = _k4_counts()
+    rel_loss = abs(ep[0] - scat[0]) / abs(scat[0])
+    rel_aux = abs(ep[1] - scat[1]) / abs(scat[1])
+    leaf_err = {n: float((g - w).abs().max() / w.abs().max())
+                for n, g, w in zip(names, ep[2], scat[2])}
+    worst = max(leaf_err, key=leaf_err.get)
+    want = 9 * cfg8.num_layers  # 3 forward, 3 recomputed, 3 dX a layer
+    log(f"[43 mesh moe] {cfg8.name} capacity factor 8, remat full: "
+        f"shard_map loss {ep[0]!r} aux {ep[1]!r} vs scatter {scat[0]!r} "
+        f"{scat[1]!r} (rel {rel_loss:.3g} and {rel_aux:.3g}, bound "
+        f"{LOSS_REL_BOUND}); worst gradient leaf {worst} "
+        f"{leaf_err[worst]:.3g} of its max (bound "
+        f"{GRAD_TOL[torch.bfloat16]}); K4 launches shard_map {k4_ep} "
+        f"scatter {k4_scatter} (want {want}: {cfg8.num_layers} layers x 3 "
+        f"forward, 3 recomputed, 3 dX); {t1 - t0:.1f} s vs {t2 - t1:.1f} s")
+    assert rel_loss <= LOSS_REL_BOUND and rel_aux <= LOSS_REL_BOUND
+    assert leaf_err[worst] <= GRAD_TOL[torch.bfloat16], leaf_err
+    assert k4_ep == k4_scatter == {"moe_gmm": want, "tc": want, "fma": 0}
+    del scat, ep, model
+    torch.cuda.empty_cache()
+
+    cut = _moe_cut(mcfg)
+    model = build_model(cut)
+    params = model.init(seed=0)
+    shares = {}
+    for impl in ("scatter", "shard_map"):
+        moe.drop_stats = []
+        try:
+            with torch.no_grad(), moe.moe_impl(impl, mesh):
+                model.loss(params, batch, remat="none")
+            kept = sum(int(k) for k, _ in moe.drop_stats)
+            total = sum(n for _, n in moe.drop_stats)
+        finally:
+            moe.drop_stats = None
+        shares[impl] = 1 - kept / total
+    log(f"[43 mesh moe] at the config's capacity factor "
+        f"{cut.moe_capacity_factor}: dropped share of the (token, k) "
+        f"entries, 2 layers: scatter {shares['scatter']:.4%} (groups of one "
+        f"row, capacity {moe.moe_capacity(cut, MOE_SEQ)}), shard_map "
+        f"{shares['shard_map']:.4%} (one group of {MOE_BATCH * MOE_SEQ} "
+        f"tokens, capacity "
+        f"{moe.shardmap_capacity(cut, MOE_BATCH * MOE_SEQ)})")
+    del params, model
+    torch.cuda.empty_cache()
+    return {"moe_gmm": k4_ep["moe_gmm"]}
+
+
+def phase_elastic(cfg, rt) -> dict:
+    """44: elastic restore at full width, depth cut to 4 of 28 layers:
+    phase 41's sharded step, a save through the layouts, then
+    ``elastic_restart`` onto the mesh of ``Placement(h100-8, (8, 1))``
+    folded to the card; every leaf bit for bit, the next step bit for bit
+    the uninterrupted one's (deterministic algorithms on); then a
+    ``train-qwen2-1.5b`` run cut at step 3 and resumed through
+    ``run_workflow`` logs ``reshard``."""
+    cut = dataclasses.replace(cfg, num_layers=4, name=cfg.name + "-4layer")
+    model = build_model(cut)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    shape = ShapeConfig("train_4k-cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    stream = make_stream(cut, shape)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()} for i in range(2)]
+    mesh = local_mesh()
+    art = make_train_artifacts(model, mesh, rt, opt, shape)
+    lay = art.state_shardings
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+    def count(fn):
+        _reset_k1_counters()
+        out = fn()
+        launches["flash_attention"] += flash_attention.launches
+        launches["flash_attention_bwd"] += flash_attention_bwd.launches
+        return out
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = shard_tree(init_train_state(model, 0, opt, rt), lay)
+        state, _ = count(lambda: art.step_fn(state, batches[0]))
+        saved = {k: v.detach().clone() for k, v in flatten(state)}
+        with tempfile.TemporaryDirectory() as d:
+            ck = Checkpointer(d, keep=1)
+            t0 = time.perf_counter()
+            ck.save(0, state, shardings=lay, blocking=True)
+            save_s = time.perf_counter() - t0
+            nbytes = _tree_gb(d)
+            whole, _ = count(lambda: art.step_fn(state, batches[1]))
+            whole = {k: v.detach().clone() for k, v in flatten(whole)}
+            del state
+            placement = Placement(stage="train", slice_name="h100-8",
+                                  mesh_shape=(8, 1),
+                                  mesh_axes=("data", "model"), chips=8,
+                                  price_per_hour=0.0)
+            new_mesh = placement.build_mesh()
+            like = init_train_state(model, 1, opt, rt)  # another seed
+            t0 = time.perf_counter()
+            restored, step = elastic_restart(ck, like, model, new_mesh, rt)
+            restore_s = time.perf_counter() - t0
+            del like
+        same = all(torch.equal(v, saved[k]) for k, v in flatten(restored))
+        step_fn = make_train_step(model, opt, rt, new_mesh)
+        after, _ = count(lambda: step_fn(restored, batches[1]))
+        next_same = all(torch.equal(v, whole[k]) for k, v in flatten(after))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[44 elastic] {cut.name} seq {TRAIN_SEQ} batch {TRAIN_BATCH}: "
+        f"saved step {step} through {mesh}'s layouts ({nbytes:.2f} GB in "
+        f"{save_s:.1f} s), restored onto {placement.slice_name} "
+        f"{placement.mesh_shape} folded to {new_mesh} in {restore_s:.1f} s; "
+        f"every leaf bit for bit: {same} ({len(saved)} leaves); the next "
+        f"step bit for bit the uninterrupted one's: {next_same}")
+    assert step == 0 and same and next_same
+    del restored, after, saved, whole, model
+    torch.cuda.empty_cache()
+
+    t = REGISTRY.get("train-qwen2-1.5b").with_overrides(checkpoint_every=2)
+    with tempfile.TemporaryDirectory() as runs:
+        store = ProvenanceStore(runs)
+        try:
+            _train_workflow(t, runs, failures=_Cut((3,)))
+            raise AssertionError("the cut run did not stop")
+        except RuntimeError as e:
+            assert "cut at step 3" in str(e), e
+        (cut_id,) = store.list_runs()
+        saved_step = _committed(runs, cut_id)
+        resumed = count(lambda: _train_workflow(t, runs, resume=cut_id))
+        kinds = [e for e in resumed.record.events()
+                 if e["kind"].startswith("reshard")]
+    log(f"[44 elastic] {t.name} cut at step 3 (step {saved_step} "
+        f"committed) and resumed through run_workflow: ok={resumed.ok}, "
+        f"events {kinds}")
+    assert resumed.ok and [e["kind"] for e in kinds] == ["reshard"], kinds
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3876,6 +4295,17 @@ def main() -> int:
     state = {"ssm_scan": hs["ssm_scan_state"] + ht["ssm_scan_state"],
              "mlstm_scan": xs["mlstm_scan_state"]}
 
+    # parallelism and elasticity: an NCCL world of one, started here (after
+    # phase 31's host-clock fit) and destroyed after phase 44
+    mesh, rt, mt, mesh_base = phase_mesh_train(cfg)
+    mc = phase_mesh_compress(cfg, mesh, rt, mesh_base)
+    mm = phase_mesh_moe(mcfg, mesh)
+    el = phase_elastic(cfg, rt)
+    del mesh
+    dist.destroy_process_group()
+    par = {k: mt[k] + mc[k] + el[k]
+           for k in ("flash_attention", "flash_attention_bwd")}
+
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3886,7 +4316,8 @@ def main() -> int:
                        + card["flash_attention"] + wh["flash_attention"]
                        + pv["flash_attention"] + sw["flash_attention"]
                        + ms["flash_attention"] + hs["flash_attention"]
-                       + xs["flash_attention"] + ht["flash_attention"]),
+                       + xs["flash_attention"] + ht["flash_attention"]
+                       + par["flash_attention"]),
              hymba_prefill=sk["flash_attention"], **k1),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3918,7 +4349,8 @@ def main() -> int:
                        + dots["flash_attention_bwd"]
                        + card["flash_attention_bwd"]
                        + wh["flash_attention_bwd"] + pv["flash_attention_bwd"]
-                       + sw["flash_attention_bwd"]), **k1_bwd),
+                       + sw["flash_attention_bwd"]
+                       + par["flash_attention_bwd"]), **k1_bwd),
         dict(name="mlstm_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
              includes=[MLSTM_TC, HOPPER_COMMON],
@@ -3948,7 +4380,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/moe_gmm.cu",
              includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/moe_gmm.py:65",
-             launches=moe_launches["moe_gmm"] + ms["moe_gmm"],
+             launches=moe_launches["moe_gmm"] + ms["moe_gmm"]
+             + mm["moe_gmm"],
              serving_decode=sk["moe_gmm"], **k4),
     ]
     print(json.dumps({"kernels": kernels}))

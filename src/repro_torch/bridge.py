@@ -67,17 +67,17 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
 def from_jax_train_state(tree: Dict[str, Any], cfg: ModelConfig,
                          device) -> Dict[str, Any]:
     """Map a numpy copy of the reference's train state
-    ``{"params", "opt": {"m", "v", "count"}, "step"}`` (what its
+    ``{"params", "opt": {"m", "v", "count"}, "step"}`` (and
+    ``"grad_err"`` under gradient compression; what its
     ``init_train_state`` builds and its train step returns) onto the
-    port's: parameters and both moments by :func:`from_jax_params`, each
-    array keeping its dtype (float32 or bfloat16 moments), the counts as
-    int32 scalars."""
-    extra = set(tree) - {"params", "opt", "step"}
+    port's: parameters, both moments and the compression's error by
+    :func:`from_jax_params`, each array keeping its dtype (float32 or
+    bfloat16 moments), the counts as int32 scalars."""
+    extra = set(tree) - {"params", "opt", "step", "grad_err"}
     if extra:
-        raise KeyError(f"unexpected train-state entries: {sorted(extra)} "
-                       f"(gradient compression is not ported)")
+        raise KeyError(f"unexpected train-state entries: {sorted(extra)}")
     opt = tree["opt"]
-    return {
+    out = {
         "params": from_jax_params(tree["params"], cfg, device),
         "opt": {"m": from_jax_params(opt["m"], cfg, device),
                 "v": from_jax_params(opt["v"], cfg, device),
@@ -86,3 +86,6 @@ def from_jax_train_state(tree: Dict[str, Any], cfg: ModelConfig,
         "step": _tensor("step", np.asarray(tree["step"])).to(device,
                                                              torch.int32),
     }
+    if "grad_err" in tree:
+        out["grad_err"] = from_jax_params(tree["grad_err"], cfg, device)
+    return out

@@ -15,7 +15,13 @@ wrote:
   * **atomic**: the write goes to ``step_XXXXXXXX.tmp`` and is renamed
     after an fsync — a save killed midway never shadows the newest
     committed step;
-  * **rotation**: the last ``keep`` steps are kept.
+  * **rotation**: the last ``keep`` steps are kept;
+  * **on a mesh** (``shardings``, the layouts of the state's leaves):
+    ``save`` gathers each leaf whole and rank 0 alone writes it, every
+    rank waiting for the commit; ``restore`` reads each leaf and keeps
+    this rank's block.  The files hold whole leaves whatever world wrote
+    them, so a checkpoint restores on any world, and on one device with
+    no mesh.
 """
 from __future__ import annotations
 
@@ -27,8 +33,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import Tree, flatten, unflatten
+from repro_torch.tree import Tree, flatten, leaves, unflatten
 
 # numpy has no bfloat16: store it as a uint16 view and record the true
 # dtype (the reference's encoding)
@@ -48,6 +55,10 @@ def _from_host(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return t
 
 
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -55,17 +66,33 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False  # a save whose commit the world awaits
 
     # ------------------------------------------------------------------
-    def save(self, step: int, state: Tree, *, blocking: bool = False) -> None:
+    def save(self, step: int, state: Tree, *, blocking: bool = False,
+             shardings: Optional[Tree] = None) -> None:
         """Copy to the host on the caller's thread; write on a background
-        thread (or here, with ``blocking``)."""
+        thread (or here, with ``blocking``).  With ``shardings`` (a
+        collective: every rank calls it) each leaf is gathered whole
+        first; in a world of several ranks rank 0 writes."""
         self.wait()  # one save in flight at a time
-        leaves = [(k, *_to_host(v)) for k, v in flatten(state)]
+        writer = not dist.is_initialized() or dist.get_rank() == 0
+        lays = leaves(shardings) if shardings is not None else None
+        host = []
+        for i, (k, v) in enumerate(flatten(state)):
+            if lays is not None:
+                v = lays[i].full(v)
+            if writer:
+                host.append((k, *_to_host(v)))
+        self._pending = _world() > 1
+        if not writer:
+            if blocking:
+                self.wait()
+            return
         manifest = {
             "step": int(step),
             "leaves": [{"key": k, "shape": list(v.shape), "dtype": dt}
-                       for k, v, dt in leaves],
+                       for k, v, dt in host],
         }
 
         def _write():
@@ -76,7 +103,7 @@ class Checkpointer:
                     shutil.rmtree(tmp)
                 os.makedirs(tmp)
                 np.savez(os.path.join(tmp, "arrays.npz"),
-                         **{k: v for k, v, _ in leaves})
+                         **{k: v for k, v, _ in host})
                 with open(os.path.join(tmp, "manifest.json"), "w") as f:
                     json.dump(manifest, f, indent=1)
                     f.flush()
@@ -96,10 +123,14 @@ class Checkpointer:
             self._thread.start()
 
     def wait(self) -> None:
-        """Join the save in flight; raise its error, if it failed."""
+        """Join the save in flight (in a world of several ranks, every
+        rank waits for rank 0's commit); raise its error, if it failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -121,12 +152,15 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     # ------------------------------------------------------------------
-    def restore(self, like: Tree, step: Optional[int] = None
-                ) -> Tuple[Tree, int]:
+    def restore(self, like: Tree, step: Optional[int] = None,
+                shardings: Optional[Tree] = None) -> Tuple[Tree, int]:
         """Restore into the structure of ``like`` (default: the newest
         committed step).  Each leaf keeps the checkpoint's dtype and goes
         to the device of ``like``'s leaf at its path; a shape that differs
-        from ``like``'s raises."""
+        from ``like``'s raises.  With ``shardings`` (the reference's
+        resharding restore) each rank keeps its block of each leaf, on
+        the device of the leaf's mesh, and the shape is checked against
+        the layout's global shape."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -134,13 +168,22 @@ class Checkpointer:
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             dtypes = {e["key"]: e["dtype"] for e in json.load(f)["leaves"]}
+        lays = leaves(shardings) if shardings is not None else None
         out = []
         with np.load(os.path.join(path, "arrays.npz")) as arrays:
-            for key, leaf in flatten(like):
+            for i, (key, leaf) in enumerate(flatten(like)):
                 arr = arrays[key]
-                if tuple(arr.shape) != tuple(leaf.shape):
+                lay = lays[i] if lays is not None else None
+                want = tuple(lay.shape) if lay is not None \
+                    else tuple(leaf.shape)
+                if tuple(arr.shape) != want:
                     raise ValueError(f"shape mismatch for {key}: "
-                                     f"{arr.shape} vs {tuple(leaf.shape)}")
+                                     f"{arr.shape} vs {want}")
                 t = _from_host(arr, dtypes.get(key, arr.dtype.name))
-                out.append((key, t.to(leaf.device)))
+                if lay is None:
+                    out.append((key, t.to(leaf.device)))
+                    continue
+                device = leaf.device if lay.mesh is None else lay.mesh.device
+                block = lay.local(t)
+                out.append((key, block.to(device, copy=block is not t)))
         return unflatten(out), step

@@ -8,9 +8,11 @@ and provenance capture.  Scale-induced problems become diagnosable because
 every run leaves the same records behind.
 
 A copy of the reference package's ``core/envelope.py`` on the port's
-:class:`~repro_torch.checkpoint.Checkpointer`, without the reference's
-``state_shardings`` (one card has no mesh): a restore puts each leaf on
-the device of the freshly initialised state's leaf.
+:class:`~repro_torch.checkpoint.Checkpointer`.  ``run(...,
+state_shardings=)`` restores onto those layouts (each rank its block of
+each leaf, on the layouts' mesh) and saves through them (each leaf
+gathered whole, written by rank 0); without them a restore puts each
+leaf on the device of the freshly initialised state's leaf.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ class ExecutionEnvelope:
         init_state: Callable[[], Pytree],
         step_fn: Callable[[Pytree, int], tuple],
         num_steps: int,
+        state_shardings: Optional[Pytree] = None,
     ) -> Pytree:
         """Drive the full lifecycle.  ``step_fn(state, step) -> (state,
         metrics)``.  Failures (InjectedFailure) trigger restore-from-
@@ -56,7 +59,8 @@ class ExecutionEnvelope:
         attempt = 0
         while True:
             try:
-                return self._run_once(init_state, step_fn, num_steps)
+                return self._run_once(init_state, step_fn, num_steps,
+                                      state_shardings)
             except InjectedFailure as e:
                 attempt += 1
                 self.restarts = attempt
@@ -66,12 +70,13 @@ class ExecutionEnvelope:
                 if self.restart_policy.backoff_s:
                     time.sleep(self.restart_policy.delay(attempt - 1))
 
-    def _run_once(self, init_state, step_fn, num_steps) -> Pytree:
+    def _run_once(self, init_state, step_fn, num_steps,
+                  state_shardings) -> Pytree:
         state = None
         start = 0
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             like = init_state()
-            state, start = self.ckpt.restore(like)
+            state, start = self.ckpt.restore(like, shardings=state_shardings)
             start += 1
             self.record.log_event("restore", {"step": start - 1})
         if state is None:
@@ -94,7 +99,8 @@ class ExecutionEnvelope:
                 and self.checkpoint_every
                 and (step + 1) % self.checkpoint_every == 0
             ):
-                self.ckpt.save(step, state)
+                self.ckpt.save(step, state, shardings=state_shardings)
         if self.ckpt is not None:
-            self.ckpt.save(num_steps - 1, state, blocking=True)
+            self.ckpt.save(num_steps - 1, state, blocking=True,
+                           shardings=state_shardings)
         return state

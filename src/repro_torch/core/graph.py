@@ -145,10 +145,10 @@ class Placement:
 
     Derived from the stage's :class:`~repro_torch.core.planner.PlanChoice` —
     slice (the catalog's backend unit), mesh shape/axes, chip count and
-    price.  ``build_mesh()`` folds the planned mesh onto the locally
-    visible devices (degenerate all-1s mesh on a CPU container, the real
-    shape on a fleet) so stage bodies can place arrays on *their* backend
-    rather than the global default.
+    price.  ``build_mesh()`` folds the planned mesh onto the world's
+    ranks (an all-1s mesh on one process, the real shape on a world of
+    the planned size) so stage bodies can place tensors on *their*
+    backend rather than the global default.
     """
 
     stage: str
@@ -175,11 +175,13 @@ class Placement:
         return (f"{self.slice_name} mesh={mesh} chips={self.chips} "
                 f"${self.price_per_hour:,.2f}/h")
 
-    def build_mesh(self):
-        """A device mesh for this placement: not on one card."""
-        raise NotImplementedError(
-            "a device mesh for a placement is not ported: ROADMAP queue 1, "
-            "parallelism and elasticity")
+    def build_mesh(self, device=None):
+        """A mesh for this placement on ``device`` (default ``cuda``),
+        clamped to the world's ranks (a world of one is started where no
+        process group exists)."""
+        from repro_torch.launch.mesh import mesh_for_placement
+
+        return mesh_for_placement(self.mesh_shape, self.mesh_axes, device)
 
     @classmethod
     def from_choice(cls, stage: str, choice: Any) -> "Placement":

@@ -469,14 +469,43 @@ def plan_stages(
     return out
 
 
-def to_runtime_plan(choice: PlanChoice):
-    """The runtime :class:`repro_torch.train.Plan` of a PlanChoice: its
-    remat policy and microbatch, the knobs of the reference's runtime
-    plan that one card uses.  The reference's mesh fields (data and FSDP
-    axes, gradient compression) and its ``optimized`` kernel choices have
-    no counterpart on one card (ROADMAP queue 1, parallelism and
-    elasticity)."""
-    from repro_torch.train import Plan
+def to_runtime_plan(choice: PlanChoice, cfg=None, profile: str = "optimized"):
+    """Convert a PlanChoice into the runtime
+    :class:`repro_torch.parallel.Plan` consumed by the sharding/step
+    layer: the reference's whole plan — data and FSDP axes from the mesh,
+    FSDP, remat, microbatch and gradient compression from the geometry.
 
-    return Plan(remat=choice.geometry.remat,
-                microbatch=choice.geometry.microbatch)
+    ``profile="optimized"`` additionally encodes the reference's
+    validated expertise: triangular flash attention everywhere (in the
+    port ``attn_impl`` ``"tri"`` and ``"xla"`` both run K1),
+    context-parallel attention when heads don't divide the model axis,
+    the ``shard_map`` all-to-all MoE, and the chunked selective scan (the
+    port trains the scan through K5-bwd's checkpointed adjoint whatever
+    ``ssm_chunk`` says).
+    """
+    from repro_torch.parallel.sharding import Plan
+
+    axes = choice.mesh_axes
+    dims = dict(zip(axes, choice.mesh_shape))
+    dp = tuple(a for a in ("pod", "data") if a in axes)
+    kw = {}
+    if profile == "optimized":
+        kw["attn_impl"] = "tri"
+        if cfg is not None:
+            model_deg = dims.get("model", 1)
+            if model_deg > 1 and cfg.num_heads % model_deg != 0:
+                kw["seq_shard_attn"] = True
+            if cfg.num_experts > 0:
+                kw["moe_impl"] = "shard_map"
+            if cfg.family in ("ssm", "hybrid"):
+                kw["ssm_chunk"] = 16
+    return Plan(
+        name=f"{choice.slice.name}-{'x'.join(map(str, choice.mesh_shape))}",
+        dp_axes=dp,
+        fsdp_axes=dp,
+        fsdp=choice.geometry.fsdp,
+        remat=choice.geometry.remat,
+        microbatch=choice.geometry.microbatch,
+        compress_grads=choice.geometry.compress_grads,
+        **kw,
+    )

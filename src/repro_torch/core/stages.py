@@ -244,9 +244,11 @@ class PlanStage(Stage):
                     ctx.record.log_event("plan", {"stage": stage_name,
                                                   "summary": c.summary})
 
+        from repro_torch.configs import get_config
         from repro_torch.train import Plan as RuntimePlan
 
-        rt_plan = to_runtime_plan(choice) if choice else RuntimePlan()
+        rt_plan = (to_runtime_plan(choice, cfg=get_config(t.arch))
+                   if choice else RuntimePlan())
         if t.scale == "reduced":
             rt_plan = dataclasses.replace(rt_plan, microbatch=1)
         return {"plan_choice": choice, "stage_plans": stage_plans,
@@ -308,10 +310,10 @@ class TrainStage(Stage):
 
     Resilience: the stage checkpoints through the run's artifacts dir,
     so a retried or resumed attempt restores from the newest committed
-    step automatically, onto the model's device.  The reference restores
-    onto a re-planned placement's mesh; one card has no mesh, so the
-    stage logs ``reshard_skipped`` instead (ROADMAP queue 1, parallelism
-    and elasticity).
+    step automatically — when the scheduler bound the stage to a
+    placement, onto that placement's mesh (on the model's device), the
+    reference's elastic reshard path, logged as a ``reshard`` event
+    (``reshard_skipped`` when the mesh or its layouts cannot be built).
     """
 
     inputs = ("cfg", "shape", "stream", "rt_plan")
@@ -366,30 +368,40 @@ class TrainStage(Stage):
         record = ctx.record.stage_view(self.name)
         ckpt = Checkpointer(f"{ctx.record.artifacts_dir}/ckpt-{self.name}",
                             keep=2)
-        self._restore_shardings(ctx, ckpt)
+        shardings = self._restore_shardings(ctx, ckpt, model, rt_plan)
         env = ExecutionEnvelope(
             record, checkpointer=ckpt, checkpoint_every=t.checkpoint_every,
             failures=ctx.params.get("failures"),
         )
         state = env.run(init_state=init_fn, step_fn=step_fn,
-                        num_steps=num_steps)
+                        num_steps=num_steps, state_shardings=shardings)
         return {self.state_key: state}
 
-    def _restore_shardings(self, ctx, ckpt) -> None:
+    def _restore_shardings(self, ctx, ckpt, model, rt_plan):
         """When a committed checkpoint exists (stage retry or run
-        resume) and the scheduler bound this stage to a placement, the
-        reference restores onto that placement's mesh.  The port restores
-        onto the model's device and says so in a ``reshard_skipped``
-        event."""
+        resume) and the scheduler bound this stage to a placement,
+        restore directly onto that placement's mesh — the elastic
+        reshard path for a re-plan that landed on a different slice."""
         placement = ctx.current_placement() \
             if hasattr(ctx, "current_placement") else None
         if placement is None or ckpt.latest_step() is None:
-            return
+            return None
+        from repro_torch.ft.elastic import state_shardings
+
+        try:
+            mesh = placement.build_mesh(model.device)
+            like = {"grad_err": None} if rt_plan.compress_grads else {}
+            shardings = state_shardings(like, model, mesh, rt_plan)
+        except Exception as e:  # placement is advisory — never block restore
+            if ctx.record is not None:
+                ctx.record.log_event("reshard_skipped", {
+                    "stage": self.name, "error": repr(e)})
+            return None
         if ctx.record is not None:
-            ctx.record.log_event("reshard_skipped", {
+            ctx.record.log_event("reshard", {
                 "stage": self.name, "slice": placement.slice_name,
-                "error": "restoring onto a placement's mesh is not ported: "
-                         "ROADMAP queue 1, parallelism and elasticity"})
+                "mesh_shape": list(placement.mesh_shape)})
+        return shardings
 
 
 # ===========================================================================

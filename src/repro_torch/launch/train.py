@@ -43,6 +43,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --steps 10 --ckpt-every 2 --fail-at 3 7
 
+    # data parallel over 4 processes (NCCL on the cards, gloo on the CPU)
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --device cpu --steps 6
+
 Counterpart of the reference's ``launch/train.py``, with its flags plus
 ``--device``.  The loop runs through the port's
 :class:`~repro_torch.core.envelope.ExecutionEnvelope` into a run record of
@@ -56,6 +60,15 @@ each answered by a restore from the newest committed checkpoint.  Then
 it prints the reference's summary line, with the MoE aux loss of the
 last step beside the loss and the restarts.  ``--layers`` cuts the
 depth of a reduced or a ``--full`` config.
+
+Under ``torchrun`` with a world of more than one process, the flags are
+the same: the world is a ``(world, 1)`` ("data", "model") mesh
+(:func:`~repro_torch.launch.mesh.mesh_for_placement`, on
+``cuda:LOCAL_RANK`` or the CPU), each rank generates its rows of the
+global batch (the stream's ``host_id``/``num_hosts``), holds its blocks
+of the state and runs the sharded step; rank 0 writes the checkpoints
+and prints, the other ranks keep their run records under
+``<runs-dir>/rank<r>``.  A world of one runs as before.
 """
 from __future__ import annotations
 
@@ -65,6 +78,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, reduced
@@ -72,7 +86,9 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.envelope import ExecutionEnvelope
 from repro_torch.core.provenance import ProvenanceStore
 from repro_torch.data import DataConfig, make_stream
+from repro_torch.ft.elastic import reshard_state, state_shardings
 from repro_torch.ft.failures import FailureSchedule
+from repro_torch.launch.mesh import backend_for, mesh_for_placement
 from repro_torch.models import build_model
 from repro_torch.train import (OptimizerConfig, Plan, init_train_state,
                                keep_input_state, make_train_step)
@@ -119,33 +135,49 @@ def main() -> None:
         cfg = reduced(cfg, **over)
     elif args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    model = build_model(cfg, device=args.device)
+    world, rank = int(os.environ.get("WORLD_SIZE", 1)), 0
+    mesh = layouts = None
+    device = args.device
+    if world > 1:  # under torchrun: one rank a process
+        rank = int(os.environ["RANK"])
+        if torch.device(device).type == "cuda":
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        dist.init_process_group(backend_for(torch.device(device)))
+        mesh = mesh_for_placement((world, 1), ("data", "model"), device)
+    model = build_model(cfg, device=device)
 
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     opt = OptimizerConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 2),
                           total_steps=args.steps)
     plan = Plan(remat=args.remat, microbatch=args.microbatch)
     stream = make_stream(cfg, shape, DataConfig(
-        seed=args.seed, vocab_size=min(4096, cfg.vocab_size)))
-    step_fn = make_train_step(model, opt, plan)
+        seed=args.seed, vocab_size=min(4096, cfg.vocab_size)),
+        host_id=rank, num_hosts=world)
+    step_fn = make_train_step(model, opt, plan, mesh)
+    if mesh is not None:
+        layouts = state_shardings({}, model, mesh, plan)
     if args.no_donate:
         step_fn = keep_input_state(step_fn)
     ckpt = Checkpointer(os.path.join(args.runs_dir, "ckpt"), keep=2)
-    record = ProvenanceStore(args.runs_dir).create_run(
+    runs_dir = args.runs_dir if rank == 0 else os.path.join(
+        args.runs_dir, f"rank{rank}")
+    record = ProvenanceStore(runs_dir).create_run(
         template=f"cli-train-{args.arch}", template_version="0",
         config={"arch": args.arch, "cfg": dataclasses.asdict(cfg),
                 "steps": args.steps, "batch": args.batch, "seq": args.seq,
                 "device": str(model.device)},
         plan={"remat": args.remat, "microbatch": args.microbatch},
     )
-    print(f"run: {record.run_id}")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"run: {record.run_id}")
     n_params = 0
 
     def init_fn():
         nonlocal n_params
         state = init_train_state(model, args.seed, opt, plan)
         n_params = sum(p.numel() for p in leaves(state["params"]))
-        return state
+        return state if mesh is None else reshard_state(state, model, mesh,
+                                                        plan)
 
     def run_step(state, step):
         batch = {k: torch.from_numpy(v).to(model.device)
@@ -155,19 +187,20 @@ def main() -> None:
                 batch[k] = batch[k].to(torch.bfloat16)
         state, metrics = step_fn(state, batch)
         metrics = {k: float(v) for k, v in metrics.items()}  # waits
-        print(f"step {step} loss={metrics['loss']:.4f} "
+        say(f"step {step} loss={metrics['loss']:.4f} "
               f"aux={metrics['aux']:.4g} lr={metrics['lr']:.3g} "
               f"grad_norm={metrics['grad_norm']:.4f}", flush=True)
         return state, metrics
 
     if ckpt.latest_step() is not None:
-        print(f"restored step {ckpt.latest_step()} from {ckpt.dir}")
+        say(f"restored step {ckpt.latest_step()} from {ckpt.dir}")
     env = ExecutionEnvelope(
         record, checkpointer=ckpt, checkpoint_every=args.ckpt_every,
         failures=FailureSchedule(tuple(args.fail_at)) if args.fail_at
         else None)
     t0 = time.time()
-    env.run(init_state=init_fn, step_fn=run_step, num_steps=args.steps)
+    env.run(init_state=init_fn, step_fn=run_step, num_steps=args.steps,
+            state_shardings=layouts)
     dt = time.time() - t0
     hist = record.metrics()
     losses = [h["loss"] for h in hist]
@@ -175,9 +208,11 @@ def main() -> None:
     tok_s = args.batch * args.seq * len(losses) / dt
     span = (f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (aux {aux:.4g}) "
             if losses else "")
-    print(f"params={n_params/1e6:.1f}M steps={len(losses)} {span}"
-          f"wall={dt:.1f}s ({tok_s:,.0f} tok/s) restarts={env.restarts} "
-          f"device={model.device}")
+    say(f"params={n_params/1e6:.1f}M steps={len(losses)} {span}"
+        f"wall={dt:.1f}s ({tok_s:,.0f} tok/s) restarts={env.restarts} "
+        f"device={model.device}" + (f" world={world}" if world > 1 else ""))
+    if world > 1:
+        dist.destroy_process_group()
 
 if __name__ == "__main__":
     main()

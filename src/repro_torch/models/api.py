@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, lm, sampling
+from repro_torch.tree import unflatten
 
 Device = Union[str, torch.device, None]
 
@@ -32,6 +33,14 @@ def resolve_device(device: Device) -> torch.device:
             "no CUDA device is available; the port runs on the GPU by "
             "default — pass device='cpu' to run on the CPU")
     return dev
+
+
+def param_table(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """``path -> (shape, init, logical axes)`` of every parameter of
+    ``cfg``'s model."""
+    if cfg.is_encoder_decoder:
+        return encdec.param_table(cfg)
+    return lm.param_table(cfg)
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
@@ -60,6 +69,18 @@ class Model:
         """Fresh parameters in ``cfg.param_dtype`` on the model's device."""
         return lm.init_params(self.cfg, param_shapes(self.cfg), seed,
                               self.device)
+
+    def param_specs(self) -> Tuple[lm.Params, lm.Params]:
+        """``(tree of parameters on the meta device, tree of logical-axes
+        tuples)`` without allocation, as the reference's
+        ``Model.param_specs`` returns shapes and axes."""
+        dtype = getattr(torch, self.cfg.param_dtype)
+        table = param_table(self.cfg)
+        specs = unflatten(
+            (path, torch.empty(shape, dtype=dtype, device="meta"))
+            for path, (shape, _, _) in table.items())
+        return specs, unflatten((path, axes)
+                                for path, (_, _, axes) in table.items())
 
     # ---- train -----------------------------------------------------------
     def loss(self, params: lm.Params, batch, remat: str = "none"):

@@ -46,17 +46,17 @@ from repro_torch.models.lm import (Params, apply_mlp, attention_shapes,
                                    mlp_shapes, norm_shapes, token_nll)
 
 
-def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-    """``path -> (shape, init)`` of every parameter, as the reference's
-    ``init_encdec`` builds them."""
+def param_table(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """``path -> (shape, init, logical axes)`` of every parameter, as the
+    reference's ``init_encdec`` builds them."""
     D, V = cfg.d_model, cfg.vocab_size
-    out = {"embed": ((V, D), "normal")}
+    out = {"embed": ((V, D), "normal", ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        out["lm_head"] = ((D, V), "normal")
+        out["lm_head"] = ((D, V), "normal", ("embed", "vocab"))
     for name in ("final", "enc_final"):
-        out[f"{name}_g"] = ((D,), "ones")
+        out[f"{name}_g"] = ((D,), "ones", ("embed",))
         if cfg.norm == "layernorm":
-            out[f"{name}_b"] = ((D,), "zeros")
+            out[f"{name}_b"] = ((D,), "zeros", ("embed",))
     Le, L = cfg.encoder_layers, cfg.num_layers
     enc = {**norm_shapes(cfg, Le, ("norm1", "norm2")),
            **attention_shapes(cfg, Le), **mlp_shapes(cfg, Le)}
@@ -66,6 +66,12 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     out.update({f"enc_blocks/{k}": v for k, v in enc.items()})
     out.update({f"blocks/{k}": v for k, v in dec.items()})
     return out
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """``path -> (shape, init)`` of every parameter."""
+    return {k: (shape, init)
+            for k, (shape, init, _) in param_table(cfg).items()}
 
 
 def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:

@@ -23,9 +23,11 @@ prefill, no paged cache and no verify, and the MoE decoders no padded
 prefill.  The encoder-decoder is ``models/encdec.py``.
 
 The train path (``forward_train``/``loss_fn``) has no counterpart of the
-reference's ``hints.*`` calls: those pin activations and logits to a
-device mesh's shardings, and the port runs on one card with no mesh
-(ROADMAP queue 1, parallelism and elasticity).  Remat ``"full"`` is
+reference's ``hints.*`` calls, by design: those are GSPMD layout
+constraints that pin activations and logits to a mesh's shardings, and
+on a mesh each rank's activations here are already its local shard (the
+sharded step of ``train/step.py`` gathers the parameters whole and runs
+this forward on the rank's rows).  Remat ``"full"`` is
 ``torch.utils.checkpoint`` (non-reentrant) around each block, the
 reference's ``jax.checkpoint`` of the scan body; for the xLSTM around
 each group of blocks, and ``"dots"`` there is ``"full"``, as in the
@@ -87,18 +89,19 @@ def require_ported(cfg: ModelConfig) -> None:
 # ===========================================================================
 # Init
 # ===========================================================================
-def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-    """``path -> (shape, init)`` of every parameter, paths joined by
-    ``/`` as the reference's tree nests them."""
+def param_table(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """``path -> (shape, init, logical axes)`` of every parameter, paths
+    joined by ``/`` as the reference's tree nests them, the axes those
+    its ``ParamBuilder.p`` records (what ``parallel.sharding.param_spec``
+    maps onto a mesh)."""
     require_ported(cfg)
     L, D, F, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
-    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    out = {"embed": ((V, D), "normal")}
+    out = {"embed": ((V, D), "normal", ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        out["lm_head"] = ((D, V), "normal")
-    out["final_g"] = ((D,), "ones")
+        out["lm_head"] = ((D, V), "normal", ("embed", "vocab"))
+    out["final_g"] = ((D,), "ones", ("embed",))
     if cfg.norm == "layernorm":
-        out["final_b"] = ((D,), "zeros")
+        out["final_b"] = ((D,), "zeros", ("embed",))
     if cfg.family == "ssm":
         every = cfg.slstm_every
         if every:
@@ -118,8 +121,8 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
                   **attention_shapes(cfg, L)}
         if cfg.family == "hybrid":
             blocks.update(rec.ssm_shapes(cfg, L))
-            blocks.update(fuse_attn=((L, D), "ones"),
-                          fuse_ssm=((L, D), "ones"))
+            blocks.update(fuse_attn=((L, D), "ones", ("layers", "embed")),
+                          fuse_ssm=((L, D), "ones", ("layers", "embed")))
         if cfg.num_experts > 0:
             blocks.update(moe.moe_shapes(cfg, L))
         elif F > 0:
@@ -128,13 +131,19 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     return out
 
 
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """``path -> (shape, init)`` of every parameter."""
+    return {k: (shape, init)
+            for k, (shape, init, _) in param_table(cfg).items()}
+
+
 def norm_shapes(cfg: ModelConfig, L: int, names) -> Dict[str, Tuple]:
     """Stacked gains (and, for layer norm, biases) of the norms ``names``."""
-    out = {}
+    out, axes = {}, ("layers", "embed")
     for n in names:
-        out[f"{n}_g"] = ((L, cfg.d_model), "ones")
+        out[f"{n}_g"] = ((L, cfg.d_model), "ones", axes)
         if cfg.norm == "layernorm":
-            out[f"{n}_b"] = ((L, cfg.d_model), "zeros")
+            out[f"{n}_b"] = ((L, cfg.d_model), "zeros", axes)
     return out
 
 
@@ -142,22 +151,29 @@ def attention_shapes(cfg: ModelConfig, L: int,
                      prefix: str = "attn") -> Dict[str, Tuple]:
     """Stacked projections (and QKV biases) of ``L`` attention layers."""
     D, H, KH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    out = {f"{prefix}_wq": ((L, D, H, Dh), "normal"),
-           f"{prefix}_wk": ((L, D, KH, Dh), "normal"),
-           f"{prefix}_wv": ((L, D, KH, Dh), "normal"),
-           f"{prefix}_wo": ((L, H, Dh, D), "normal")}
+    kv = ("layers", "embed", "kv_heads", "head_dim")
+    out = {f"{prefix}_wq": ((L, D, H, Dh), "normal",
+                            ("layers", "embed", "heads", "head_dim")),
+           f"{prefix}_wk": ((L, D, KH, Dh), "normal", kv),
+           f"{prefix}_wv": ((L, D, KH, Dh), "normal", kv),
+           f"{prefix}_wo": ((L, H, Dh, D), "normal",
+                            ("layers", "heads", "head_dim", "embed"))}
     if cfg.qkv_bias:
-        out.update({f"{prefix}_bq": ((L, H, Dh), "zeros"),
-                    f"{prefix}_bk": ((L, KH, Dh), "zeros"),
-                    f"{prefix}_bv": ((L, KH, Dh), "zeros")})
+        kv = ("layers", "kv_heads", "head_dim")
+        out.update({f"{prefix}_bq": ((L, H, Dh), "zeros",
+                                     ("layers", "heads", "head_dim")),
+                    f"{prefix}_bk": ((L, KH, Dh), "zeros", kv),
+                    f"{prefix}_bv": ((L, KH, Dh), "zeros", kv)})
     return out
 
 
 def mlp_shapes(cfg: ModelConfig, L: int) -> Dict[str, Tuple]:
     """Stacked weights of ``L`` MLPs (gated for SiLU)."""
     D, F = cfg.d_model, cfg.d_ff
-    out = {"mlp_wg": ((L, D, F), "normal")} if cfg.act == "silu" else {}
-    out.update(mlp_wu=((L, D, F), "normal"), mlp_wd=((L, F, D), "normal"))
+    up = ((L, D, F), "normal", ("layers", "embed", "mlp"))
+    out = {"mlp_wg": up} if cfg.act == "silu" else {}
+    out.update(mlp_wu=up,
+               mlp_wd=((L, F, D), "normal", ("layers", "mlp", "embed")))
     return out
 
 

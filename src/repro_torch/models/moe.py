@@ -1,14 +1,16 @@
 """Mixture-of-Experts layer: top-k routing and sort-based capacity
 dispatch, the expert FFN through K4.
 
-Counterpart of the reference package's ``models/moe.py`` for its
-``scatter`` implementation (``apply_moe_shardmap``, the expert-parallel
-form, waits for parallelism: ROADMAP queue 1, parallelism and
-elasticity).  The function is the reference's: one group per batch row,
-the router in float32, softmax, top-k with the gates renormalised, the
-Switch aux loss, a stable sort of each row's (token, k) entries by
-expert, capacity ``moe_capacity``, overflow dropped, and the combine
-weighing each kept expert output by its gate.
+Counterpart of the reference package's ``models/moe.py``: its
+``scatter`` implementation (:func:`apply_moe`) and its expert-parallel
+``shard_map`` implementation (:func:`apply_moe_shardmap`), chosen by
+:func:`set_moe_impl` as in the reference (the sharded train step sets it
+from ``Plan.moe_impl`` for its forward and backward).  The scatter
+function is the reference's: one group per batch row, the router in
+float32, softmax, top-k with the gates renormalised, the Switch aux
+loss, a stable sort of each row's (token, k) entries by expert, capacity
+``moe_capacity``, overflow dropped, and the combine weighing each kept
+expert output by its gate.
 
 What differs is the layout and the arithmetic's order:
 
@@ -23,10 +25,18 @@ What differs is the layout and the arithmetic's order:
     (token, k), each token its K slots, and a token's K contributions
     are summed in k order.  Nothing is scattered with atomics, so a step
     gives the same bits every time (resume is exact on the card).
+
+On a mesh the aux loss is the Switch loss of the global batch, as GSPMD
+computes the reference's scatter path: the top-1 densities are averaged
+over the ranks that hold different tokens before their product with the
+router's mean probabilities (ROADMAP §3: the reference's ``shard_map``
+averages per-shard losses instead, which agrees with its scatter path
+only on a mesh of one).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,17 +44,59 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import activation
+from repro_torch.parallel import collectives
+
+# the leaves whose experts dim the expert-parallel layer keeps local (the
+# reference's shard_map in_specs ``P("model", None, None)``); the router
+# is gathered whole
+EXPERT_LEAVES = ("moe_wg", "moe_wu", "moe_wd")
+
+_moe_impl = "scatter"  # scatter | shard_map
+_moe_mesh = None
+_moe_dp_axes: Tuple[str, ...] = ("data",)
+# when a list, each layer call appends (kept entries, all entries) as
+# device tensors: the dropped share of a run
+drop_stats: Optional[list] = None
+
+
+def set_moe_impl(impl: str, mesh=None, dp_axes=("data",)) -> None:
+    """Choose the MoE implementation (``scatter`` or ``shard_map``) and
+    the mesh it runs on, as the reference's ``set_moe_impl``."""
+    global _moe_impl, _moe_mesh, _moe_dp_axes
+    assert impl in ("scatter", "shard_map"), impl
+    _moe_impl = impl
+    _moe_mesh = mesh
+    _moe_dp_axes = tuple(dp_axes)
+
+
+@contextlib.contextmanager
+def moe_impl(impl: str, mesh=None, dp_axes=("data",)):
+    """:func:`set_moe_impl` for a block of code (a train step's forward
+    and backward), restored after."""
+    saved = (_moe_impl, _moe_mesh, _moe_dp_axes)
+    set_moe_impl(impl, mesh, dp_axes)
+    try:
+        yield
+    finally:
+        set_moe_impl(*saved)
+
+
+def _dp(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in _moe_dp_axes if a in mesh.shape)
 
 
 def moe_shapes(cfg: ModelConfig, num_layers: int):
-    """``name -> (shape, init)`` of the MoE parameters, each with a
-    leading layer axis (the reference's ``init_moe``)."""
+    """``name -> (shape, init, logical axes)`` of the MoE parameters,
+    each with a leading layer axis (the reference's ``init_moe``)."""
     L, D, E, F_ = num_layers, cfg.d_model, cfg.num_experts, cfg.d_ff
     return {
-        "router": ((L, D, E), "normal"),
-        "moe_wg": ((L, E, D, F_), "normal"),
-        "moe_wu": ((L, E, D, F_), "normal"),
-        "moe_wd": ((L, E, F_, D), "normal"),
+        "router": ((L, D, E), "normal", ("layers", "embed", "experts")),
+        "moe_wg": ((L, E, D, F_), "normal",
+                   ("layers", "experts", "embed", "mlp")),
+        "moe_wu": ((L, E, D, F_), "normal",
+                   ("layers", "experts", "embed", "mlp")),
+        "moe_wd": ((L, E, F_, D), "normal",
+                   ("layers", "experts", "mlp", "embed")),
     }
 
 
@@ -162,10 +214,34 @@ def dispatch_plan(expert_ids: torch.Tensor, num_experts: int,
             "slot_entry": slot_entry.permute(1, 0, 2).reshape(-1)}
 
 
+def _switch_aux(density, density_prob, cfg, mesh, axes):
+    """The Switch aux loss of the tokens of every rank along ``axes``
+    (each holding as many): the top-1 densities averaged over them (no
+    gradient), the mean probabilities averaged with a gradient that is
+    each rank's own share."""
+    if not axes or mesh.size(axes) == 1:
+        return (density * density_prob).sum() * cfg.num_experts \
+            * cfg.router_aux_weight
+    density = collectives.all_reduce(density.detach().clone(), mesh, axes
+                                     ) / mesh.size(axes)
+    local = (density * density_prob).sum() * cfg.num_experts \
+        * cfg.router_aux_weight
+    return collectives.mean(local, mesh, axes)
+
+
+def _count_drops(tok_slot: torch.Tensor, dropped_slot: int) -> None:
+    if drop_stats is not None:
+        kept = (tok_slot != dropped_slot).sum()
+        drop_stats.append((kept, tok_slot.numel()))
+
+
 def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor,
               cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x ``(B, S, D)`` normed, one group per batch row -> ``(output
-    (B, S, D) in x's dtype, float32 aux loss)``."""
+    (B, S, D) in x's dtype, float32 aux loss)``; under
+    ``set_moe_impl("shard_map", mesh)``, :func:`apply_moe_shardmap`."""
+    if _moe_impl == "shard_map":
+        return apply_moe_shardmap(p, x, cfg)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     C = moe_capacity(cfg, S)
@@ -184,9 +260,14 @@ def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor,
     # ---- aux load-balance loss (Switch-style) --------------------------
     density = onehot[:, :, 0].mean(dim=(0, 1))
     density_prob = probs.mean(dim=(0, 1))
-    aux = (density * density_prob).sum() * E * cfg.router_aux_weight
+    if _moe_mesh is not None:  # the global batch's, over the data ranks
+        aux = _switch_aux(density, density_prob, cfg, _moe_mesh,
+                          _dp(_moe_mesh))
+    else:
+        aux = (density * density_prob).sum() * E * cfg.router_aux_weight
 
     plan = dispatch_plan(expert_ids, E, C)
+    _count_drops(plan["tok_slot"], E * B * C)
     buf = _Dispatch.apply(x.reshape(B * S, D), plan["slot_tok"],
                           plan["tok_slot"])  # (E·B·C, D)
     sizes = [B * C] * E
@@ -197,3 +278,83 @@ def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor,
     out = _Combine.apply(out_buf, gate_vals.reshape(B * S, K),
                          plan["tok_slot"], plan["slot_entry"])
     return out.view(B, S, D), aux.float()
+
+
+# ===========================================================================
+# shard_map MoE: explicit all-to-all dispatch (expert parallelism)
+# ===========================================================================
+def shardmap_capacity(cfg: ModelConfig, local_tokens: int) -> int:
+    """The expert-parallel layer's capacity: from the rank's local token
+    count, padded to 8 (the reference's ``apply_moe_shardmap``)."""
+    C = max(int(local_tokens * cfg.top_k * cfg.moe_capacity_factor
+                / cfg.num_experts), cfg.top_k)
+    return ((C + 7) // 8) * 8
+
+
+def apply_moe_shardmap(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                       cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel MoE (the reference's ``apply_moe_shardmap``):
+    each rank routes its local tokens — its batch rows over the data
+    axes, its slice of the sequence over ``model`` — into one
+    ``(E, C, D)`` buffer, exchanges expert shards with one all-to-all
+    over ``model``, runs the expert FFN on its ``E/m`` local experts
+    through K4 (three launches, as the scatter path), and reverses.
+
+    ``x`` ``(B_loc, S, D)`` is the rank's batch rows, the whole sequence
+    (every ``model`` rank holds the same); ``p["moe_w*"]`` hold the
+    rank's local experts ``(E/m, ...)`` (the train step's gather keeps
+    the experts dim local) and ``p["router"]`` the whole router.  The
+    output is gathered back over the sequence, since the rest of the
+    block is not split over ``model``.  Autodiff runs the all-to-all's
+    backward as an all-to-all; the router's gradient is summed over
+    ``model`` (each rank routes its own tokens)."""
+    mesh = _moe_mesh
+    assert mesh is not None, "shard_map MoE needs set_moe_impl(mesh=...)"
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    dp = _dp(mesh)
+    m = mesh.shape.get("model", 1)
+    assert E % m == 0, (E, m)
+    assert S % m == 0, (S, m)
+    e_loc = E // m
+    assert p["moe_wg"].shape[0] == e_loc, (p["moe_wg"].shape, e_loc)
+    dt = x.dtype
+    mdl = ("model",) if "model" in mesh.shape else ()
+
+    xl = collectives.scatter(x, 1, mesh, mdl) if mdl else x
+    T = B * (S // m)
+    C = shardmap_capacity(cfg, T)
+    toks = xl.reshape(T, D)
+    router = collectives.sum_grad(p["router"], mesh, mdl) if mdl \
+        else p["router"]
+    probs = torch.softmax(toks.float() @ router.float(), dim=-1)  # (T, E)
+    expert_ids = top_k(probs.detach(), K)  # (T, K)
+    onehot = F.one_hot(expert_ids, E).to(probs.dtype)
+    gate_vals = (probs[:, None, :] * onehot).sum(-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    aux = _switch_aux(onehot[:, 0].mean(0), probs.mean(0), cfg, mesh,
+                      dp + mdl)
+
+    # one group of all T local tokens; slots expert-major, (E·C, D)
+    plan = dispatch_plan(expert_ids[None], E, C)
+    _count_drops(plan["tok_slot"], E * C)
+    buf = _Dispatch.apply(toks, plan["slot_tok"], plan["tok_slot"])
+    # chunk j (experts of model rank j) to rank j: (m, E/m, C, D) from
+    # each source rank, regrouped expert-major for K4
+    buf = collectives.all_to_all(buf, mesh, "model") if mdl else buf
+    if m > 1:
+        buf = buf.view(m, e_loc, C, D).transpose(0, 1).reshape(-1, D)
+    sizes = [m * C] * e_loc
+    h_g = ops.moe_gmm(buf, sizes, p["moe_wg"].to(dt))
+    h_u = ops.moe_gmm(buf, sizes, p["moe_wu"].to(dt))
+    h = activation(h_g, cfg.act) * h_u
+    out_buf = ops.moe_gmm(h, sizes, p["moe_wd"].to(dt))  # (E/m·m·C, D)
+    if m > 1:
+        out_buf = out_buf.view(e_loc, m, C, D).transpose(0, 1).reshape(-1, D)
+        out_buf = collectives.all_to_all(out_buf, mesh, "model")
+    out = _Combine.apply(out_buf, gate_vals, plan["tok_slot"],
+                         plan["slot_entry"])
+    out = out.view(B, S // m, D)
+    out = collectives.gather(out, 1, mesh, mdl) if mdl else out
+    return out, aux.float()

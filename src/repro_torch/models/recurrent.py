@@ -47,24 +47,34 @@ def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
     return d_in, nh, d_in // nh
 
 
+# logical axes of the per-head block-diagonal projections and of the SSM's
+# d_inner-by-small matrices (the reference's ``ParamBuilder.p`` axes)
+_HEAD_PROJ = ("layers", "heads", "head_dim", None)
+_MLP_ROWS = ("layers", "mlp", None)
+
+
 def mlstm_shapes(cfg: ModelConfig, num_layers: int):
-    """``name -> (shape, init)`` of the mLSTM parameters, each with a
-    leading layer axis (the reference's ``init_mlstm``)."""
+    """``name -> (shape, init, logical axes)`` of the mLSTM parameters,
+    each with a leading layer axis (the reference's ``init_mlstm``)."""
     D = cfg.d_model
     d_in, NH, DH = mlstm_dims(cfg)
     L = num_layers
     return {
-        "ln_g": ((L, D), "ones"), "ln_b": ((L, D), "zeros"),
-        "w_up_x": ((L, D, d_in), "normal"), "w_up_z": ((L, D, d_in), "normal"),
+        "ln_g": ((L, D), "ones", ("layers", "embed")),
+        "ln_b": ((L, D), "zeros", ("layers", "embed")),
+        "w_up_x": ((L, D, d_in), "normal", ("layers", "embed", "mlp")),
+        "w_up_z": ((L, D, d_in), "normal", ("layers", "embed", "mlp")),
         # per-head block-diagonal projections: each head projects only
         # its own DH-slice
-        "w_q": ((L, NH, DH, DH), "normal"), "w_k": ((L, NH, DH, DH), "normal"),
-        "w_v": ((L, NH, DH, DH), "normal"),
-        "w_i": ((L, d_in, NH), "small_normal"),
-        "w_f": ((L, d_in, NH), "small_normal"),
-        "b_i": ((L, NH), "zeros"), "b_f": ((L, NH), "ones"),
-        "headnorm_g": ((L, NH, DH), "ones"),
-        "w_down": ((L, d_in, D), "normal"),
+        "w_q": ((L, NH, DH, DH), "normal", _HEAD_PROJ),
+        "w_k": ((L, NH, DH, DH), "normal", _HEAD_PROJ),
+        "w_v": ((L, NH, DH, DH), "normal", _HEAD_PROJ),
+        "w_i": ((L, d_in, NH), "small_normal", ("layers", "mlp", "heads")),
+        "w_f": ((L, d_in, NH), "small_normal", ("layers", "mlp", "heads")),
+        "b_i": ((L, NH), "zeros", ("layers", "heads")),
+        "b_f": ((L, NH), "ones", ("layers", "heads")),
+        "headnorm_g": ((L, NH, DH), "ones", ("layers", "heads", "head_dim")),
+        "w_down": ((L, d_in, D), "normal", ("layers", "mlp", "embed")),
     }
 
 
@@ -147,21 +157,27 @@ def slstm_ffn_dim(cfg: ModelConfig) -> int:
 
 
 def slstm_shapes(cfg: ModelConfig, num_layers: int):
-    """``name -> (shape, init)`` of the sLSTM parameters, each with a
-    leading layer axis (the reference's ``init_slstm``)."""
+    """``name -> (shape, init, logical axes)`` of the sLSTM parameters,
+    each with a leading layer axis (the reference's ``init_slstm``)."""
     D = cfg.d_model
     NH, DH = slstm_dims(cfg)
     Fs = slstm_ffn_dim(cfg)
     L = num_layers
     return {
-        "ln_g": ((L, D), "ones"), "ln_b": ((L, D), "zeros"),
-        "w_gates": ((L, D, 4, NH, DH), "normal"),
-        "r_gates": ((L, NH, 4, DH, DH), "small_normal"),
-        "b_gates": ((L, 4, NH, DH), "zeros"),
-        "headnorm_g": ((L, NH, DH), "ones"),
-        "ln2_g": ((L, D), "ones"), "ln2_b": ((L, D), "zeros"),
-        "ffn_wg": ((L, D, Fs), "normal"), "ffn_wu": ((L, D, Fs), "normal"),
-        "ffn_wd": ((L, Fs, D), "normal"),
+        "ln_g": ((L, D), "ones", ("layers", "embed")),
+        "ln_b": ((L, D), "zeros", ("layers", "embed")),
+        "w_gates": ((L, D, 4, NH, DH), "normal",
+                    ("layers", "embed", None, "heads", "head_dim")),
+        "r_gates": ((L, NH, 4, DH, DH), "small_normal",
+                    ("layers", "heads", None, "head_dim", None)),
+        "b_gates": ((L, 4, NH, DH), "zeros",
+                    ("layers", None, "heads", "head_dim")),
+        "headnorm_g": ((L, NH, DH), "ones", ("layers", "heads", "head_dim")),
+        "ln2_g": ((L, D), "ones", ("layers", "embed")),
+        "ln2_b": ((L, D), "zeros", ("layers", "embed")),
+        "ffn_wg": ((L, D, Fs), "normal", ("layers", "embed", "mlp")),
+        "ffn_wu": ((L, D, Fs), "normal", ("layers", "embed", "mlp")),
+        "ffn_wd": ((L, Fs, D), "normal", ("layers", "mlp", "embed")),
     }
 
 
@@ -269,20 +285,23 @@ def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 def ssm_shapes(cfg: ModelConfig, num_layers: int):
-    """``name -> (shape, init)`` of the SSM parameters (``ssm_*``), each
-    with a leading layer axis (the reference's ``init_ssm``)."""
+    """``name -> (shape, init, logical axes)`` of the SSM parameters
+    (``ssm_*``), each with a leading layer axis (the reference's ``init_ssm``)."""
     D = cfg.d_model
     d_in, N, R = ssm_dims(cfg)
     L, K = num_layers, cfg.ssm_conv
     shapes = {
-        "w_in": ((L, D, d_in), "normal"), "w_z": ((L, D, d_in), "normal"),
-        "conv_w": ((L, K, d_in), "small_normal"),
-        "w_B": ((L, d_in, N), "small_normal"),
-        "w_C": ((L, d_in, N), "small_normal"),
-        "w_dt1": ((L, d_in, R), "small_normal"),
-        "w_dt2": ((L, R, d_in), "small_normal"),
-        "b_dt": ((L, d_in), "zeros"), "A_log": ((L, d_in, N), "zeros"),
-        "D": ((L, d_in), "ones"), "w_out": ((L, d_in, D), "normal"),
+        "w_in": ((L, D, d_in), "normal", ("layers", "embed", "mlp")),
+        "w_z": ((L, D, d_in), "normal", ("layers", "embed", "mlp")),
+        "conv_w": ((L, K, d_in), "small_normal", ("layers", None, "mlp")),
+        "w_B": ((L, d_in, N), "small_normal", _MLP_ROWS),
+        "w_C": ((L, d_in, N), "small_normal", _MLP_ROWS),
+        "w_dt1": ((L, d_in, R), "small_normal", _MLP_ROWS),
+        "w_dt2": ((L, R, d_in), "small_normal", ("layers", None, "mlp")),
+        "b_dt": ((L, d_in), "zeros", ("layers", "mlp")),
+        "A_log": ((L, d_in, N), "zeros", _MLP_ROWS),
+        "D": ((L, d_in), "ones", ("layers", "mlp")),
+        "w_out": ((L, d_in, D), "normal", ("layers", "mlp", "embed")),
     }
     return {f"ssm_{k}": v for k, v in shapes.items()}
 

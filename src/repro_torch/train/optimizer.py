@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -102,19 +102,22 @@ def _row_blocks(*xs: torch.Tensor):
 
 @torch.no_grad()
 def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree,
-                 cfg: OptimizerConfig
+                 cfg: OptimizerConfig, gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Tree, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, written in place into ``params`` and ``state``'s
     moments and count; weight decay applies to parameters with more than
     one dimension.  Returns ``(params, state, {"lr", "grad_norm"})``, the
-    same objects it was given, as the reference returns its new trees."""
+    same objects it was given, as the reference returns its new trees.
+    ``gnorm`` is the gradient's global norm when ``grads`` are one rank's
+    blocks of it (the sharded step's), else the norm of ``grads``."""
     count = state["count"] + 1
     b1, b2 = cfg.betas
     lr = lr_at(cfg, count)
     cf = count.to(torch.float32)
     bc1 = 1.0 - b1 ** cf
     bc2 = 1.0 - b2 ** cf
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     mdt = getattr(torch, cfg.moment_dtype)
     for g, m, v, p in zip(leaves(grads), leaves(state["m"]),

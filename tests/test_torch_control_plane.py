@@ -117,8 +117,9 @@ def case_unported_entries_raise(tmp_path):
     are gone (both are ported, ``test_torch_check.py`` and
     ``test_torch_spec.py`` hold them against the reference): an empty
     package is refused as the reference refuses it, and ``check=True``
-    gates a broken graph before any run record.  A placement's mesh
-    still raises."""
+    gates a broken graph before any run record.  A placement's mesh is
+    built too: on one process, the planned (8, 1) mesh folds to (1, 1)
+    with the plan's axis names, as the reference's does on one device."""
     with pytest.raises(SpecError, match="invalid package"):
         REGISTRY.register_from_spec({})
     t = REGISTRY.get("train-qwen2-1.5b")
@@ -131,9 +132,9 @@ def case_unported_entries_raise(tmp_path):
     assert not list(tmp_path.iterdir())  # no run record
     p = Placement(stage="train", slice_name="v5e-8", mesh_shape=(8, 1),
                   mesh_axes=("data", "model"), chips=8, price_per_hour=1.0)
-    with pytest.raises(NotImplementedError,
-                       match="parallelism and elasticity"):
-        p.build_mesh()
+    mesh = p.build_mesh("cpu")
+    assert mesh.shape == {"data": 1, "model": 1}
+    assert mesh.device == torch.device("cpu")
 
 
 CASES = {name[len("case_"):]: fn for name, fn in sorted(globals().items())

@@ -46,6 +46,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import DataConfig, make_stream
 from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import local_mesh
 from repro_torch.models import build_model
 from repro_torch.train import (OptimizerConfig, Plan, adamw_init,
                                adamw_update, init_train_state,
@@ -303,15 +304,37 @@ def test_plan_knobs_do_not_change_the_step(ref, knob):
 
 
 def test_unported_train_paths_raise(ref):
-    model, state, _ = _port(ref)
+    """The train paths that raised before the parallel layer was ported
+    now run: a step on a mesh (here the local mesh of one process, bit
+    for bit the unsharded step) and gradient compression (here with the
+    reference's own Plan: the step's error is non-zero after one step);
+    an unknown remat policy and an unknown ``moe_impl`` still raise (the
+    latter the reference's assertion).  The multi-rank meshes are
+    tests/test_torch_parallel.py's."""
+    model, state, step = _port(ref)
     # remat dots runs (tests/test_torch_remat_dots.py); an unknown policy
     # raises
     with pytest.raises(ValueError, match="none, full or dots"):
         model.loss(state["params"], _batch(ref, 0), remat="everything")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(model, OptimizerConfig(), Plan(), mesh=object())
-    with pytest.raises(NotImplementedError, match="compression"):
-        make_train_step(model, OptimizerConfig(), JPlan(compress_grads=True))
+    copy = tree_map(lambda x: x.detach().clone(), state)
+    a, ma = step(state, _batch(ref, 0))
+    mesh = local_mesh("cpu")
+    b, mb = make_train_step(model, OptimizerConfig(**OPT),
+                            Plan(remat="none"), mesh=mesh)(copy,
+                                                           _batch(ref, 0))
+    for name in ("loss", "ce", "tokens", "grad_norm", "lr"):
+        assert torch.equal(ma[name], mb[name]), name
+    for (key, x), (_, y) in zip(flatten(a), flatten(b)):
+        assert torch.equal(x, y), key
+    st = init_train_state(model, 0, OptimizerConfig(**OPT),
+                          Plan(compress_grads=True))
+    cstep = make_train_step(model, OptimizerConfig(**OPT),
+                            JPlan(compress_grads=True, remat="none"))
+    st, m = cstep(st, _batch(ref, 0))
+    assert np.isfinite(float(m["loss"]))
+    assert any(bool(e.abs().max() > 0) for _, e in flatten(st["grad_err"]))
+    with pytest.raises(AssertionError):
+        make_train_step(model, OptimizerConfig(), Plan(moe_impl="a2a"))
 
 
 # ---------------------------------------------------------------------------
