@@ -16,7 +16,8 @@ then the encoder-decoder (whisper-large-v3) and the VLM
 (phi-3-vision-4.2b): K1 and K1-bwd at their shapes, each served and
 trained at full width, and their templates at full width planned for
 the card; last, the parallel layer on an NCCL world of one (the sharded
-step, gradient compression, expert parallelism, elastic restore).
+step, gradient compression, expert parallelism, elastic restore, the
+split over ``model``) and K1 and K1-bwd at the split's per-rank shapes.
 
     python3 chip_smoke.py
 
@@ -273,7 +274,22 @@ them, and on any mismatch.  Phases, one or more lines each:
      ``Placement(h100-8, (8, 1))``'s mesh folded to the card, every leaf
      and the next step bit for bit (deterministic algorithms on); then
      ``train-qwen2-1.5b`` cut at step 3 and resumed through
-     ``run_workflow``, whose train stage logs ``reshard``.
+     ``run_workflow``, whose train stage logs ``reshard``;
+ 45. the split over ``model`` (``parallel/tensor.py``) installed by the
+     sharded step on the same world: phase 41's run with attention split
+     by heads and again by the sequence (``seq_shard_attn``), each
+     installed split's mode recorded; every loss and every parameter leaf
+     bit for bit phase 41's (deterministic algorithms on), the peak
+     within 0.05 GB of it, steps 2-4 synced nowhere, K1 and K1-bwd all on
+     the tensor cores (a world of one splits nothing: the split
+     functions run the unsplit code);
+ 46. K1 with its LSE and K1-bwd at the split's per-rank shapes, bf16,
+     against their plain versions (``TOL``, ``GRAD_TOL``) with their
+     times, SDPA's and their bounds: internlm2-20b's rank of a (2, 4)
+     mesh (12 query heads over 2 KV heads, S = T 4096) and qwen2-1.5b's
+     context-parallel ranks under a ``model`` axis of 8 (512 query rows
+     at ``q_offset`` 0, 2048 and 3584 against 4096 keys), where the dK
+     and dV rows past each block's last query are exactly zero.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -281,6 +297,7 @@ Weights are random, from a seed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -304,6 +321,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.nn.attention.bias import causal_lower_right  # noqa: E402
 
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config, reduced  # noqa: E402
@@ -318,7 +336,7 @@ from repro_torch.core.planner import to_runtime_plan  # noqa: E402
 from repro_torch.ft import elastic_restart  # noqa: E402
 from repro_torch.ft.failures import FailureSchedule  # noqa: E402
 from repro_torch.launch.mesh import local_mesh  # noqa: E402
-from repro_torch.parallel import shard_tree  # noqa: E402
+from repro_torch.parallel import shard_tree, tensor  # noqa: E402
 from repro_torch.data import make_stream  # noqa: E402
 from repro_torch.kernels import build, flash_attention, ops  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd, mlstm_scan  # noqa: E402
@@ -1142,7 +1160,7 @@ def _live_mask(S, T, window, q_offset, dev, causal=True):
 
 
 def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
-                   phase=9, causal=True):
+                   phase=9, causal=True, unseen_zero=False):
     dev = torch.device("cuda")
     q, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
              for _ in range(2))
@@ -1163,6 +1181,14 @@ def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
     torch.cuda.synchronize()
     err = max(max_err(g, w, dtype, GRAD_TOL[dtype]) for g, w in zip(got, want))
     del want
+    if unseen_zero:
+        # the keys past the last query: no query sees them, so K1-bwd
+        # must write exact zeros there (its outputs start as torch.empty)
+        assert causal and not window, name
+        unseen = T - min(T, q_offset + S)
+        tail = [x[:, T - unseen:] for x in got[1:]]
+        assert all(int(torch.count_nonzero(x)) == 0 for x in tail), \
+            f"{name}: dK/dV rows past the last query are not zero"
     again = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, do,
                                                          **mask)
     torch.cuda.synchronize()
@@ -1177,33 +1203,51 @@ def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
     fplain_ms = time_ms(lambda: ref.attention_fwd(q, k, v, **mask), reps=3,
                         inner=1)
     # the yardstick: SDPA's backward through autograd, its forward done
-    # beforehand (never used by the port), in its (B, H, S, D) layout
+    # beforehand (never used by the port), in its (B, H, S, D) layout.
+    # Causal with no window and keys up to the last query: SDPA on that
+    # live key prefix, causal aligned at its lower right (is_causal when
+    # the queries start at key 0), which keeps a 16-bit call on its flash
+    # backend; otherwise the dense mask
     live = _live_mask(S, T, window, q_offset, dev, causal)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
+    kv_end = T
     if not causal and not window:
         sdpa = {}
-    elif S == T and not window and not q_offset:
-        sdpa = dict(is_causal=True)
+    elif causal and not window and q_offset + S <= T and (
+            not q_offset or dtype != torch.float32):
+        kv_end = q_offset + S
+        sdpa = (dict(is_causal=True) if not q_offset else
+                dict(attn_mask=causal_lower_right(S, kv_end)))
     else:
         sdpa = dict(attn_mask=live)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x[:, :kv_end].transpose(1, 2).detach().requires_grad_()
+              for x in (k, v))
     lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt.detach(), kt.detach(), vt.detach(), enable_gqa=True, **sdpa),
         reps=5, inner=3)
     o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa)
+    max_err(o.detach().transpose(1, 2), want_out, dtype)  # the same function
+    del want_out
     dot = do.transpose(1, 2)
     lib_ms = time_events_ms(lambda: torch.autograd.grad(
         o, (qt, kt, vt), dot, retain_graph=True))
     del o
     pairs = int(live.sum())
+    # the keys some query sees: K and V are read only there (dK and dV
+    # are written over all T, zeros past them)
+    seen = int(live.any(0).sum())
     size = torch.finfo(dtype).bits // 8
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    # backward: q, out, dO, k, v and lse read once, dq, dk, dv written
-    # once; five products of 2 D flops per live (row, key) pair
-    nbytes = size * (4 * B * S * H * D + 4 * B * T * KH * D) + 4 * B * S * H
+    # backward: q, out, dO, the seen keys of k and v, and lse read once,
+    # dq, dk, dv written once; five products of 2 D flops per live
+    # (row, key) pair
+    nbytes = size * (4 * B * S * H * D + 2 * B * (seen + T) * KH * D) \
+        + 4 * B * S * H
     bms, by = bound_ms(nbytes, 10.0 * B * H * D * pairs, peak)
-    # forward with the LSE: q, k, v read, out and lse written
-    fbytes = size * (2 * B * S * H * D + 2 * B * T * KH * D) + 4 * B * S * H
+    # forward with the LSE: q and the seen keys of k, v read, out and lse
+    # written
+    fbytes = size * (2 * B * S * H * D + 2 * B * seen * KH * D) \
+        + 4 * B * S * H
     fbms, fby = bound_ms(fbytes, 4.0 * B * H * D * pairs, peak)
     log(f"[{phase} K1+lse] {name} {str(dtype)[6:]} B={B} S={S} T={T} H={H} "
         f"KH={KH} D={D} causal={causal} window={window} q_offset={q_offset}: "
@@ -1216,14 +1260,18 @@ def _k1_train_case(name, dtype, B, S, T, H, KH, D, window, q_offset, gen,
         f"max_abs_err={err:.3g} (tol {GRAD_TOL[dtype]:g} abs+rel, dq dk dv) "
         f"deterministic=True ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms:.4f} ms/library_ms={ms / lib_ms:.2f} "
-        f"bound_ms={bms:.5f} ({by})")
+        f"bound_ms={bms:.5f} ({by})"
+        + (f"; dK, dV exactly 0 on the {unseen} keys past the last query"
+           if unseen_zero else ""))
     assert dtype != torch.bfloat16 or paths == ("tensor-cores",) * 2 or \
         not flash_attention.tensor_core_path(dtype, D), (name, paths)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, library_ms=lib_ms,
+                fwd=dict(max_abs_err=err_fwd, ms=fwd_ms, plain_ms=fplain_ms,
+                         bound_ms=fbms, bound_by=fby, library_ms=lib_fwd_ms))
 
 
-def phase_k1_train(gen) -> dict:
+def phase_k1_train(gen) -> tuple:
     main = None
     for dtype in (torch.bfloat16, torch.float32):
         for name, B, S, T, window, q_offset in (
@@ -1235,8 +1283,9 @@ def phase_k1_train(gen) -> dict:
                                q_offset, gen)
             if name == "train-shape" and dtype == torch.bfloat16:
                 main = r
+                main_fwd = main.pop("fwd")
             torch.cuda.empty_cache()
-    return main
+    return main, main_fwd
 
 
 # K1's and K1-bwd's kernels by name, both paths: the tensor cores'
@@ -4184,6 +4233,114 @@ def phase_elastic(cfg, rt) -> dict:
     return launches
 
 
+def phase_mesh_split(cfg, mesh, rt, base) -> dict:
+    """45: phase 41's sharded run with the split over ``model`` installed
+    by heads (``rt``) and by the sequence (``seq_shard_attn``): each run's
+    losses and every leaf bit for bit phase 41's (its unsharded and
+    sharded runs agree bit for bit), the peak within 0.05 GB of it, steps
+    2-4 synced nowhere, K1 and K1-bwd all on the tensor cores.  Every
+    split the step installs is recorded (a world of one splits nothing:
+    the split functions run the unsplit code)."""
+    model = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    shape = ShapeConfig("train_4k-cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    stream = make_stream(cfg, shape)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()}
+               for i in range(TRAIN_STEPS)]
+    installed = []
+    install = tensor.split
+
+    @contextlib.contextmanager
+    def recorded(sp):
+        installed.append(None if sp is None else (sp.attn, sp.size))
+        with install(sp):
+            yield
+
+    total = {"flash_attention": 0, "flash_attention_bwd": 0}
+    tensor.split = recorded
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode, seq in (("heads", False), ("seq", True)):
+            plan_ = rt.with_(seq_shard_attn=seq)
+            art = make_train_artifacts(model, mesh, plan_, opt, shape)
+            state = shard_tree(init_train_state(model, 0, opt, plan_),
+                               art.state_shardings)
+            installed.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_k1_counters()
+            state, losses, walls = _unsynced_steps(art.step_fn, state,
+                                                   batches)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            paths = _k1_tc_only()
+            launches = {"flash_attention": flash_attention.launches,
+                        "flash_attention_bwd": flash_attention_bwd.launches}
+            params = _host_params(state)
+            same = all(torch.equal(params[k], base["params"][k])
+                       for k in base["params"])
+            steady = statistics.median(walls[1:])
+            log(f"[45 mesh split] attention split by {mode} "
+                f"(seq_shard_attn={seq}), splits installed "
+                f"{sorted(set(installed))} ({len(installed)} steps, model "
+                f"axis of {mesh.size('model')}): losses {losses} vs phase "
+                f"41's {base['losses']}: bit for bit "
+                f"{losses == base['losses']}; every parameter leaf bit for "
+                f"bit: {same} ({len(params)} leaves); median step "
+                f"{steady:.4f} s vs {base['steady']:.4f} s "
+                f"({steady / base['steady'] - 1:+.2%}); "
+                f"max_memory_allocated_GB {peak:.3f} vs {base['peak']:.3f} "
+                f"({peak - base['peak']:+.3f}); launches {launches} "
+                f"paths={paths}; no host-device sync inside steps "
+                f"2-{TRAIN_STEPS}; deterministic algorithms on")
+            assert installed and set(installed) == {(mode, 1)}, installed
+            assert losses == base["losses"] and same, (losses,
+                                                       base["losses"])
+            assert abs(peak - base["peak"]) <= 0.05, (peak, base["peak"])
+            assert launches == base["launches"], (launches, base)
+            for k in total:
+                total[k] += launches[k]
+            del state, art, params
+            torch.cuda.empty_cache()
+    finally:
+        tensor.split = install
+        torch.use_deterministic_algorithms(False)
+    return total
+
+
+# the split's per-rank attention shapes (B, S, T, H, KH, D, q_offset):
+# internlm2-20b's rank of a (2, 4) mesh (48 heads over 8 KV heads, 12 and
+# 2 a rank), qwen2-1.5b's context-parallel ranks under a model axis of 8
+# (12 % 8 != 0: the planner sets seq_shard_attn; 4096 / 8 = 512 rows)
+TP_K1_CASES = (
+    ("internlm2-20b (2, 4) rank: 12 of 48 heads", 2, 4096, 4096, 12, 2,
+     128, 0),
+    ("qwen2-1.5b seq rank 0 of 8", 2, 512, 4096, 12, 2, 128, 0),
+    ("qwen2-1.5b seq rank 4 of 8", 2, 512, 4096, 12, 2, 128, 2048),
+    ("qwen2-1.5b seq rank 7 of 8", 2, 512, 4096, 12, 2, 128, 3584))
+
+
+def phase_tp_kernels(gen, full_bwd, full_fwd) -> list:
+    """46: K1 with its LSE and K1-bwd at the split's per-rank shapes
+    (``TP_K1_CASES``) in bf16 against their plain versions, with their
+    times beside phase 9's full-sequence K1 and K1-bwd (B 2, S = T 4096,
+    12 heads); the dK and dV rows past each block's last query exactly
+    zero.  Returns ``(K1 row, K1-bwd row)`` a shape."""
+    rows = []
+    for name, B, S, T, H, KH, D, off in TP_K1_CASES:
+        r = _k1_train_case(name, torch.bfloat16, B, S, T, H, KH, D, 0, off,
+                           gen, phase=46, unseen_zero=True)
+        log(f"[46 K1 split] {name}: K1 {r['fwd']['ms']:.4f} ms "
+            f"({r['fwd']['ms'] / full_fwd['ms']:.3f}x phase 9's full "
+            f"sequence {full_fwd['ms']:.4f}), K1-bwd {r['ms']:.4f} ms "
+            f"({r['ms'] / full_bwd['ms']:.3f}x {full_bwd['ms']:.4f})")
+        fwd = r.pop("fwd")
+        dims = dict(shape=name, B=B, S=S, T=T, H=H, KH=KH, D=D, q_offset=off)
+        rows.append((dict(dims, **fwd), dict(dims, **r)))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4213,7 +4370,7 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
-    k1_bwd = phase_k1_train(gen)
+    k1_bwd, k1_train = phase_k1_train(gen)
     model, state, train_launches, none = phase_train(cfg)
     phase_train_plain(model, state, cfg)
     del model, state
@@ -4301,10 +4458,12 @@ def main() -> int:
     mc = phase_mesh_compress(cfg, mesh, rt, mesh_base)
     mm = phase_mesh_moe(mcfg, mesh)
     el = phase_elastic(cfg, rt)
-    del mesh
+    sp = phase_mesh_split(cfg, mesh, rt, mesh_base)
+    del mesh, mesh_base
     dist.destroy_process_group()
-    par = {k: mt[k] + mc[k] + el[k]
+    par = {k: mt[k] + mc[k] + el[k] + sp[k]
            for k in ("flash_attention", "flash_attention_bwd")}
+    tp = phase_tp_kernels(gen, k1_bwd, k1_train)
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -4318,7 +4477,8 @@ def main() -> int:
                        + ms["flash_attention"] + hs["flash_attention"]
                        + xs["flash_attention"] + ht["flash_attention"]
                        + par["flash_attention"]),
-             hymba_prefill=sk["flash_attention"], **k1),
+             hymba_prefill=sk["flash_attention"],
+             split_ranks=[fwd for fwd, _ in tp], **k1),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
              includes=[PAGED_COMMON, HOPPER_COMMON],
@@ -4350,7 +4510,8 @@ def main() -> int:
                        + card["flash_attention_bwd"]
                        + wh["flash_attention_bwd"] + pv["flash_attention_bwd"]
                        + sw["flash_attention_bwd"]
-                       + par["flash_attention_bwd"]), **k1_bwd),
+                       + par["flash_attention_bwd"]),
+             split_ranks=[bwd for _, bwd in tp], **k1_bwd),
         dict(name="mlstm_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
              includes=[MLSTM_TC, HOPPER_COMMON],

@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, rope_angles
+from repro_torch.parallel import tensor
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -51,15 +52,76 @@ def attend_train(p: Dict[str, torch.Tensor], x: torch.Tensor,
     """Full-sequence attention of the train path: x ``(B, S, D)`` normed
     -> ``(B, S, D)``.  RoPE over ``arange(S)``, then
     :func:`repro_torch.kernels.ops.flash_attention` (K1 forward, K1-bwd
-    backward on the card), then the output projection."""
-    q, k, v = qkv(p, x, cfg, prefix)
+    backward on the card), then the output projection.
+
+    Under a split over ``model`` (``parallel/tensor.py``) the input's
+    gradient is summed over ``model``, and the rank computes by
+    ``"heads"`` its ``H/m`` query heads (its blocks of ``wq``, ``bq`` and
+    ``wo``) against the KV heads they read, the output projection's terms
+    summed over ``model``; by ``"seq"`` its ``S/m`` query rows (RoPE at
+    their global positions) against the whole K and V through K1's
+    ``q_offset``, the output rows gathered back over ``model``."""
+    sp = tensor.active()
+    mode = None if sp is None else sp.attn
+    S = x.shape[1]
+    hl = p[f"{prefix}_wq"].shape[1]  # the query heads this rank holds
+    h0, off, n = 0, 0, S  # its first head, its query rows
+    if mode == "heads":
+        assert hl * sp.size == cfg.num_heads, (hl, sp.size, cfg.num_heads)
+        h0 = sp.rank * hl
+    elif mode == "seq":
+        assert S % sp.size == 0, (S, sp.size)
+        n = S // sp.size
+        off = sp.rank * n
+    if mode is not None:
+        x = sp.sum_grad(x)
+    dt = x.dtype
+    kv, idx = _kv_heads(p, cfg, h0, hl, prefix)
+    q = _proj(x if n == S else x.narrow(1, off, n), p[f"{prefix}_wq"])
+    k = _proj(x, kv["wk"])
+    v = _proj(x, kv["wv"])
+    if cfg.qkv_bias:
+        q = q + p[f"{prefix}_bq"].to(dt)
+        k = k + kv["bk"].to(dt)
+        v = v + kv["bv"].to(dt)
+    if idx is not None:
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     if use_rope:
-        cos, sin = rope_angles(torch.arange(x.shape[1], device=x.device),
+        cos, sin = rope_angles(torch.arange(S, device=x.device),
                                cfg.head_dim, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
+        q = apply_rope(q, cos, sin) if n == S else \
+            apply_rope(q, cos[off:off + n], sin[off:off + n])
         k = apply_rope(k, cos, sin)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
-    return out_proj(p, out, prefix)
+    out = out_proj(p, ops.flash_attention(q, k, v, causal=causal,
+                                          window=window, q_offset=off), prefix)
+    if mode == "heads":
+        return sp.reduce_sum(out)
+    if mode == "seq":
+        return sp.gather(out, 1)
+    return out
+
+
+def _kv_heads(p, cfg: ModelConfig, h0: int, hl: int, prefix: str):
+    """``wk``, ``wv`` (and ``bk``, ``bv``) cut to the KV heads that the
+    query heads ``h0 .. h0+hl-1`` read (query head ``h`` reads KV head
+    ``h // (H / KH)``; the leaves themselves when that is all of them),
+    and the index that gives one K/V head a query head where the heads
+    straddle KV groups unevenly (``index_select`` on the heads dim; None
+    where they fall in equal groups)."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    lo, hi = h0 // g, (h0 + hl - 1) // g + 1
+    names = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
+    kv = {n: p[f"{prefix}_{n}"] for n in names}
+    if (lo, hi) != (0, cfg.num_kv_heads):
+        kv = {n: t[lo:hi] if n[0] == "b" else t[:, lo:hi]
+              for n, t in kv.items()}
+    counts = {min((j + 1) * g, h0 + hl) - max(j * g, h0)
+              for j in range(lo, hi)}
+    idx = None
+    if len(counts) > 1:
+        idx = torch.arange(h0, h0 + hl, device=p[f"{prefix}_wk"].device) \
+            // g - lo
+    return kv, idx
 
 
 def cross_kv(p: Dict[str, torch.Tensor], enc: torch.Tensor,

@@ -23,15 +23,19 @@ prefill, no paged cache and no verify, and the MoE decoders no padded
 prefill.  The encoder-decoder is ``models/encdec.py``.
 
 The train path (``forward_train``/``loss_fn``) has no counterpart of the
-reference's ``hints.*`` calls, by design: those are GSPMD layout
-constraints that pin activations and logits to a mesh's shardings, and
-on a mesh each rank's activations here are already its local shard (the
-sharded step of ``train/step.py`` gathers the parameters whole and runs
-this forward on the rank's rows).  Remat ``"full"`` is
-``torch.utils.checkpoint`` (non-reentrant) around each block, the
-reference's ``jax.checkpoint`` of the scan body; for the xLSTM around
-each group of blocks, and ``"dots"`` there is ``"full"``, as in the
-reference, whose ``_xlstm_forward`` checkpoints with no policy for both.
+reference's ``hints.*`` calls: those are GSPMD layout constraints that
+pin activations and logits to a mesh's shardings.  On a mesh each rank
+runs this forward on its rows, and under the split over ``model`` that
+the sharded step installs (``parallel/tensor.py``) the embedding, the
+MLP, the head and the loss (and attention, ``models/attention.py``)
+compute the rank's blocks: the logits come out ``(B, S, V/m)``, pinned
+on their vocab as the reference's ``hints.logits`` pins them.
+
+Remat ``"full"`` is ``torch.utils.checkpoint`` (non-reentrant) around
+each block, the reference's ``jax.checkpoint`` of the scan body; for the
+xLSTM around each group of blocks, and ``"dots"`` there is ``"full"``, as
+in the reference, whose ``_xlstm_forward`` checkpoints with no policy for
+both.
 Remat ``"dots"`` of the other blocks is the same checkpoint with a
 selective policy (:func:`dots_policy`), the reference's
 ``checkpoint_dots_with_no_batch_dims``: the outputs of the block's
@@ -65,6 +69,7 @@ from repro_torch.models.attention import (attend_decode, attend_decode_paged,
                                           attend_verify_paged, out_proj, qkv)
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        init_param, rope_angles)
+from repro_torch.parallel import tensor
 from repro_torch.tree import unflatten
 
 Params = Dict[str, Any]
@@ -215,8 +220,19 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     sequence holds them (the reference's ``dynamic_update_slice``: the
     overlaid positions take no gradient into ``embed``)."""
     dt = getattr(torch, cfg.dtype)
-    # index_select: its gradient has a deterministic CUDA implementation
-    x = params["embed"].index_select(0, tokens.reshape(-1).long())
+    emb = params["embed"]
+    sp = tensor.active()
+    if sp is not None and sp.splits("vocab"):
+        # vocab-parallel: this rank's block of rows looks up the tokens it
+        # holds, zeros for the rest, summed over ``model`` (one term a
+        # token is non-zero: the sum is exact)
+        t = tokens.reshape(-1).long() - sp.rank * emb.shape[0]
+        inside = (t >= 0) & (t < emb.shape[0])
+        x = emb.index_select(0, torch.where(inside, t, 0))
+        x = sp.reduce_sum(torch.where(inside[:, None], x, 0.0))
+    else:
+        # index_select: its gradient has a deterministic CUDA implementation
+        x = emb.index_select(0, tokens.reshape(-1).long())
     x = x.view(*tokens.shape, -1).to(dt)
     if cfg.family == "vlm" and extra and "image_embeds" in extra:
         img = extra["image_embeds"]
@@ -226,20 +242,33 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head: ``(B, S, V)`` logits, or under a
+    vocab-parallel split this rank's ``(B, S, V/m)`` block."""
     xn = apply_norm(params, "final", x, cfg.norm)
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    sp = tensor.active()
+    if sp is not None and sp.splits("vocab"):
+        xn = sp.sum_grad(xn)
     return xn @ head.to(xn.dtype)
 
 
 def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
+    """The (gated) MLP; under a split of its hidden dim this rank's
+    columns of ``mlp_wg``/``mlp_wu`` and rows of ``mlp_wd``, the terms
+    summed over ``model``."""
     dt = x.dtype
+    sp = tensor.active()
+    split = sp is not None and sp.splits("mlp")
+    if split:
+        x = sp.sum_grad(x)
     hu = x @ p["mlp_wu"].to(dt)
     if cfg.act == "silu":
         h = activation(x @ p["mlp_wg"].to(dt), "silu") * hu
     else:
         h = activation(hu, "gelu")
-    return h @ p["mlp_wd"].to(dt)
+    out = h @ p["mlp_wd"].to(dt)
+    return sp.reduce_sum(out) if split else out
 
 
 def _ffn_residual(p, x, cfg) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -375,7 +404,8 @@ def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   extra: Optional[Dict[str, torch.Tensor]] = None,
                   remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens ``(B, S)`` (and, for the VLM, ``extra["image_embeds"]``) ->
-    ``(logits (B, S, V) in cfg.dtype, aux loss)``."""
+    ``(logits (B, S, V) in cfg.dtype, aux loss)``; the logits are the
+    rank's vocab block under a vocab-parallel split."""
     require_ported(cfg)
     x = embed_tokens(params, cfg, tokens, extra)
     if cfg.family == "ssm":
@@ -388,11 +418,32 @@ def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``(B, S-1)`` float32 negative log-likelihood of each next token:
-    position ``t``'s logits against token ``t + 1``."""
+    position ``t``'s logits against token ``t + 1``.  Under a split of
+    the vocab the logits are this rank's vocab block
+    (:func:`_vocab_parallel_nll`)."""
     logits = logits[:, :-1].float()
     targets = tokens[:, 1:].long()
+    sp = tensor.active()
+    if sp is not None and sp.splits("vocab"):
+        return _vocab_parallel_nll(sp, logits, targets)
     logz = torch.logsumexp(logits, dim=-1)
     return logz - torch.gather(logits, -1, targets[..., None])[..., 0]
+
+
+def _vocab_parallel_nll(sp, logits: torch.Tensor, targets: torch.Tensor
+                        ) -> torch.Tensor:
+    """The NLL from this rank's float32 vocab block of the logits: the
+    max over every block (no gradient), the blocks' sums of exponentials
+    summed over ``model``, and the target's logit from the block that
+    holds it, summed over ``model``."""
+    vb = logits.shape[-1]
+    mx = sp.max(logits.detach().amax(-1))
+    logz = torch.log(sp.reduce_sum(torch.exp(logits - mx[..., None]).sum(-1)))
+    t = targets - sp.rank * vb
+    inside = (t >= 0) & (t < vb)
+    picked = torch.gather(logits, -1, torch.where(inside, t, 0)[..., None])
+    picked = sp.reduce_sum(torch.where(inside, picked[..., 0], 0.0))
+    return logz + mx - picked
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

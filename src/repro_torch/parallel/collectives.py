@@ -7,11 +7,13 @@ group of one rank returns the tensor it was given, so a mesh of one
 copies nothing.  All-reduces of small tensors (token counts, norms, the
 router's statistics) are made on every group, one rank or more.
 
-The autograd functions are the pairs the expert-parallel MoE needs on
-top of ``torch.distributed.nn``'s all-to-all: the slice of a replicated
-tensor and its inverse gather (each the other's backward), the identity
-whose backward sums over a group, and the mean over a group whose
-backward is the local share.
+The autograd functions are the pairs the expert-parallel MoE and the
+split dense compute need on top of ``torch.distributed.nn``'s
+all-to-all: the slice of a replicated tensor and its inverse gather
+(each the other's backward), Megatron's two operators — the identity
+whose backward sums over a group (:func:`sum_grad`) and the sum over a
+group whose backward is the identity (:func:`reduce_sum`) —, and the
+mean over a group whose backward is the local share.
 """
 from __future__ import annotations
 
@@ -135,6 +137,21 @@ class _SumGrad(torch.autograd.Function):
         return all_reduce(g.contiguous().clone(), *ctx.args), None, None
 
 
+class _ReduceSum(torch.autograd.Function):
+    """Forward: the sum over the group (each rank's partial term of a
+    product split over it).  Backward: the identity (downstream every
+    rank computes the same, so each term gets the sum's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x.detach().clone(
+            memory_format=torch.contiguous_format), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 class _Mean(torch.autograd.Function):
     """Forward: the mean over the group.  Backward: the local share
     (gradient over the group size); the gradients of the ranks' own
@@ -161,6 +178,12 @@ def gather(x, dim: int, mesh, axes):
 
 def sum_grad(x, mesh, axes):
     return x if mesh.size(axes) == 1 else _SumGrad.apply(x, mesh, axes)
+
+
+def reduce_sum(x, mesh, axes):
+    """``x`` summed over the ranks along ``axes``, its gradient passed
+    through unchanged; ``x`` itself over one rank."""
+    return x if mesh.size(axes) == 1 else _ReduceSum.apply(x, mesh, axes)
 
 
 def mean(x, mesh, axes: Sequence[str]):

@@ -46,10 +46,15 @@ class Plan:
         the reference's Pallas tiles: K1 chooses its own;
       * ``ssm_chunk``: the selective scan always trains through K5-bwd's
         checkpointed adjoint, whatever the chunk;
-      * ``seq_shard_attn`` (context-parallel attention) changes nothing:
-        the dense compute is not split over ``model`` (each ``model``
-        rank repeats its data shard's compute; ROADMAP queue 1, tensor
-        and context parallelism).
+      * ``seq_shard_attn`` (context-parallel attention): the train step
+        splits attention's query rows over ``model`` (K1's
+        ``q_offset``) where the reference's ``hints.attn_q`` does;
+        without it attention is split by heads when they divide the
+        ``model`` axis (``parallel/tensor.py``).  The MLP, the embedding,
+        the head and the loss are split over ``model`` either way, for
+        the dense and MoE decoders; the hybrid, the xLSTM, the
+        encoder-decoder and the VLM repeat their data shard's compute on
+        each ``model`` rank (``train/step.py``'s ``GATHER_AND_REPEAT``).
     """
 
     name: str = "tp+fsdp"

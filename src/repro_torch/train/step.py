@@ -17,9 +17,19 @@ holds its block of every leaf (``make_train_artifacts`` gives the
 layouts; :func:`shard_batch` its rows of a global batch) and the step
 makes, where the reference leaves it to GSPMD:
 
-  * the ZeRO-3 gather: each parameter gathered whole over the axes its
-    layout names, before the forward (the expert-parallel MoE's expert
-    weights keep their experts dim local);
+  * the ZeRO-3 gather: each parameter gathered over the axes its layout
+    names, before the forward, except the dims the compute keeps split
+    over ``model`` (``tensor.kept_dim``: the heads of ``wq``, ``bq`` and
+    ``wo`` when attention is split by heads, the hidden dim of the MLP,
+    the vocab of ``embed`` and ``lm_head``; the expert-parallel MoE's
+    experts dim);
+  * the split over ``model`` (``parallel/tensor.py``), installed for the
+    forward and backward: each rank computes its heads (or, under
+    ``seq_shard_attn``, its query rows), its MLP columns and its vocab
+    block, and the gradient of every leaf a split region reads but holds
+    alike over ``model`` (``Split.partial``: ``wk``, ``wv`` and their
+    biases; every attention weight under the sequence split) is summed
+    over ``model`` with the data axes;
   * the loss over the global batch: the token count summed over the
     data axes before the division, the MoE aux loss the global batch's;
   * one reduction of the (microbatch-accumulated) gradients: a
@@ -34,11 +44,13 @@ makes, where the reference leaves it to GSPMD:
     once; then AdamW on the local blocks.
 
 On a mesh of one rank the gathers and the reduction return the tensors
-they were given (no copy), and the step computes the unsharded step's
-bits.  The dense compute is not split over ``model``: each ``model``
-rank repeats its data shard's forward and backward (ROADMAP queue 1,
-tensor and context parallelism); the MoE under ``shard_map`` splits its
-tokens over ``model``.
+they were given (no copy), the split splits nothing, and the step
+computes the unsharded step's bits.  The dense and MoE decoders are
+split over ``model`` (the MoE layer itself as before: ``scatter`` on the
+whole leaves, ``shard_map`` on its tokens); the families in
+``GATHER_AND_REPEAT`` gather every leaf and each ``model`` rank repeats
+their data shard's forward and backward.  Norms and residuals are not
+split over the sequence (no sequence parallelism).
 """
 from __future__ import annotations
 
@@ -49,7 +61,7 @@ import torch
 
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.api import Model
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, tensor
 from repro_torch.parallel.sharding import (Plan, Sharding, batch_specs,
                                            make_param_shardings, replicated)
 from repro_torch.train import compression
@@ -83,6 +95,12 @@ def _dp_axes(mesh, plan: Plan) -> Tuple[str, ...]:
     return tuple(a for a in plan.dp_axes if a in mesh.shape)
 
 
+# the families whose dense compute is not split over ``model``: each
+# ``model`` rank repeats its data shard's forward and backward with every
+# leaf gathered whole (ROADMAP queue 1, "tensor and context parallelism")
+GATHER_AND_REPEAT = ("hybrid", "ssm", "audio", "vlm")
+
+
 class _Layout:
     """The parameters' layouts on a mesh, in the params tree's leaf
     order, and what the step does with each leaf's gradient."""
@@ -91,46 +109,82 @@ class _Layout:
         specs, axes = model.param_specs()
         self.tree = make_param_shardings(mesh, axes, specs, plan)
         self.paths = [k for k, _ in flatten(self.tree)]
+        self.names = [k.rsplit("/", 1)[-1] for k in self.paths]
         self.flat: List[Sharding] = leaves(self.tree)
         self.mesh = mesh
+        self.cfg, self.plan = model.cfg, plan
         self.dp = _dp_axes(mesh, plan)
+        self.m = mesh.shape.get(tensor.AXIS, 1)
+        self.tp = tensor.AXIS in mesh.shape \
+            and model.cfg.family not in GATHER_AND_REPEAT
+        heads = self.tp and tensor.heads_split(model.cfg, plan, self.m)
         ep = plan.moe_impl == "shard_map"
         axes_flat = dict(flatten(axes))
         self.keep = []  # dims kept local for the compute
-        for path, sh in zip(self.paths, self.flat):
+        self.kept = []  # whether a split region keeps the leaf split
+        self.regions = set()  # the regions whose dims are kept split
+        split_all = set()  # those whose dims some leaf keeps whole
+        for path, name, sh in zip(self.paths, self.names, self.flat):
             keep = ()
-            if ep and path.rsplit("/", 1)[-1] in moe_mod.EXPERT_LEAVES:
+            if ep and name in moe_mod.EXPERT_LEAVES:
                 d = axes_flat[path].index("experts")
                 entry = sh.spec[d]
-                m = mesh.shape.get("model", 1)
-                if not set(entry) <= {"model"} or mesh.size(entry) != m:
+                if not set(entry) <= {"model"} or mesh.size(entry) != self.m:
                     raise ValueError(f"{path}: experts dim laid out over "
-                                     f"{entry}, not over model ({m})")
+                                     f"{entry}, not over model ({self.m})")
                 keep = (d,)
+            d = None
+            if self.tp and self.m > 1:
+                d = tensor.kept_dim(name, axes_flat[path], sh.spec, heads)
+                region = tensor.region_of(name)
+                if d is not None:
+                    keep = (d,)
+                    self.regions.add(region)
+                elif region and tensor.REGIONS[region][1] in axes_flat[path]:
+                    split_all.add(region)
             self.keep.append(keep)
+            self.kept.append(d is not None)
+        if self.regions & split_all:
+            raise ValueError(f"regions {sorted(self.regions & split_all)}: "
+                             f"some leaves split over model, some whole")
+
+    def split(self, seq_len: int) -> Optional[tensor.Split]:
+        """The split of a forward of ``seq_len`` positions (None for a
+        family that gathers and repeats, or a mesh with no ``model``)."""
+        if not self.tp:
+            return None
+        attn = tensor.attn_mode(self.cfg, self.plan, self.m, seq_len)
+        regions = (self.regions - {"attn"}) | ({"attn"} if attn else set())
+        return tensor.Split(self.mesh, attn, frozenset(regions))
 
     def gather(self, local: List[torch.Tensor]) -> List[torch.Tensor]:
         return [sh.full(x, keep)
                 for x, sh, keep in zip(local, self.flat, self.keep)]
 
-    def reduce(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Each compute-shaped gradient (partial over the data axes)
-        summed over them, this rank's block kept."""
-        return [self._reduce_one(g, sh, keep)
-                for g, sh, keep in zip(grads, self.flat, self.keep)]
+    def reduce(self, grads: List[torch.Tensor],
+               split: Optional[tensor.Split] = None) -> List[torch.Tensor]:
+        """Each compute-shaped gradient (partial over the data axes, and
+        over ``model`` for the leaves ``split`` leaves partial) summed over
+        them, this rank's block kept."""
+        return [self._reduce_one(g, sh, keep, split is not None
+                                 and split.partial(name, kept))
+                for g, sh, keep, name, kept in zip(
+                    grads, self.flat, self.keep, self.names, self.kept)]
 
-    def _reduce_one(self, g, sh: Sharding, keep) -> torch.Tensor:
-        mesh, dp = self.mesh, self.dp
+    def _reduce_one(self, g, sh: Sharding, keep, partial: bool
+                    ) -> torch.Tensor:
+        mesh = self.mesh
+        axes = self.dp + ((tensor.AXIS,) if partial else ())
         done = set(keep)
-        if mesh.size(dp) > 1:
-            dims = [d for d, e in enumerate(sh.spec) if set(e) & set(dp)]
-            if len(dims) == 1 and set(sh.spec[dims[0]]) == set(dp) \
+        if mesh.size(axes) > 1:
+            dims = [d for d, e in enumerate(sh.spec) if set(e) & set(axes)]
+            if len(dims) == 1 and set(sh.spec[dims[0]]) == set(axes) \
                     and dims[0] not in done:
                 d = dims[0]
                 g = collectives.reduce_scatter_dim(g, d, mesh, sh.spec[d])
                 done.add(d)
             else:
-                g = collectives.all_reduce(g, mesh, dp)
+                g = collectives.all_reduce(g, mesh, axes)
         sliced = False
         for d, e in enumerate(sh.spec):
             if d not in done and mesh.size(e) > 1:
@@ -223,7 +277,10 @@ def make_grad_fn(model: Model, plan: Plan, mesh=None,
         local = leaves(params)
         full = local if layout is None else layout.gather(local)
         impl = plan.moe_impl if mesh is not None else "scatter"
-        with moe_mod.moe_impl(impl, mesh, plan.dp_axes):
+        split = None if layout is None \
+            else layout.split(batch["tokens"].shape[1])
+        with moe_mod.moe_impl(impl, mesh, plan.dp_axes), \
+                tensor.split(split):
             if nm <= 1:
                 loss, metrics, grads = one(full, params, batch)
             else:
@@ -245,7 +302,7 @@ def make_grad_fn(model: Model, plan: Plan, mesh=None,
                 loss, grads = total, acc
         del full
         if layout is not None:
-            grads = layout.reduce(list(grads))
+            grads = layout.reduce(list(grads), split)
         return loss, metrics, grads
 
     return grad_fn

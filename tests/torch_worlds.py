@@ -187,6 +187,55 @@ def parallel_world(rank, mesh_shape, cases, layer):
                                      layer["p"], layer["x"])}
 
 
+def count_collectives(rank, mesh_shape, case):
+    """One sharded step of ``case`` (as :func:`train_world`'s) with
+    ``collectives.reduce_sum`` and ``collectives.all_gather_dim`` wrapped:
+    each call's ``(name, axes, input shape)`` in order (rank 0)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives, shard_tree
+    from repro_torch.train import (OptimizerConfig, Plan,
+                                   make_train_artifacts, shard_batch)
+
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="cpu")
+    model = _model(case["arch"], case["over"])
+    plan = Plan(**case["plan"])
+    B, S = case["batches"][0]["tokens"].shape
+    art = make_train_artifacts(model, mesh, plan,
+                               OptimizerConfig(**case["opt"]),
+                               ShapeConfig("t", S, B, "train"))
+    state = shard_tree(case["state"], art.state_shardings)
+    calls = []
+    wrapped = {}
+
+    def wrap(name, fn, shape_of):
+        def call(*args, **kw):
+            x, axes = shape_of(*args)
+            axes = (axes,) if isinstance(axes, str) else tuple(axes)
+            calls.append((name, axes, tuple(x.shape)))
+            return fn(*args, **kw)
+        return call
+
+    for name, shape_of in (
+            ("reduce_sum", lambda x, mesh_, axes: (x, axes)),
+            ("all_gather_dim", lambda x, dim, mesh_, axes: (x, axes))):
+        wrapped[name] = getattr(collectives, name)
+        setattr(collectives, name, wrap(name, wrapped[name], shape_of))
+    try:
+        art.step_fn(state, shard_batch(case["batches"][0], mesh, plan))
+    finally:
+        for name, fn in wrapped.items():
+            setattr(collectives, name, fn)
+    return calls if rank == 0 else None
+
+
+def tensor_world(rank, mesh_shape, cases, count_case):
+    """:func:`train_world`'s cases and :func:`count_collectives`' step in
+    one world."""
+    return {"train": train_world(rank, mesh_shape, cases),
+            "calls": count_collectives(rank, mesh_shape, count_case)}
+
+
 def psum_world(rank, stacked, err):
     """``compressed_psum`` over a ``(world,)`` mesh: rank ``r`` reduces
     ``stacked[r]`` with its error ``err[r]``."""
