@@ -289,7 +289,19 @@ them, and on any mismatch.  Phases, one or more lines each:
      mesh (12 query heads over 2 KV heads, S = T 4096) and qwen2-1.5b's
      context-parallel ranks under a ``model`` axis of 8 (512 query rows
      at ``q_offset`` 0, 2048 and 3584 against 4096 keys), where the dK
-     and dV rows past each block's last query are exactly zero.
+     and dV rows past each block's last query are exactly zero;
+ 47. the dry-run (``launch/cells.py``, ``launch/op_stats.py``) in a
+     subprocess that touches no CUDA: phase 41's cell (qwen2-1.5b at full
+     width and depth, seq 4096, batch 2, remat full, the ``h100-1``
+     plan) on a ``(1, 1)`` mesh over a fake world of one, and the
+     16×16 qwen2-1.5b ``train_4k`` cell over a fake world of 256 (its
+     wall time, per-rank FLOPs, peak and collective bytes); then that
+     step on the card on an NCCL world of one, a warm step, and one step
+     under the same counter: its FLOPs the dry-run's (rtol 1e-6), the
+     dry-run's arguments plus temporaries within 5% of
+     ``max_memory_allocated`` over the step, no collective; the dry-run's
+     H100 roofline terms, the measured step (median of 3) and the share
+     of the card's bf16 peak it reaches.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -4341,6 +4353,125 @@ def phase_tp_kernels(gen, full_bwd, full_fwd) -> list:
     return rows
 
 
+DRYRUN_CODE = r"""
+import dataclasses, json, sys, time
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch.cells import analyze_cell, build_cell
+from repro_torch.launch.mesh import fake_world, make_mesh, make_production_mesh
+from repro_torch.parallel.sharding import Plan
+args = json.loads(sys.argv[1])
+plan = Plan(**{k: tuple(v) if isinstance(v, list) else v
+               for k, v in args["plan"].items()})
+fake_world(1)
+mesh = make_mesh((1, 1), device="cpu")
+cell = build_cell("qwen2-1.5b", "train_4k", mesh, plan,
+                  shape=ShapeConfig("train_4k-cut", args["seq"],
+                                    args["batch"], "train"))
+t0 = time.time()
+one = analyze_cell(cell)
+one["wall_s"] = time.time() - t0
+t0 = time.time()
+prod = analyze_cell(build_cell("qwen2-1.5b", "train_4k",
+                               make_production_mesh()))
+prod["wall_s"] = time.time() - t0
+import torch
+print(json.dumps({"one": one, "prod": prod,
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def phase_dryrun(cfg) -> None:
+    """47: the dry-run of phase 41's cell in a subprocess that sees no
+    card, against that step counted on the card."""
+    from repro_torch.launch.op_stats import OpCounter, roofline_terms
+
+    choice, rt = _card_plan(cfg)
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=SRC)
+    arg = json.dumps({"plan": dataclasses.asdict(rt), "seq": TRAIN_SEQ,
+                      "batch": TRAIN_BATCH})
+    r = subprocess.run([sys.executable, "-c", DRYRUN_CODE, arg], env=env,
+                       capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    sub_s = time.perf_counter() - t0
+    assert not out["cuda_initialized"], "the dry-run touched CUDA"
+    dry, prod = out["one"], out["prod"]
+    log(f"[47 dry-run] {cfg.name} seq {TRAIN_SEQ} batch {TRAIN_BATCH} "
+        f"remat {rt.remat} plan {rt.name} on a (1, 1) mesh over a fake "
+        f"world of one (subprocess, no CUDA, {sub_s:.1f} s with the 16x16 "
+        f"cell): flops {dry['flops']:.6e}, hbm_bytes "
+        f"{dry['bytes_accessed']:.6e}, arguments "
+        f"{dry['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+        f"{dry['temp_size_in_bytes'] / 1e9:.3f} GB, kernels "
+        f"{ {k: v['calls'] for k, v in dry['hlo_stats']['kernels'].items()} }, "
+        f"collectives {dry['collectives']['total_ops']}; the step's wall "
+        f"time on fake tensors {dry['wall_s']:.1f} s")
+    pc = prod["collectives"]
+    log(f"[47 dry-run] {cfg.name} train_4k on the 16x16 mesh over a fake "
+        f"world of 256: wall {prod['wall_s']:.1f} s, per rank flops "
+        f"{prod['flops']:.6e}, arguments "
+        f"{prod['argument_size_in_bytes'] / 1e9:.3f} GB + temp "
+        f"{prod['temp_size_in_bytes'] / 1e9:.3f} GB, collectives "
+        f"{pc['total_operand_bytes'] / 1e9:.3f} GB in {pc['total_ops']} ops "
+        f"{ {k: round(v / 1e9, 3) for k, v in pc['operand_bytes_by_kind'].items()} }")
+
+    mesh = local_mesh()
+    model = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    shape = ShapeConfig("train_4k-cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    stream = make_stream(cfg, shape)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()} for i in range(5)]
+    art = make_train_artifacts(model, mesh, rt, opt, shape)
+    state = shard_tree(init_train_state(model, 0, opt, rt),
+                       art.state_shardings)
+    step = art.step_fn
+    state, m = step(state, batches[0])  # warm
+    float(m["loss"])
+    walls = []
+    for b in batches[1:4]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        float(m["loss"])
+        walls.append(time.perf_counter() - t0)
+    step_s = statistics.median(walls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with OpCounter() as counter:
+        state, m = step(state, batches[4])
+        float(m["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    card = counter.stats()
+    del state, step, art, batches
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    rel = abs(card["flops"] - dry["flops"]) / dry["flops"]
+    mem = dry["argument_size_in_bytes"] + dry["temp_size_in_bytes"]
+    terms = roofline_terms(dry["hlo_stats"], "h100")
+    log(f"[47 dry-run] the card's step under the counter: flops "
+        f"{card['flops']:.6e} (dry-run {dry['flops']:.6e}, rel diff "
+        f"{rel:.2e}), kernels "
+        f"{ {k: v['calls'] for k, v in card['kernels'].items()} }, "
+        f"collectives {card['total_collective_bytes']}; "
+        f"max_memory_allocated over the step {peak / 1e9:.3f} GB vs the "
+        f"dry-run's arguments + temp {mem / 1e9:.3f} GB "
+        f"({mem / peak - 1:+.2%})")
+    log(f"[47 dry-run] H100 roofline terms of the dry-run: compute "
+        f"{terms['compute_s'] * 1e3:.2f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.2f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.2f} ms; measured step (median of "
+        f"3) {step_s:.4f} s {[round(w, 4) for w in walls]}: flops / "
+        f"(step_s * 989.4e12) = {dry['flops'] / (step_s * 989.4e12):.4f}")
+    assert rel <= 1e-6, (card["flops"], dry["flops"])
+    assert abs(mem / peak - 1) <= 0.05, (mem, peak)
+    assert card["total_collective_bytes"] == 0 and not card["collective_ops"]
+    assert dry["collectives"]["total_ops"] == 0, dry["collectives"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4464,6 +4595,7 @@ def main() -> int:
     par = {k: mt[k] + mc[k] + el[k] + sp[k]
            for k in ("flash_attention", "flash_attention_bwd")}
     tp = phase_tp_kernels(gen, k1_bwd, k1_train)
+    phase_dryrun(cfg)
 
     kernels = [
         dict(name="flash_attention", route="cuda",

@@ -8,7 +8,8 @@ encoder-decoder of ``models/encdec.py``.
 
 ``get_config`` accepts the exact id or the short alias, as the reference
 registry does.  ``SHAPES`` and ``get_shape`` are the reference's
-input-shape cells.
+input-shape cells; ``all_cells`` yields every (arch, shape) cell in the
+reference's order, with ``shape_applicable``'s verdict.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from repro_torch.configs import (glm4_9b, hymba_15b, internlm2_20b,
                                  phi3_vision, phi35_moe_42b, qwen3_moe_235b,
                                  qwen15_4b, qwen2_15b, whisper_large_v3,
                                  xlstm_125m)
-from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, reduced
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      reduced, shape_applicable)
 
 ARCHS = {
     "qwen2-1.5b": qwen2_15b.CONFIG,
@@ -60,5 +62,22 @@ def get_shape(name: str) -> ShapeConfig:
     return SHAPES[name]
 
 
-__all__ = ["ARCHS", "ModelConfig", "SHAPES", "ShapeConfig", "get_config",
-           "get_shape", "reduced"]
+# the reference registry's order of its archs (``all_cells`` walks it)
+CELL_ORDER = ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
+              "whisper-large-v3", "qwen1.5-4b", "internlm2-20b",
+              "qwen2-1.5b", "glm4-9b", "xlstm-125m", "hymba-1.5b",
+              "phi-3-vision-4.2b")
+
+
+def all_cells():
+    """Yield every (arch_id, shape_name, applicable, reason) assignment
+    cell."""
+    for arch_id in CELL_ORDER:
+        cfg = ARCHS[arch_id]
+        for shape_name, shape in SHAPES.items():
+            ok, why = shape_applicable(cfg, shape)
+            yield arch_id, shape_name, ok, why
+
+
+__all__ = ["ARCHS", "ModelConfig", "SHAPES", "ShapeConfig", "all_cells",
+           "get_config", "get_shape", "reduced", "shape_applicable"]

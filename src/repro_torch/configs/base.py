@@ -217,3 +217,11 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """long_500k needs sub-quadratic attention; skip for pure full-attention
+    archs (the reference's rule, DESIGN.md §5)."""
+    if shape.name == "long_500k" and model.family not in ("ssm", "hybrid"):
+        return False, "long_500k skipped: pure full-attention arch (O(S^2))"
+    return True, ""

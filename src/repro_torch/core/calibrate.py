@@ -7,9 +7,10 @@ and the harvesters (:func:`harvest_run`, :func:`harvest_runs_dir`,
 :func:`check_drift`, the persistent :class:`CalibrationStore`, and the
 active calibration the cost model consults (:func:`activate`,
 :func:`deactivate`, :func:`active_cell`, :func:`active_for_kind`,
-:func:`calibration_state`).  Samples from compiled programs
-(the reference's ``sample_from_hlo``) wait for the port's own FLOP and
-byte counting (ROADMAP queue 1, dry-run and HLO tooling).
+:func:`calibration_state`), and :func:`sample_from_stats`, the
+counterpart of the reference's ``sample_from_hlo``: a sample from the
+port's own per-rank counts of a step (``launch/op_stats.py``, which the
+dry-run writes as ``hlo_stats``) in place of a compiled program's.
 
 One difference by design: a port run yields a sample only if it ran on
 the chip its plan names (:func:`ran_on_planned_chip`).  The reference
@@ -112,6 +113,27 @@ def sample_from_estimate(est: Any, chip: str, kind: str,
                   collective_s=float(est.collective_s),
                   measured_step_s=float(measured_step_s),
                   source=source, weight=float(weight))
+
+
+def sample_from_stats(stats: Mapping[str, float], chip, kind: str,
+                      measured_step_s: float, *, source: str = "",
+                      weight: float = 1.0) -> Sample:
+    """Build a sample from :func:`repro_torch.launch.op_stats.analyze_ops`
+    output (per-rank flops / hbm_bytes / total_collective_bytes) and a
+    chip spec (a :class:`~repro_torch.core.catalog.ChipSpec`, or a name in
+    ``CHIPS`` or ``CARDS``)."""
+    from repro_torch.core.catalog import chip_spec
+
+    spec = chip_spec(chip) if isinstance(chip, str) else chip
+    return Sample(
+        chip=spec.name, kind=kind,
+        compute_s=float(stats.get("flops", 0.0)) / spec.peak_bf16_flops,
+        memory_s=float(stats.get("hbm_bytes", 0.0)) / spec.hbm_bw,
+        collective_s=(float(stats.get("total_collective_bytes", 0.0))
+                      / spec.ici_bw),
+        measured_step_s=float(measured_step_s),
+        source=source, weight=float(weight),
+    )
 
 
 # The device kind (``torch.cuda.get_device_name``) each card's runs report

@@ -36,7 +36,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build, flash_attention_bwd, ref
+from repro_torch.kernels import build, flash_attention_bwd, ref, work
 from repro_torch.kernels.flash_attention_bwd import tensor_core_path
 
 plain = ref.attention
@@ -57,17 +57,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(out, lse)`` with ``with_lse`` (lse ``(B, S, H)`` float32, each
     row's log-sum-exp of its scaled, masked scores).  Raises on anything
     it does not take: tensors off the card, mixed or unsupported dtypes,
-    bad shapes, non-contiguous inputs."""
+    bad shapes, non-contiguous inputs.  A dry call under a counter
+    (:func:`work.dry`) counts and returns the outputs unlaunched."""
     global launches, tc_launches, fma_launches
+    dry = work.dry(q)
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" and not dry:
             raise ValueError(f"flash_attention_cuda needs CUDA tensors; "
                              f"{name} is on {x.device}")
         if x.dim() != 4:
             raise ValueError(f"{name} must be 4-D, got shape {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16:
+        if not dry and x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
         if x.dtype != q.dtype:
             raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
@@ -90,6 +92,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    work.record("K1", B=B, S=S, T=T, H=H, KH=KH, D=D,
+                dtype=work.dtype_name(q.dtype), causal=bool(causal),
+                window=int(window), q_offset=int(q_offset),
+                with_lse=bool(with_lse))
+    if dry:
+        return out if lse is None else (out, lse)
     lib = build.library()
     err = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -111,7 +119,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)``: the plain version on a CPU tensor, the kernel on a
     CUDA tensor."""
-    if q.device.type == "cpu":
+    if work.takes_plain(q):
         return ref.attention_fwd(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
@@ -149,7 +157,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, q_offset)
-    if q.device.type == "cpu":
+    if work.takes_plain(q):
         return plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)

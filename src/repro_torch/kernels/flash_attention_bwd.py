@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, work
 
 plain = ref.attention_bwd
 
@@ -71,16 +71,18 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     anything they do not take: tensors off the card, mixed or unsupported
     dtypes, bad shapes, non-contiguous or misaligned inputs, a head dim
     outside [8, 256] or not a multiple of 8, a shared-memory layout over
-    what a block may use."""
+    what a block may use.  A dry call under a counter (:func:`work.dry`)
+    counts and returns the outputs unlaunched."""
     global launches, tc_launches, fma_launches
+    dry = work.dry(q)
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("do", do),
                     ("lse", lse)):
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" and not dry:
             raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors; "
                              f"{name} is on {x.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16:
+        if not dry and x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
         if name != "lse" and x.dtype != q.dtype:
             raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
@@ -119,6 +121,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    work.record("K1-bwd", B=B, S=S, T=T, H=H, KH=KH, D=D,
+                dtype=work.dtype_name(q.dtype), causal=bool(causal),
+                window=int(window), q_offset=int(q_offset))
+    if dry:
+        return dq, dk, dv
     lib = build.library()
     step = ctypes.c_int(0)
     err = lib.repro_flash_attention_bwd(
@@ -142,7 +149,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_offset: int = 0):
     """``(dq, dk, dv)`` of attention from the saved forward: the plain
     version on a CPU tensor, the kernel on a CUDA tensor."""
-    if q.device.type == "cpu":
+    if work.takes_plain(q):
         return plain(q, k, v, out, lse, do, causal=causal, window=window,
                      q_offset=q_offset)
     return flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal,

@@ -51,7 +51,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, work
 
 plain = ref.mlstm_scan_chunked
 plain_bwd = ref.mlstm_scan_bwd
@@ -126,14 +126,16 @@ def tc_smem_bytes() -> int:
 
 def _check(name: str, tensors, q: torch.Tensor, v: torch.Tensor,
            i_pre: torch.Tensor, f_pre: torch.Tensor) -> None:
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernels do not take (a dry call's tensors
+    may lie off the card)."""
+    dry = work.dry(q)
     for n, x in tensors:
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" and not dry:
             raise ValueError(f"{name} needs CUDA tensors; {n} is on "
                              f"{x.device}")
         if not x.is_contiguous():
             raise ValueError(f"{n} must be contiguous")
-        if x.data_ptr() % 16:
+        if not dry and x.data_ptr() % 16:
             raise ValueError(f"{n} must be 16-byte aligned")
     if q.dtype not in _DTYPES:
         raise ValueError(f"dtype {q.dtype} not supported (float32 or "
@@ -175,7 +177,9 @@ def mlstm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K6 on the current stream.  Returns h ``(B, H, S, DV)`` in
     q's dtype, or ``(h, m, qn)`` with ``with_stats`` (each row's
     stabiliser and normaliser, ``(B, H, S)`` float32), or ``(h, (C, n,
-    m))`` with ``with_state`` (the final float32 state)."""
+    m))`` with ``with_state`` (the final float32 state).  A dry call
+    under a counter (:func:`work.dry`) counts and returns the outputs
+    unlaunched."""
     global launches, state_launches, tc_launches, fma_launches
     if with_stats and with_state:
         raise ValueError("K6 writes the stats or the final state, not both")
@@ -196,6 +200,13 @@ def mlstm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def ptr(x):
         return None if x is None else x.data_ptr()
 
+    work.record("K6", B=B, H=H, S=S, D=D, DV=DV,
+                dtype=work.dtype_name(q.dtype),
+                chunk=kernel_chunk(q.dtype, D, DV),
+                with_stats=bool(with_stats), with_state=bool(with_state))
+    if work.dry(q):
+        return ((h, fin) if with_state
+                else ((h, m, qn) if with_stats else h))
     tc = ctypes.c_int(-1)  # the path the library launched
     err = build.library().repro_mlstm_scan(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ip.data_ptr(),
@@ -241,6 +252,11 @@ def mlstm_scan_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di, df = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
               for _ in range(2))
+    work.record("K6-bwd", B=B, H=H, S=S, D=D, DV=DV,
+                dtype=work.dtype_name(q.dtype),
+                chunk=kernel_chunk(q.dtype, D, DV), tile=TILE)
+    if work.dry(q):
+        return dq, dk, dv, di.to(i_pre.dtype), df.to(f_pre.dtype)
     tc = ctypes.c_int(-1)  # the path the library launched
     err = build.library().repro_mlstm_scan_bwd(
         *(x.data_ptr() for x in (q, k, v, ip, fp, h, m, qn, dh, rden, dqn,
@@ -259,7 +275,7 @@ def mlstm_scan_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mlstm_scan_fwd(q, k, v, i_pre, f_pre):
     """``(h, m, qn)``: the plain version on a CPU tensor, K6 on a CUDA
     tensor."""
-    if q.device.type == "cpu":
+    if work.takes_plain(q):
         return plain(q, k, v, i_pre, f_pre, with_stats=True)
     return mlstm_scan_cuda(q, k, v, i_pre, f_pre, with_stats=True)
 
@@ -267,7 +283,7 @@ def mlstm_scan_fwd(q, k, v, i_pre, f_pre):
 def mlstm_scan_bwd(q, k, v, i_pre, f_pre, h, m, qn, dh):
     """``(dq, dk, dv, d i_pre, d f_pre)``: the plain version on a CPU
     tensor, K6-bwd on a CUDA tensor."""
-    if q.device.type == "cpu":
+    if work.takes_plain(q):
         return plain_bwd(q, k, v, i_pre, f_pre, h, m, qn, dh)
     return mlstm_scan_bwd_cuda(q, k, v, i_pre, f_pre, h, m, qn, dh)
 
@@ -297,7 +313,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (q, k, v, i_pre, f_pre)):
         return MLSTMScan.apply(q, k, v, i_pre, f_pre)
-    if q.device.type == "cpu":
+    if work.takes_plain(q):
         return plain(q, k, v, i_pre, f_pre)
     return mlstm_scan_cuda(*(x.contiguous() for x in (q, k, v, i_pre,
                                                       f_pre)))
@@ -308,7 +324,7 @@ def mlstm_scan_with_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(h (B, H, S, DV), (C, n, m))`` of the chunkwise mLSTM, the final
     state in float32, for the prefill (no autograd): the plain version on
     a CPU tensor, K6 with its state output on a CUDA tensor."""
-    if q.device.type == "cpu":
+    if work.takes_plain(q):
         return plain(q, k, v, i_pre, f_pre, with_state=True)
     return mlstm_scan_cuda(*(x.contiguous() for x in (q, k, v, i_pre, f_pre)),
                            with_state=True)

@@ -40,7 +40,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, work
 
 plain = ref.moe_gmm
 
@@ -121,13 +121,18 @@ def _sizes_tensor(group_sizes: Sizes, device: torch.device) -> torch.Tensor:
 
 
 def moe_gmm_cuda(tokens: torch.Tensor, group_sizes: Sizes, w: torch.Tensor,
-                 *, transpose_w: bool = False) -> torch.Tensor:
+                 *, transpose_w: bool = False,
+                 host_sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Launch K4 on the current stream.  Raises on anything it does not
     take.  Without rows, columns, depth or experts (M, N, K or E 0) the
-    product is zeros and nothing launches."""
+    product is zeros and nothing launches.  A dry call under a counter
+    (:func:`work.dry`) counts and returns the output unlaunched;
+    ``host_sizes`` (the sizes known on the host, where ``group_sizes`` is
+    their tensor) are read by the count alone."""
     global launches, tc_launches, fma_launches
+    dry = work.dry(tokens)
     for name, x in (("tokens", tokens), ("w", w)):
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" and not dry:
             raise ValueError(f"moe_gmm_cuda needs CUDA tensors; {name} is "
                              f"on {x.device}")
         if not x.is_contiguous():
@@ -162,6 +167,15 @@ def moe_gmm_cuda(tokens: torch.Tensor, group_sizes: Sizes, w: torch.Tensor,
     out = torch.empty((M, N), dtype=tokens.dtype, device=tokens.device)
     sched = torch.empty((2 * (E + 2),), dtype=torch.int32,
                         device=tokens.device)
+    if work.counting():
+        if host_sizes is None and not isinstance(group_sizes, torch.Tensor):
+            host_sizes = group_sizes
+        rows = M if host_sizes is None else min(
+            M, sum(max(int(s), 0) for s in host_sizes))
+        work.record("K4", M=M, K=K, N=N, E=E, rows=rows,
+                    dtype=work.dtype_name(tokens.dtype))
+    if dry:
+        return out
     tc = ctypes.c_int(-1)  # the path the library launched
     err = build.library().repro_moe_gmm(
         tokens.data_ptr(), sizes.data_ptr(), w.data_ptr(), out.data_ptr(),
@@ -201,12 +215,14 @@ def tile_order_cuda(sizes: torch.Tensor, M: int, N: int,
 
 
 def moe_gmm(tokens: torch.Tensor, group_sizes: Sizes, w: torch.Tensor, *,
-            transpose_w: bool = False) -> torch.Tensor:
+            transpose_w: bool = False,
+            host_sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """``(M, N)``: the plain version on a CPU tensor, K4 on a CUDA
     tensor."""
-    if tokens.device.type == "cpu":
+    if work.takes_plain(tokens):
         return plain(tokens, group_sizes, w, transpose_w=transpose_w)
-    return moe_gmm_cuda(tokens, group_sizes, w, transpose_w=transpose_w)
+    return moe_gmm_cuda(tokens, group_sizes, w, transpose_w=transpose_w,
+                        host_sizes=host_sizes)
 
 
 def weight_grad(tokens: torch.Tensor, dy: torch.Tensor,
@@ -240,7 +256,7 @@ class MoeGmm(torch.autograd.Function):
                 host_sizes: Optional[Tuple[int, ...]]):
         ctx.save_for_backward(tokens, w, sizes)
         ctx.host_sizes = host_sizes
-        return moe_gmm(tokens, sizes, w)
+        return moe_gmm(tokens, sizes, w, host_sizes=host_sizes)
 
     @staticmethod
     def backward(ctx, dy):
@@ -248,7 +264,8 @@ class MoeGmm(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = moe_gmm(dy, sizes, w, transpose_w=True)
+            dx = moe_gmm(dy, sizes, w, transpose_w=True,
+                         host_sizes=ctx.host_sizes)
         if ctx.needs_input_grad[1]:
             host = ctx.host_sizes
             if host is None:  # reads the sizes back from the device

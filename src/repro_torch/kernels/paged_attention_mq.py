@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import paged_common, ref
+from repro_torch.kernels import paged_common, ref, work
 
 # kernel launches since the last reset (a run resets them to 0 and reads
 # them to show that its path went through the kernel), and by path
@@ -48,16 +48,18 @@ def paged_attention_mq_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, page_table: torch.Tensor,
                             base_len: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream.  Raises on anything
-    it does not take."""
+    it does not take.  A dry call under a counter (:func:`work.dry`)
+    counts and returns the output unlaunched."""
     global launches, tc_launches, fma_launches, merge_launches
+    dry = work.dry(q)
     for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("page_table", page_table), ("base_len", base_len)):
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" and not dry:
             raise ValueError(f"paged_attention_mq_cuda needs CUDA tensors; "
                              f"{name} is on {x.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16 and x.is_floating_point():  # vector loads
+        if not dry and x.data_ptr() % 16 and x.is_floating_point():
             raise ValueError(f"{name} must be 16-byte aligned")
     if q.dtype not in _DTYPES:
         raise ValueError(f"dtype {q.dtype} not supported "
@@ -83,9 +85,15 @@ def paged_attention_mq_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"base_len must be ({B},)")
     if D % 8 or not 8 <= D <= 256:
         raise ValueError(f"head_dim {D} must be a multiple of 8 in [8, 256]")
+    if work.counting():  # the lengths are read only when counting
+        work.record("K3", B=B, T=T, H=H, KH=KH, D=D,
+                    dtype=work.dtype_name(q.dtype), page=page,
+                    max_pages=page_table.shape[1], base=work.lengths(base_len))
     out, tc, splits = paged_common.launch(
         "repro_paged_attention_mq", q, k_pool, v_pool, page_table, base_len,
-        (B, T, KH, G, D, P, page, page_table.shape[1]))
+        (B, T, KH, G, D, P, page, page_table.shape[1]), dry=dry)
+    if dry:
+        return out
     launches += 1
     if tc:
         tc_launches += 1
@@ -101,6 +109,6 @@ def paged_attention_mq(q: torch.Tensor, k_pool: torch.Tensor,
     """q ``(B, T, H, D)``, pools ``(KH, P, page, D)``, page_table
     ``(B, max_pages)`` int32 (-1 = unmapped), base_len ``(B,)`` int32
     -> ``(B, T, H, D)``."""
-    if q.device.type == "cpu":
+    if work.takes_plain(q):
         return plain(q, k_pool, v_pool, page_table, base_len)
     return paged_attention_mq_cuda(q, k_pool, v_pool, page_table, base_len)

@@ -27,6 +27,7 @@ TC_ROWS = 64       # query rows of a tensor-core tile
 WAVES = 1          # blocks the plan aims at, in SM counts
 MIN_CHUNKS = 4     # chunks a split walks at least
 MAX_SMEM = 232448  # shared memory a block may use on sm_90
+H100_SMS = 132     # the SM count a dry call plans with (an H100 SXM)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -121,26 +122,31 @@ def _plan(dtype: torch.dtype, B: int, T: int, KH: int, G: int, D: int,
     tc = tensor_core_path(dtype, D, page)
     rows = T * G
     tiles = -(-rows // tile_rows(rows, D, page, dtype))
-    splits = split_plan(B, KH, tiles, max_pages, page, sm_count(index))
+    sms = H100_SMS if index is None else sm_count(index)
+    splits = split_plan(B, KH, tiles, max_pages, page, sms)
     return tc, splits, (B * KH * splits * rows * (D + 2) if splits > 1
                         else 0)
 
 
 def launch(entry: str, q: torch.Tensor, k_pool: torch.Tensor,
            v_pool: torch.Tensor, page_table: torch.Tensor,
-           base: torch.Tensor, shape: tuple) -> tuple:
+           base: torch.Tensor, shape: tuple, dry: bool = False) -> tuple:
     """Launch ``entry`` (``repro_paged_attention`` with ``shape`` =
     ``(B, KH, G, D, P, page, max_pages)``, or
     ``repro_paged_attention_mq`` with ``(B, T, KH, G, D, P, page,
     max_pages)``) on the current stream, the split chosen by
-    :func:`split_plan`.  Returns ``(out, tensor_cores, splits)``."""
+    :func:`split_plan`.  Returns ``(out, tensor_cores, splits)``.  A
+    ``dry`` call (under a counter, :func:`work.dry`) plans for an H100,
+    allocates what the launch would and launches nothing."""
     B, T = q.shape[:2]
     KH, G, D, _, page, max_pages = shape[-6:]
     tc, splits, n_part = _plan(q.dtype, B, T, KH, G, D, page, max_pages,
-                               q.device.index)
+                               None if dry else q.device.index)
     out = torch.empty_like(q)
     part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
             if n_part else None)
+    if dry:
+        return out, tc, splits
     err = getattr(build.library(), entry)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), base.data_ptr(), out.data_ptr(), *shape,

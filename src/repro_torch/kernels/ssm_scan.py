@@ -38,7 +38,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, work
 
 plain = ref.ssm_scan_fwd_ckpt
 plain_bwd = ref.ssm_scan_bwd
@@ -56,11 +56,13 @@ CHANNELS = 16          # channels a block of K5-bwd covers (its partials)
 
 
 def _check(name: str, x, dt, A, Bmat, Cmat, D, extra=()) -> None:
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernels do not take (a dry call's tensors
+    may lie off the card)."""
     tensors = (("x", x), ("dt", dt), ("A", A), ("B", Bmat), ("C", Cmat),
                ("D", D)) + tuple(extra)
+    dry = work.dry(x)
     for n, t in tensors:
-        if t.device.type != "cuda":
+        if t.device.type != "cuda" and not dry:
             raise ValueError(f"{name} needs CUDA tensors; {n} is on "
                              f"{t.device}")
         if not t.is_floating_point():
@@ -97,7 +99,9 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Launch K5 on the current stream.  Returns y ``(B, S, Din)`` in x's
     dtype, or ``(y, ckpt)`` with ``with_ckpt`` (the float32 state at each
     chunk start, ``(ceil(S / CHUNK), B, Din, N)``), or ``(y, state)``
-    with ``with_state`` (the final float32 state ``(B, Din, N)``)."""
+    with ``with_state`` (the final float32 state ``(B, Din, N)``).  A dry
+    call under a counter (:func:`work.dry`) counts and returns the outputs
+    unlaunched."""
     global launches, state_launches
     if with_ckpt and with_state:
         raise ValueError("K5 writes the checkpoints or the final state, "
@@ -112,6 +116,11 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ckpt = (torch.empty((-(-S // CHUNK), Bsz, Din, N), **f32)
             if with_ckpt else None)
     fin = torch.empty((Bsz, Din, N), **f32) if with_state else None
+    work.record("K5", B=Bsz, S=S, Din=Din, N=N,
+                dtype=work.dtype_name(x.dtype), chunk=CHUNK,
+                with_ckpt=bool(with_ckpt), with_state=bool(with_state))
+    if work.dry(x):
+        return (y, fin) if with_state else ((y, ckpt) if with_ckpt else y)
     err = build.library().repro_ssm_scan(
         x.data_ptr(), dt.data_ptr(), Af.data_ptr(), Bf.data_ptr(),
         Cf.data_ptr(), Df.data_ptr(), y.data_ptr(),
@@ -153,6 +162,12 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dB, dC = (torch.empty((Bsz, S, N), **f32) for _ in range(2))
     dA = torch.empty((Din, N), **f32)
     dD = torch.empty((Din,), **f32)
+    work.record("K5-bwd", B=Bsz, S=S, Din=Din, N=N,
+                dtype=work.dtype_name(x.dtype), chunk=CHUNK,
+                channels=CHANNELS)
+    if work.dry(x):
+        return (dx, ddt, dA.to(A.dtype), dB.to(Bmat.dtype),
+                dC.to(Cmat.dtype), dD.to(D.dtype))
     err = build.library().repro_ssm_scan_bwd(
         *(t.data_ptr() for t in (x, dt, Af, Bf, Cf, Df, ckpt, dy, dx, ddt,
                                  part_bc, part_dA, part_dD, dB, dC, dA, dD)),
@@ -167,7 +182,7 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def ssm_scan_fwd(x, dt, A, Bmat, Cmat, D):
     """``(y, ckpt)``: the plain version on a CPU tensor, K5 on a CUDA
     tensor."""
-    if x.device.type == "cpu":
+    if work.takes_plain(x):
         return plain(x, dt, A, Bmat, Cmat, D)
     return ssm_scan_cuda(x, dt, A, Bmat, Cmat, D, with_ckpt=True)
 
@@ -175,7 +190,7 @@ def ssm_scan_fwd(x, dt, A, Bmat, Cmat, D):
 def ssm_scan_bwd(x, dt, A, Bmat, Cmat, D, ckpt, dy):
     """``(dx, ddt, dA, dB, dC, dD)``: the plain version on a CPU tensor,
     K5-bwd on a CUDA tensor."""
-    if x.device.type == "cpu":
+    if work.takes_plain(x):
         return plain_bwd(x, dt, A, Bmat, Cmat, D, ckpt, dy)
     return ssm_scan_bwd_cuda(x, dt, A, Bmat, Cmat, D, ckpt, dy)
 
@@ -204,7 +219,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     xs = (x, dt, A, Bmat, Cmat, D)
     if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
         return SSMScan.apply(*xs)
-    if x.device.type == "cpu":
+    if work.takes_plain(x):
         return plain(*xs)[0]
     return ssm_scan_cuda(*xs)
 
@@ -215,6 +230,6 @@ def ssm_scan_with_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """``(y (B, S, Din), final float32 state (B, Din, N))`` of the
     selective scan, for the prefill (no autograd): the plain version on a
     CPU tensor, K5 with its state output on a CUDA tensor."""
-    if x.device.type == "cpu":
+    if work.takes_plain(x):
         return ref.ssm_scan_chunked(x, dt, A, Bmat, Cmat, D, chunk=CHUNK)
     return ssm_scan_cuda(x, dt, A, Bmat, Cmat, D, with_state=True)

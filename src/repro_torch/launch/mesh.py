@@ -9,6 +9,12 @@ CPU gloo; there is no other.  Where no process group exists,
 world of one on a ``HashStore``, so no TCP port is taken.  A world of
 more than one is started by its launcher (``torchrun``, or
 ``init_process_group`` with an address, a world size and a rank).
+
+The dry-run lays its meshes over a *fake* world (:func:`fake_world`):
+the default group of ``torch.distributed``'s ``fake`` backend, this
+process rank 0 of 256 or 512, whose collectives return at once.  Such a
+mesh is a CPU mesh; nothing of it touches CUDA.  A process with a real
+world never starts a fake one, nor the other way round.
 """
 from __future__ import annotations
 
@@ -24,11 +30,43 @@ def backend_for(device: torch.device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
+FAKE = "fake"
+
+
+def is_fake_world() -> bool:
+    """Whether the default process group is a fake world."""
+    return dist.is_initialized() and dist.get_backend() == FAKE
+
+
+def fake_world(size: int) -> None:
+    """Make the default process group a fake world of ``size`` ranks,
+    this process rank 0 (``FakeStore``); a fake world of another size is
+    replaced.  Raises where a real world exists."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if not is_fake_world():
+            raise RuntimeError(f"a fake world cannot start beside the real "
+                               f"{dist.get_backend()} world of this process")
+        if dist.get_world_size() == size:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group(FAKE, store=FakeStore(), rank=0,
+                            world_size=size)
+
+
 def ensure_world(device) -> None:
     """Start a world of one on a ``HashStore`` where no process group
-    exists; check that an existing one has ``device``'s backend."""
+    exists; check that an existing one has ``device``'s backend (a fake
+    world serves CPU meshes only, and raises for a CUDA device before
+    touching it)."""
     device = torch.device(device)
     want = backend_for(device)
+    if is_fake_world():
+        if device.type != "cpu":
+            raise RuntimeError(f"a {device.type} mesh cannot stand on the "
+                               f"fake world of this process")
+        return
     if device.type == "cuda":
         torch.cuda.set_device(device.index or 0)
     if not dist.is_initialized():
@@ -182,6 +220,19 @@ def make_mesh(shape: Tuple[int, ...], axes: Optional[Tuple[str, ...]] = None,
                 3: ("pod", "data", "model")}[len(shape)]
     return Mesh(tuple(shape), tuple(axes),
                 "cuda" if device is None else device)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh over a fake world: 16×16
+    ``("data", "model")`` (256 ranks) or 2×16×16 ``("pod", "data",
+    "model")`` (512 ranks), on the CPU."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for d in shape:
+        n *= d
+    fake_world(n)
+    return Mesh(shape, axes, "cpu")
 
 
 def local_mesh(device=None) -> Mesh:
