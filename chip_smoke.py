@@ -301,7 +301,20 @@ them, and on any mismatch.  Phases, one or more lines each:
      dry-run's arguments plus temporaries within 5% of
      ``max_memory_allocated`` over the step, no collective; the dry-run's
      H100 roofline terms, the measured step (median of 3) and the share
-     of the card's bf16 peak it reaches.
+     of the card's bf16 peak it reaches;
+ 48. the families split over ``model`` since the gather went a layer at
+     a time (``parallel/fsdp.py``): phi-3-vision, whisper (its encoder
+     cut alike) and hymba (layer 0 global, layer 1 a 2048 window) at full
+     width and 2 layers, seq 4096, batch 1, remat full, each trained two
+     steps by ``make_train_artifacts`` on phase 41's NCCL world of one
+     and by the unsharded step from the same init: every loss and every
+     parameter leaf bit for bit (deterministic algorithms on), the peak
+     within 0.05 GB, K1, K1-bwd, K5 and K5-bwd launched alike; then the
+     kernels at the shapes a split rank gives them, bf16, against their
+     plain versions with their times and bounds: K5 and K5-bwd at hymba's
+     800 of 3200 channels (a ``model`` axis of 4), and K1 with its LSE and
+     K1-bwd on whisper's non-causal encoder at a sequence-split rank (375
+     of 1500 frames at ``q_offset`` 375).
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -1977,7 +1990,7 @@ def _ssm_inputs(gen, dtype, B, S, Din, N):
     return x, dt, A, Bm, Cm, D
 
 
-def _k5_case(name, dtype, B, S, Din, N, gen):
+def _k5_case(name, dtype, B, S, Din, N, gen, phase=17):
     xs = _ssm_inputs(gen, dtype, B, S, Din, N)
     dy = torch.randn((B, S, Din), generator=gen, device="cuda").to(dtype)
     y, ckpt = ssm_scan.ssm_scan_cuda(*xs, with_ckpt=True)
@@ -2043,13 +2056,14 @@ def _k5_case(name, dtype, B, S, Din, N, gen):
               + ck_bytes)
     bbms, bby = ssm_bound_ms(bbytes, 22.0 * elems, elems)
     shape = f"B={B} S={S} Din={Din} N={N}"
-    log(f"[17 K5] {name} {str(dtype)[6:]} {shape}: max_abs_err={err_fwd:.3g} "
+    log(f"[{phase} K5] {name} {str(dtype)[6:]} {shape}: "
+        f"max_abs_err={err_fwd:.3g} "
         f"({fwd_note} deterministic=True "
         f"ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms=None "
         f"bound_ms={bms:.5f} ({by}: {fbytes / 1e6:.1f} MB, {elems / 1e6:.1f} M "
         f"exponentials at {SFU_EXP_PER_S / 1e12:.2f} T/s, {7 * elems / 1e9:.2f} "
         f"GFLOP float32)")
-    log(f"[17 K5-bwd] {name} {str(dtype)[6:]} {shape}: max_err_of_max="
+    log(f"[{phase} K5-bwd] {name} {str(dtype)[6:]} {shape}: max_err_of_max="
         f"{err:.3g} (tol {SSM_GRAD_TOL[dtype]:g} of each gradient's max, dx "
         f"ddt dA dB dC dD) deterministic=True ms={bwd_ms:.4f} plain_ms="
         f"{plain_bwd_ms:.3f} library_ms=None bound_ms={bbms:.5f} ({bby}: "
@@ -4353,6 +4367,117 @@ def phase_tp_kernels(gen, full_bwd, full_fwd) -> list:
     return rows
 
 
+# phase 48: the three families the split now covers, 2 layers each
+FAMILY_ARCHS = ("phi-3-vision-4.2b", "whisper-large-v3", "hymba-1.5b")
+FAMILY_LAYERS, FAMILY_BATCH, FAMILY_STEPS = 2, 1, 2
+FAMILY_COUNTERS = {"flash_attention": (flash_attention, "launches"),
+                   "flash_attention_bwd": (flash_attention_bwd, "launches"),
+                   "ssm_scan": (ssm_scan, "launches"),
+                   "ssm_scan_bwd": (ssm_scan, "bwd_launches")}
+
+
+def _family_cut(arch: str):
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=FAMILY_LAYERS, encoder_layers=(
+        FAMILY_LAYERS if cfg.is_encoder_decoder else 0))
+
+
+def phase_mesh_families(mesh, rt, gen) -> dict:
+    """48: phi-3-vision, whisper and hymba at full width, 2 layers, seq
+    4096, batch 1, remat full: the sharded step on phase 41's NCCL world
+    of one against the unsharded step from the same init, two steps,
+    every loss and leaf bit for bit and the peak within 0.05 GB; then K5
+    and K5-bwd at hymba's rank of a ``model`` axis of 4, and K1 and K1-bwd
+    on whisper's encoder at a sequence-split rank.  Returns the kernels'
+    launches in the runs (the main path's) and the timed rows."""
+    total = {k: 0 for k in FAMILY_COUNTERS}
+    shape = ShapeConfig("train_4k-cut", TRAIN_SEQ, FAMILY_BATCH, "train")
+    opt = OptimizerConfig(lr=PV_LR, warmup_steps=2, total_steps=100)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for arch in FAMILY_ARCHS:
+            cfg = _family_cut(arch)
+            model = build_model(cfg)
+            stream = make_stream(cfg, shape)
+            batches = [{k: torch.from_numpy(v).cuda()
+                        for k, v in stream.batch_at(i).items()}
+                       for i in range(FAMILY_STEPS)]
+            runs = {}
+            for name in ("unsharded", "sharded"):
+                state = init_train_state(model, 0, opt, rt)
+                if name == "unsharded":
+                    step = make_train_step(model, opt, rt)
+                else:
+                    art = make_train_artifacts(model, mesh, rt, opt, shape)
+                    state = shard_tree(state, art.state_shardings)
+                    step = art.step_fn
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for mod, attr in FAMILY_COUNTERS.values():
+                    setattr(mod, attr, 0)
+                losses, t0 = [], time.perf_counter()
+                for b in batches:
+                    state, metrics = step(state, b)
+                    losses.append(float(metrics["loss"]))
+                runs[name] = dict(
+                    losses=losses, wall=time.perf_counter() - t0,
+                    peak=torch.cuda.max_memory_allocated() / 1e9,
+                    launches={k: getattr(mod, attr) for k, (mod, attr)
+                              in FAMILY_COUNTERS.items()},
+                    params=_host_params(state))
+                del state, step
+                torch.cuda.empty_cache()
+            a, b = runs["unsharded"], runs["sharded"]
+            same = all(torch.equal(a["params"][k], b["params"][k])
+                       for k in a["params"])
+            log(f"[48 mesh families] {cfg.name} full width, "
+                f"{cfg.num_layers} layers"
+                + (f" (+{cfg.encoder_layers} encoder)"
+                   if cfg.is_encoder_decoder else "")
+                + f", seq {TRAIN_SEQ}, batch {FAMILY_BATCH}, remat "
+                f"{rt.remat}: unsharded losses={a['losses']} sharded "
+                f"losses={b['losses']}: bit for bit "
+                f"{a['losses'] == b['losses']}; every parameter leaf bit "
+                f"for bit: {same} ({len(a['params'])} leaves); "
+                f"max_memory_allocated_GB sharded {b['peak']:.3f} vs "
+                f"unsharded {a['peak']:.3f}; {FAMILY_STEPS} steps "
+                f"{b['wall']:.3f} s vs {a['wall']:.3f} s; launches "
+                f"{b['launches']} (unsharded {a['launches']})")
+            assert a["losses"] == b["losses"] and same, (a["losses"],
+                                                         b["losses"])
+            assert abs(a["peak"] - b["peak"]) <= 0.05, (a["peak"], b["peak"])
+            assert a["launches"] == b["launches"], (a, b)
+            assert b["launches"]["flash_attention_bwd"] > 0
+            for k in total:
+                total[k] += a["launches"][k] + b["launches"][k]
+            del runs, a, b, model, batches
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert total["ssm_scan"] > 0 and total["ssm_scan_bwd"] > 0, total
+    hcfg = get_config("hymba-1.5b")
+    d_in, N = recurrent.ssm_dims(hcfg)[:2]
+    k5, k5_bwd = _k5_case(f"hymba rank of model 4 ({d_in // 4} of {d_in} "
+                          f"channels)", torch.bfloat16, FAMILY_BATCH,
+                          TRAIN_SEQ, d_in // 4, N, gen, phase=48)
+    wcfg = get_config("whisper-large-v3")
+    T = wcfg.encoder_frames
+    r = _k1_train_case(
+        f"whisper encoder seq rank 1 of 4 ({T // 4} of {T} frames)",
+        torch.bfloat16, FAMILY_BATCH, T // 4, T, wcfg.num_heads,
+        wcfg.num_kv_heads, wcfg.head_dim, 0, T // 4, gen, phase=48,
+        causal=False)
+    k1 = r.pop("fwd")
+    torch.cuda.empty_cache()
+    return {"launches": total,
+            "K1": dict(k1, shape=f"whisper encoder seq rank, B 1, S "
+                       f"{T // 4}, T {T}, non-causal, q_offset {T // 4}"),
+            "K1-bwd": dict(r, shape="the same"),
+            "K5": dict(k5, shape=f"hymba rank of model 4, B 1, S "
+                       f"{TRAIN_SEQ}, Din {d_in // 4}, N {N}"),
+            "K5-bwd": dict(k5_bwd, shape="the same")}
+
+
 DRYRUN_CODE = r"""
 import dataclasses, json, sys, time
 from repro_torch.configs import ShapeConfig, get_config
@@ -4590,9 +4715,11 @@ def main() -> int:
     mm = phase_mesh_moe(mcfg, mesh)
     el = phase_elastic(cfg, rt)
     sp = phase_mesh_split(cfg, mesh, rt, mesh_base)
+    fam = phase_mesh_families(mesh, rt,
+                              torch.Generator(device="cuda").manual_seed(48))
     del mesh, mesh_base
     dist.destroy_process_group()
-    par = {k: mt[k] + mc[k] + el[k] + sp[k]
+    par = {k: mt[k] + mc[k] + el[k] + sp[k] + fam["launches"][k]
            for k in ("flash_attention", "flash_attention_bwd")}
     tp = phase_tp_kernels(gen, k1_bwd, k1_train)
     phase_dryrun(cfg)
@@ -4610,7 +4737,7 @@ def main() -> int:
                        + xs["flash_attention"] + ht["flash_attention"]
                        + par["flash_attention"]),
              hymba_prefill=sk["flash_attention"],
-             split_ranks=[fwd for fwd, _ in tp], **k1),
+             split_ranks=[fwd for fwd, _ in tp] + [fam["K1"]], **k1),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
              includes=[PAGED_COMMON, HOPPER_COMMON],
@@ -4643,7 +4770,8 @@ def main() -> int:
                        + wh["flash_attention_bwd"] + pv["flash_attention_bwd"]
                        + sw["flash_attention_bwd"]
                        + par["flash_attention_bwd"]),
-             split_ranks=[bwd for _, bwd in tp], **k1_bwd),
+             split_ranks=[bwd for _, bwd in tp] + [fam["K1-bwd"]],
+             **k1_bwd),
         dict(name="mlstm_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
              includes=[MLSTM_TC, HOPPER_COMMON],
@@ -4661,14 +4789,16 @@ def main() -> int:
              includes=[SSM_COMMON],
              replaces="src/repro/kernels/ssm_scan.py:63",
              launches=(hy_launches["ssm_scan"] + hs["ssm_scan"]
-                       + ht["ssm_scan"]),
+                       + ht["ssm_scan"] + fam["launches"]["ssm_scan"]),
              state_launches=state["ssm_scan"],
-             with_state=sk["ssm_scan"], **k5),
+             with_state=sk["ssm_scan"], split_rank=fam["K5"], **k5),
         dict(name="ssm_scan_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
              includes=[SSM_COMMON],
              replaces="src/repro/kernels/ssm_vjp.py:79",
-             launches=hy_launches["ssm_scan_bwd"], **k5_bwd),
+             launches=(hy_launches["ssm_scan_bwd"]
+                       + fam["launches"]["ssm_scan_bwd"]),
+             split_rank=fam["K5-bwd"], **k5_bwd),
         dict(name="moe_gmm", route="cuda",
              source="src/repro_torch/kernels/csrc/moe_gmm.cu",
              includes=[HOPPER_COMMON],

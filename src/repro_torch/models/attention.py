@@ -48,22 +48,28 @@ def out_proj(p: Dict[str, torch.Tensor], attn: torch.Tensor,
 
 def attend_train(p: Dict[str, torch.Tensor], x: torch.Tensor,
                  cfg: ModelConfig, *, causal: bool = True, window: int = 0,
-                 use_rope: bool = True, prefix: str = "attn") -> torch.Tensor:
+                 use_rope: bool = True, prefix: str = "attn",
+                 kv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence attention of the train path: x ``(B, S, D)`` normed
     -> ``(B, S, D)``.  RoPE over ``arange(S)``, then
     :func:`repro_torch.kernels.ops.flash_attention` (K1 forward, K1-bwd
-    backward on the card), then the output projection.
+    backward on the card), then the output projection.  ``kv`` ``(B, T,
+    D)`` makes it cross attention: K and V projected from ``kv`` (the
+    encoder's states), no biases and no RoPE, as the reference's.
 
-    Under a split over ``model`` (``parallel/tensor.py``) the input's
-    gradient is summed over ``model``, and the rank computes by
+    Under a split over ``model`` (``parallel/tensor.py``) the inputs'
+    gradients are summed over ``model``, and the rank computes by
     ``"heads"`` its ``H/m`` query heads (its blocks of ``wq``, ``bq`` and
     ``wo``) against the KV heads they read, the output projection's terms
     summed over ``model``; by ``"seq"`` its ``S/m`` query rows (RoPE at
     their global positions) against the whole K and V through K1's
-    ``q_offset``, the output rows gathered back over ``model``."""
+    ``q_offset`` (which a non-causal call ignores), the output rows
+    gathered back over ``model``.  The mode is this call's
+    (``Split.attn_mode`` of its ``S``)."""
+    assert kv is None or not use_rope
     sp = tensor.active()
-    mode = None if sp is None else sp.attn
     S = x.shape[1]
+    mode = None if sp is None else sp.attn_mode(S)
     hl = p[f"{prefix}_wq"].shape[1]  # the query heads this rank holds
     h0, off, n = 0, 0, S  # its first head, its query rows
     if mode == "heads":
@@ -75,15 +81,18 @@ def attend_train(p: Dict[str, torch.Tensor], x: torch.Tensor,
         off = sp.rank * n
     if mode is not None:
         x = sp.sum_grad(x)
+        if kv is not None:
+            kv = sp.sum_grad(kv)
+    src = x if kv is None else kv
     dt = x.dtype
-    kv, idx = _kv_heads(p, cfg, h0, hl, prefix)
+    w, idx = _kv_heads(p, cfg, h0, hl, prefix)
     q = _proj(x if n == S else x.narrow(1, off, n), p[f"{prefix}_wq"])
-    k = _proj(x, kv["wk"])
-    v = _proj(x, kv["wv"])
-    if cfg.qkv_bias:
+    k = _proj(src, w["wk"])
+    v = _proj(src, w["wv"])
+    if cfg.qkv_bias and kv is None:
         q = q + p[f"{prefix}_bq"].to(dt)
-        k = k + kv["bk"].to(dt)
-        v = v + kv["bv"].to(dt)
+        k = k + w["bk"].to(dt)
+        v = v + w["bv"].to(dt)
     if idx is not None:
         k, v = k.index_select(2, idx), v.index_select(2, idx)
     if use_rope:

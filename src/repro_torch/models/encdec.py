@@ -38,12 +38,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.attention import (_proj, attend_decode, cross_kv,
-                                          out_proj, qkv)
+from repro_torch.models.attention import (_proj, attend_decode, attend_train,
+                                          cross_kv, out_proj, qkv)
 from repro_torch.models.common import apply_norm
 from repro_torch.models.lm import (Params, apply_mlp, attention_shapes,
                                    embed_tokens, layers, lm_logits,
                                    mlp_shapes, norm_shapes, token_nll)
+from repro_torch.parallel import fsdp
 
 
 def param_table(cfg: ModelConfig) -> Dict[str, Tuple]:
@@ -89,9 +90,12 @@ def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _enc_block(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """One encoder block (non-causal self-attention, then the MLP), split
+    over ``model`` as ``attend_train`` and ``apply_mlp`` say; ``p`` may
+    be a layer's slices under the sharded step's gathering."""
+    p = fsdp.layer(p)
     h = apply_norm(p, "norm1", x, cfg.norm)
-    q, k, v = qkv(p, h, cfg)
-    x = x + out_proj(p, ops.flash_attention(q, k, v, causal=False))
+    x = x + attend_train(p, h, cfg, causal=False, use_rope=False)
     return x + apply_mlp(p, apply_norm(p, "norm2", x, cfg.norm), cfg)
 
 
@@ -105,7 +109,8 @@ def encode(params: Params, cfg: ModelConfig,
     x = frames.to(dt) + pe[None].to(dt)
     for p in layers(cfg, params["enc_blocks"]):
         x = _enc_block(cfg, p, x)
-    return apply_norm(params, "enc_final", x, cfg.norm)
+    return apply_norm(fsdp.norm_leaves(params, "enc_final"), "enc_final", x,
+                      cfg.norm)
 
 
 def _dec_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -133,8 +138,20 @@ def _dec_block(cfg: ModelConfig, p, x: torch.Tensor, enc: torch.Tensor
     return x, (k, v, xk, xv)
 
 
-def _dec_block_train(cfg, p, x, enc):
-    return _dec_block(cfg, p, x, enc)[0]
+def _dec_block_train(cfg: ModelConfig, p, x: torch.Tensor,
+                     enc: torch.Tensor) -> torch.Tensor:
+    """:func:`_dec_block`'s output through the train path's attention
+    (``attend_train``: the causal self-attention and the cross attention
+    over ``enc``, split over ``model`` by heads or by the decoder's query
+    rows); ``p`` may be a layer's slices under the sharded step's
+    gathering."""
+    p = fsdp.layer(p)
+    h = apply_norm(p, "norm1", x, cfg.norm)
+    x = x + attend_train(p, h, cfg, causal=True, use_rope=False)
+    h2 = apply_norm(p, "norm2", x, cfg.norm)
+    x = x + attend_train(p, h2, cfg, causal=False, use_rope=False,
+                         prefix="xattn", kv=enc)
+    return x + apply_mlp(p, apply_norm(p, "norm3", x, cfg.norm), cfg)
 
 
 def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -29,7 +29,11 @@ runs this forward on its rows, and under the split over ``model`` that
 the sharded step installs (``parallel/tensor.py``) the embedding, the
 MLP, the head and the loss (and attention, ``models/attention.py``)
 compute the rank's blocks: the logits come out ``(B, S, V/m)``, pinned
-on their vocab as the reference's ``hints.logits`` pins them.
+on their vocab as the reference's ``hints.logits`` pins them.  The
+sharded step also installs its gathering (``parallel/fsdp.py``): then
+:func:`layers` gives each layer's slices of the rank's blocks, each
+block function gathers its layer first, and the embedding, head and
+final norm are gathered where read.
 
 Remat ``"full"`` is ``torch.utils.checkpoint`` (non-reentrant) around
 each block, the reference's ``jax.checkpoint`` of the scan body; for the
@@ -69,7 +73,7 @@ from repro_torch.models.attention import (attend_decode, attend_decode_paged,
                                           attend_verify_paged, out_proj, qkv)
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        init_param, rope_angles)
-from repro_torch.parallel import tensor
+from repro_torch.parallel import fsdp, tensor
 from repro_torch.tree import unflatten
 
 Params = Dict[str, Any]
@@ -203,10 +207,14 @@ def _unstack(blocks: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
 
 
 def layers(cfg: ModelConfig, blocks) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer parameter dicts of a stack of layers."""
+    """Per-layer parameter dicts of a stack of layers; under the sharded
+    step's gathering (``parallel/fsdp.py``) each layer's slices of this
+    rank's blocks, which the layer's function gathers
+    (``fsdp.layer``)."""
     if isinstance(blocks, list):
         return blocks
-    return _unstack(blocks)
+    per = fsdp.layers(blocks)
+    return _unstack(blocks) if per is None else per
 
 
 # ===========================================================================
@@ -220,7 +228,7 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     sequence holds them (the reference's ``dynamic_update_slice``: the
     overlaid positions take no gradient into ``embed``)."""
     dt = getattr(torch, cfg.dtype)
-    emb = params["embed"]
+    emb = fsdp.leaf(params["embed"])
     sp = tensor.active()
     if sp is not None and sp.splits("vocab"):
         # vocab-parallel: this rank's block of rows looks up the tokens it
@@ -244,8 +252,9 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The final norm and the head: ``(B, S, V)`` logits, or under a
     vocab-parallel split this rank's ``(B, S, V/m)`` block."""
-    xn = apply_norm(params, "final", x, cfg.norm)
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    xn = apply_norm(fsdp.norm_leaves(params, "final"), "final", x, cfg.norm)
+    head = fsdp.leaf(params["embed"]).t() if cfg.tie_embeddings \
+        else fsdp.leaf(params["lm_head"])
     sp = tensor.active()
     if sp is not None and sp.splits("vocab"):
         xn = sp.sum_grad(xn)
@@ -300,7 +309,9 @@ def _block_train(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     """One decoder block of the train path: ``(x, aux loss)``, the aux
     loss the MoE layer's (a float32 0 elsewhere).  The hybrid's block runs
     attention (``window`` 0 = global) and the SSM heads on the same normed
-    input and adds their fused mean."""
+    input and adds their fused mean.  ``p`` may be a layer's slices under
+    the sharded step's gathering, gathered here first."""
+    p = fsdp.layer(p)
     h = apply_norm(p, "norm1", x, cfg.norm)
     mix = attend_train(p, h, cfg, causal=True, window=window)
     if cfg.family == "hybrid":
@@ -367,10 +378,12 @@ def _scan_blocks(cfg: ModelConfig, blocks, x: torch.Tensor,
 
 def _xlstm_group(cfg: ModelConfig, x: torch.Tensor, mlayers, slayer):
     """One group of the xLSTM: its mLSTM blocks, then its sLSTM block
-    (none when ``slstm_every`` is 0)."""
+    (none when ``slstm_every`` is 0), each gathered first under the
+    sharded step's gathering."""
     for p in mlayers:
-        x = rec.apply_mlstm(p, x, cfg)
-    return x if slayer is None else rec.apply_slstm(slayer, x, cfg)
+        x = rec.apply_mlstm(fsdp.layer(p), x, cfg)
+    return x if slayer is None \
+        else rec.apply_slstm(fsdp.layer(slayer), x, cfg)
 
 
 def _xlstm_groups(cfg: ModelConfig, blocks: Params):

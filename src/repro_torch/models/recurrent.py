@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import activation, layer_norm, rms_norm
+from repro_torch.parallel import tensor
 
 NEG_INF = -1e30
 
@@ -306,13 +307,24 @@ def ssm_shapes(cfg: ModelConfig, num_layers: int):
     return {f"ssm_{k}": v for k, v in shapes.items()}
 
 
-def _ssm_coeffs(p, xc):
+def _ssm_coeffs(p, xc, sp=None):
     """B, C and dt in float32 (dt low-rank, biased toward small steps), and
-    ``A = -exp(A_log)``."""
+    ``A = -exp(A_log)``.  Under a split of the channels (``sp``) the
+    rank's rows of ``w_B``, ``w_C`` and ``w_dt1`` give partial products,
+    summed over ``model`` in one all-reduce before use; each rank's scan
+    reads the sums for its own channels only, so their gradients are
+    partial too and are summed over ``model`` on the way back."""
     xf = xc.float()
-    Bm = xf @ p["ssm_w_B"].float()
-    Cm = xf @ p["ssm_w_C"].float()
-    dt = F.softplus(xf @ p["ssm_w_dt1"].float() @ p["ssm_w_dt2"].float()
+    if sp is None:
+        Bm = xf @ p["ssm_w_B"].float()
+        Cm = xf @ p["ssm_w_C"].float()
+        low = xf @ p["ssm_w_dt1"].float()
+    else:
+        w = torch.cat([p["ssm_w_B"], p["ssm_w_C"], p["ssm_w_dt1"]], 1)
+        N = p["ssm_w_B"].shape[1]
+        Bm, Cm, low = sp.sum_grad(sp.reduce_sum(xf @ w.float())).split(
+            [N, N, w.shape[1] - 2 * N], -1)
+    dt = F.softplus(low @ p["ssm_w_dt2"].float()
                     + p["ssm_b_dt"].float() - 4.0)
     A = -torch.exp(p["ssm_A_log"].float())  # (d_in, N), negative
     return dt, A, Bm, Cm
@@ -323,16 +335,27 @@ def _ssm_branch(p: Dict[str, Any], xn: torch.Tensor, cfg: ModelConfig,
     """The SSM heads over xn ``(B, S, D)`` normed: ``(out (B, S, D),
     state)``, the state ``{h, conv}`` with ``with_state`` (K5 with its
     final state, and the last ``ssm_conv - 1`` raw inputs in float32,
-    zeros before the first as the causal padding has them), else None."""
+    zeros before the first as the causal padding has them), else None.
+
+    Under a split of the channels over ``model`` (the ``ssm`` region of
+    ``parallel/tensor.py``) the rank runs its ``d_in/m`` channels: the
+    input's gradient summed over ``model``, the scan (K5, K5-bwd) on its
+    channels alone, and the output projection's terms summed over
+    ``model``."""
     S, dt_ = xn.shape[1], xn.dtype
     K = cfg.ssm_conv
+    sp = tensor.active()
+    if sp is not None and not sp.splits("ssm"):
+        sp = None
+    if sp is not None:
+        xn = sp.sum_grad(xn)
     xin, z = xn @ p["ssm_w_in"].to(dt_), xn @ p["ssm_w_z"].to(dt_)
     # causal depthwise conv over time: K shifted products, summed in
     # cfg.dtype in the reference's order
     conv_w = p["ssm_conv_w"].to(dt_)  # (K, d_in)
     xpad = F.pad(xin, (0, 0, K - 1, 0))
     xc = F.silu(sum(xpad[:, i:i + S] * conv_w[i] for i in range(K)))
-    dt, A, Bm, Cm = _ssm_coeffs(p, xc)
+    dt, A, Bm, Cm = _ssm_coeffs(p, xc, sp)
     args = (xc, dt.to(dt_), A, Bm, Cm, p["ssm_D"])
     state = None
     if with_state:
@@ -340,7 +363,8 @@ def _ssm_branch(p: Dict[str, Any], xn: torch.Tensor, cfg: ModelConfig,
         state = {"h": h, "conv": xpad[:, S:].float()}
     else:
         y = ops.ssm_scan(*args)
-    return (y * F.silu(z)) @ p["ssm_w_out"].to(dt_), state
+    out = (y * F.silu(z)) @ p["ssm_w_out"].to(dt_)
+    return (out if sp is None else sp.reduce_sum(out)), state
 
 
 def apply_ssm(p: Dict[str, Any], xn: torch.Tensor,

@@ -50,11 +50,11 @@ class Plan:
         splits attention's query rows over ``model`` (K1's
         ``q_offset``) where the reference's ``hints.attn_q`` does;
         without it attention is split by heads when they divide the
-        ``model`` axis (``parallel/tensor.py``).  The MLP, the embedding,
-        the head and the loss are split over ``model`` either way, for
-        the dense and MoE decoders; the hybrid, the xLSTM, the
-        encoder-decoder and the VLM repeat their data shard's compute on
-        each ``model`` rank (``train/step.py``'s ``GATHER_AND_REPEAT``).
+        ``model`` axis (``parallel/tensor.py``).  The MLP, the hybrid's
+        SSM heads, the embedding, the head and the loss are split over
+        ``model`` either way, for every family but the xLSTM, which
+        repeats its data shard's compute on each ``model`` rank
+        (``train/step.py``'s ``GATHER_AND_REPEAT``).
     """
 
     name: str = "tp+fsdp"

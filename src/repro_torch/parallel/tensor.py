@@ -26,8 +26,21 @@ backward the identity).  The regions (``models/attention.py``,
     attention weight is held alike and its gradient is partial;
   * the MLP by its hidden dim (columns of ``mlp_wg``/``mlp_wu``, rows of
     ``mlp_wd``);
+  * the hybrid's SSM heads by their channels (``d_in``: columns of
+    ``ssm_w_in``, ``ssm_w_z``, ``ssm_w_dt2``, ``ssm_conv_w``,
+    ``ssm_b_dt``, ``ssm_D``; rows of ``ssm_A_log``, ``ssm_w_B``,
+    ``ssm_w_C``, ``ssm_w_dt1``, ``ssm_w_out``): the scan runs on the
+    rank's channels, the B, C and low-rank dt products and the output
+    projection, which contract over the channels, summed over ``model``;
   * the embedding and the head by vocab blocks, and the float32
     next-token loss over the vocab blocks (``lm.token_nll``).
+
+Attention (``attn_*``, and the encoder-decoder's cross attention
+``xattn_*``) takes its mode call by call (:meth:`Split.attn_mode`): by
+the sequence only where the call's own query length splits, so the
+encoder of 1500 frames is not split by the sequence over 16 ranks while
+the decoder's 4096 positions are, and its leaves' gradients are then not
+partial (:meth:`Split.partial` with the sequence a leaf is read at).
 
 Which leaves each region reads, and which of their dims it keeps split,
 is declared here once (:data:`REGIONS`, :func:`kept_dim`): the train
@@ -57,8 +70,9 @@ AXIS = "model"
 # ``_`` is a prefix) and the logical dim it keeps split over ``model``.
 # Attention keeps its heads split only when split by heads; split by the
 # sequence it keeps no dim split.
-REGIONS = {"attn": (("attn_",), "heads"),
+REGIONS = {"attn": (("attn_", "xattn_"), "heads"),
            "mlp": (("mlp_",), "mlp"),
+           "ssm": (("ssm_",), "mlp"),
            "vocab": (("embed", "lm_head"), "vocab")}
 
 
@@ -108,11 +122,28 @@ class Split:
         """Whether ``region`` computes this rank's block."""
         return region in self.regions
 
-    def partial(self, name: str, kept: bool) -> bool:
+    def partial(self, name: str, kept: bool,
+                seq_len: Optional[int] = None) -> bool:
         """Whether the gradient of the leaf ``name`` is this rank's term,
         to be summed over ``model``: a split region reads it and it is
-        held alike by every ``model`` rank (not ``kept`` split)."""
-        return self.size > 1 and not kept and self.splits(region_of(name))
+        held alike by every ``model`` rank (not ``kept`` split).  An
+        attention leaf read at ``seq_len`` query positions (the
+        encoder's frames; None: the forward's own sequence) is partial
+        only where that call is split (:meth:`attn_mode`)."""
+        region = region_of(name)
+        if region == "attn" and seq_len is not None \
+                and self.attn_mode(seq_len) is None:
+            return False
+        return self.size > 1 and not kept and self.splits(region)
+
+    def attn_mode(self, seq_len: int) -> Optional[str]:
+        """The mode of one attention call over ``seq_len`` query
+        positions: the forward's, but the sequence split only where
+        ``seq_len`` splits over ``model`` as :func:`attn_mode` asks."""
+        if self.attn == "seq" and (seq_len % self.size
+                                   or seq_len < 2 * self.size):
+            return None
+        return self.attn
 
     @property
     def size(self) -> int:

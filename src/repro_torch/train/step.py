@@ -17,12 +17,15 @@ holds its block of every leaf (``make_train_artifacts`` gives the
 layouts; :func:`shard_batch` its rows of a global batch) and the step
 makes, where the reference leaves it to GSPMD:
 
-  * the ZeRO-3 gather: each parameter gathered over the axes its layout
-    names, before the forward, except the dims the compute keeps split
-    over ``model`` (``tensor.kept_dim``: the heads of ``wq``, ``bq`` and
-    ``wo`` when attention is split by heads, the hidden dim of the MLP,
-    the vocab of ``embed`` and ``lm_head``; the expert-parallel MoE's
-    experts dim);
+  * the ZeRO-3 gather, one layer at a time (``parallel/fsdp.py``): each
+    layer's slices of the stacked leaves gathered inside that layer's
+    function (again in its recompute under remat), a leaf without a
+    ``layers`` dim at its first use, over the axes its layout names
+    except the dims the compute keeps split over ``model``
+    (``tensor.kept_dim``: the heads of ``wq``, ``bq`` and ``wo`` when
+    attention is split by heads, the hidden dim of the MLP, the SSM's
+    channels, the vocab of ``embed`` and ``lm_head``; the expert-parallel
+    MoE's experts dim);
   * the split over ``model`` (``parallel/tensor.py``), installed for the
     forward and backward: each rank computes its heads (or, under
     ``seq_shard_attn``, its query rows), its MLP columns and its vocab
@@ -32,9 +35,12 @@ makes, where the reference leaves it to GSPMD:
     over ``model`` with the data axes;
   * the loss over the global batch: the token count summed over the
     data axes before the division, the MoE aux loss the global batch's;
-  * one reduction of the (microbatch-accumulated) gradients: a
-    reduce-scatter over the data axes where the layout splits a dim over
-    them, else an all-reduce, and this rank's block of the rest;
+  * the reduction of each gathered leaf's gradient in the gather's
+    backward, as the layer's backward runs: a reduce-scatter over the
+    data axes where the layout splits a dim over them, else an
+    all-reduce, and this rank's block of the rest (no whole-shaped
+    gradient of a stacked leaf exists; microbatches' reduced blocks are
+    accumulated);
   * error-feedback compression of the reduced gradient with ``grad_err``
     laid out like the parameters (blocks of the global last axis: a leaf
     whose last dim is split off the 256-element blocks is gathered along
@@ -43,14 +49,15 @@ makes, where the reference leaves it to GSPMD:
     summed over the mesh, a leaf held alike by several ranks counted
     once; then AdamW on the local blocks.
 
-On a mesh of one rank the gathers and the reduction return the tensors
-they were given (no copy), the split splits nothing, and the step
-computes the unsharded step's bits.  The dense and MoE decoders are
-split over ``model`` (the MoE layer itself as before: ``scatter`` on the
-whole leaves, ``shard_map`` on its tokens); the families in
-``GATHER_AND_REPEAT`` gather every leaf and each ``model`` rank repeats
-their data shard's forward and backward.  Norms and residuals are not
-split over the sequence (no sequence parallelism).
+On a mesh of one rank no gathering is installed, the split splits
+nothing, and the step computes the unsharded step's bits.  The dense
+and MoE decoders, the VLM, the encoder-decoder and the hybrid are split
+over ``model`` (the MoE layer itself as before: ``scatter`` on the
+gathered leaves, ``shard_map`` on its tokens); the families in
+``GATHER_AND_REPEAT`` (the xLSTM) gather every leaf a layer at a time and
+each ``model`` rank repeats their data shard's forward and backward.
+Norms and residuals are not split over the sequence (no sequence
+parallelism).
 """
 from __future__ import annotations
 
@@ -61,7 +68,7 @@ import torch
 
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.api import Model
-from repro_torch.parallel import collectives, tensor
+from repro_torch.parallel import collectives, fsdp, tensor
 from repro_torch.parallel.sharding import (Plan, Sharding, batch_specs,
                                            make_param_shardings, replicated)
 from repro_torch.train import compression
@@ -95,10 +102,10 @@ def _dp_axes(mesh, plan: Plan) -> Tuple[str, ...]:
     return tuple(a for a in plan.dp_axes if a in mesh.shape)
 
 
-# the families whose dense compute is not split over ``model``: each
-# ``model`` rank repeats its data shard's forward and backward with every
-# leaf gathered whole (ROADMAP queue 1, "tensor and context parallelism")
-GATHER_AND_REPEAT = ("hybrid", "ssm", "audio", "vlm")
+# the families whose compute is not split over ``model``: each ``model``
+# rank repeats its data shard's forward and backward with every leaf
+# gathered (ROADMAP queue 1, "tensor and context parallelism")
+GATHER_AND_REPEAT = ("ssm",)
 
 
 class _Layout:
@@ -157,40 +164,22 @@ class _Layout:
         regions = (self.regions - {"attn"}) | ({"attn"} if attn else set())
         return tensor.Split(self.mesh, attn, frozenset(regions))
 
-    def gather(self, local: List[torch.Tensor]) -> List[torch.Tensor]:
-        return [sh.full(x, keep)
-                for x, sh, keep in zip(local, self.flat, self.keep)]
-
-    def reduce(self, grads: List[torch.Tensor],
-               split: Optional[tensor.Split] = None) -> List[torch.Tensor]:
-        """Each compute-shaped gradient (partial over the data axes, and
-        over ``model`` for the leaves ``split`` leaves partial) summed over
-        them, this rank's block kept."""
-        return [self._reduce_one(g, sh, keep, split is not None
-                                 and split.partial(name, kept))
-                for g, sh, keep, name, kept in zip(
-                    grads, self.flat, self.keep, self.names, self.kept)]
-
-    def _reduce_one(self, g, sh: Sharding, keep, partial: bool
-                    ) -> torch.Tensor:
-        mesh = self.mesh
-        axes = self.dp + ((tensor.AXIS,) if partial else ())
-        done = set(keep)
-        if mesh.size(axes) > 1:
-            dims = [d for d, e in enumerate(sh.spec) if set(e) & set(axes)]
-            if len(dims) == 1 and set(sh.spec[dims[0]]) == set(axes) \
-                    and dims[0] not in done:
-                d = dims[0]
-                g = collectives.reduce_scatter_dim(g, d, mesh, sh.spec[d])
-                done.add(d)
-            else:
-                g = collectives.all_reduce(g, mesh, axes)
-        sliced = False
-        for d, e in enumerate(sh.spec):
-            if d not in done and mesh.size(e) > 1:
-                g = collectives.slice_block(g, d, mesh, e)
-                sliced = True
-        return g.clone() if sliced else g  # let the whole gradient go
+    def leaf_plans(self, split: Optional[tensor.Split]
+                   ) -> List[fsdp.Leaf]:
+        """How each leaf is gathered and its gradient reduced in a forward
+        of ``split``: over the axes its layout names, except the dims the
+        compute keeps split; its gradient summed over the data axes, and
+        over ``model`` where ``split`` leaves it partial (an encoder
+        attention leaf at the encoder's frames)."""
+        out = []
+        for path, name, sh, keep, kept in zip(
+                self.paths, self.names, self.flat, self.keep, self.kept):
+            seq = self.cfg.encoder_frames \
+                if path.startswith("enc_blocks/") else None
+            partial = split is not None and split.partial(name, kept, seq)
+            out.append(fsdp.Leaf(self.mesh, sh.spec, keep, self.dp + (
+                (tensor.AXIS,) if partial else ())))
+        return out
 
     def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """sqrt of the sum of squares of the global gradient: each rank's
@@ -239,33 +228,38 @@ def make_grad_fn(model: Model, plan: Plan, mesh=None,
     forward and backward, microbatches accumulated; on a mesh over this
     rank's blocks of the parameters and rows of the batch, the metrics
     the global batch's and ``grads`` this rank's blocks of the reduced
-    gradient.  The metrics are the last microbatch's, as the
-    reference's."""
+    gradient (each microbatch's reduced as its backward runs, one layer
+    at a time: ``parallel/fsdp.py``).  The metrics are the last
+    microbatch's, as the reference's."""
     _check_plan(plan)
     nm = plan.microbatch
     if mesh is not None and layout is None:
         layout = _Layout(model, mesh, plan)
     dp = () if mesh is None else layout.dp
+    # a mesh of one rank gathers and reduces nothing: no gathering
+    gathers = mesh is not None and mesh.size(tuple(mesh.shape)) > 1
     aux_in_loss = not model.cfg.is_encoder_decoder  # as the loss_fns
 
-    def one(full: List[torch.Tensor], params: Tree, batch):
-        for p in full:
+    def one(local: List[torch.Tensor], params: Tree, batch, plans):
+        for p in local:
             p.requires_grad_(True)
-        loss, metrics = model.loss(_like(params, full), batch,
-                                   remat=plan.remat)
-        if mesh is None:
-            grads = torch.autograd.grad(loss, full)
-            return (loss.detach(),
-                    {k: v.detach() for k, v in metrics.items()}, grads)
-        ce, aux, n = metrics["ce"], metrics["aux"], metrics["tokens"]
-        tokens = collectives.all_reduce(
-            n.detach().float().reshape(1).clone(), mesh, dp)[0]
-        scalar = loss
-        if mesh.size(dp) > 1:  # this rank's share of the global mean
-            share = n / tokens
-            scalar = ce * share + aux if aux_in_loss else ce * share
-            ce = ce.detach() * share
-        grads = torch.autograd.grad(scalar, full)
+        gathering = fsdp.Gathering(local, plans) if plans else None
+        with fsdp.installed(gathering):
+            loss, metrics = model.loss(_like(params, local), batch,
+                                       remat=plan.remat)
+            if mesh is None:
+                grads = torch.autograd.grad(loss, local)
+                return (loss.detach(),
+                        {k: v.detach() for k, v in metrics.items()}, grads)
+            ce, aux, n = metrics["ce"], metrics["aux"], metrics["tokens"]
+            tokens = collectives.all_reduce(
+                n.detach().float().reshape(1).clone(), mesh, dp)[0]
+            scalar = loss
+            if mesh.size(dp) > 1:  # this rank's share of the global mean
+                share = n / tokens
+                scalar = ce * share + aux if aux_in_loss else ce * share
+                ce = ce.detach() * share
+            grads = torch.autograd.grad(scalar, local)
         ce = collectives.all_reduce(ce.detach().reshape(1).clone(), mesh,
                                     dp)[0]
         aux = aux.detach()
@@ -275,35 +269,30 @@ def make_grad_fn(model: Model, plan: Plan, mesh=None,
 
     def grad_fn(params: Tree, batch: Dict[str, torch.Tensor]):
         local = leaves(params)
-        full = local if layout is None else layout.gather(local)
         impl = plan.moe_impl if mesh is not None else "scatter"
         split = None if layout is None \
             else layout.split(batch["tokens"].shape[1])
+        plans = layout.leaf_plans(split) if gathers else None
         with moe_mod.moe_impl(impl, mesh, plan.dp_axes), \
                 tensor.split(split):
             if nm <= 1:
-                loss, metrics, grads = one(full, params, batch)
-            else:
-                B = batch["tokens"].shape[0]
-                if B % nm:
-                    raise ValueError(f"batch {B} is not a multiple of "
-                                     f"microbatch {nm}")
-                acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device) for p in full]
-                total = 0.0
-                for i in range(nm):
-                    mb = {k: v[i * (B // nm):(i + 1) * (B // nm)]
-                          for k, v in batch.items()}
-                    loss, metrics, grads = one(full, params, mb)
-                    for a, g in zip(acc, grads):
-                        a.add_(g.float() / nm)
-                    total = total + loss / nm
-                    del grads
-                loss, grads = total, acc
-        del full
-        if layout is not None:
-            grads = layout.reduce(list(grads), split)
-        return loss, metrics, grads
+                return one(local, params, batch, plans)
+            B = batch["tokens"].shape[0]
+            if B % nm:
+                raise ValueError(f"batch {B} is not a multiple of "
+                                 f"microbatch {nm}")
+            acc = [torch.zeros(p.shape, dtype=torch.float32,
+                               device=p.device) for p in local]
+            total = 0.0
+            for i in range(nm):
+                mb = {k: v[i * (B // nm):(i + 1) * (B // nm)]
+                      for k, v in batch.items()}
+                loss, metrics, grads = one(local, params, mb, plans)
+                for a, g in zip(acc, grads):
+                    a.add_(g.float() / nm)
+                total = total + loss / nm
+                del grads
+        return total, metrics, acc
 
     return grad_fn
 

@@ -95,16 +95,16 @@ for arch in ARCHS:
     st, ops = count_cell(cell)
     model = Model(cfg, mesh.device)
     params = tree_leaves(state_layouts(model, mesh, plan, False)["params"])
-    # the dims the compute keeps split, and the leaves a split region
-    # leaves partial, from the step's own bookkeeping
+    # the dims the compute keeps split, and the axes each gradient is
+    # summed over, from the step's own bookkeeping
     lay = _Layout(model, mesh, plan)
-    split = lay.split(SEQ)
     leaves = []
-    for sh, keep, name, kept in zip(params, lay.keep, lay.names, lay.kept):
+    for sh, path, lf in zip(params, lay.paths,
+                            lay.leaf_plans(lay.split(SEQ))):
         leaves.append({
-            "shape": list(sh.shape), "spec": [list(e) for e in sh.spec],
-            "keep": list(keep),
-            "partial": bool(split is not None and split.partial(name, kept))})
+            "path": path, "shape": list(sh.shape),
+            "spec": [list(e) for e in sh.spec], "keep": list(lf.keep),
+            "axes": list(lf.axes)})
     st["record_again"] = analyze_ops(json.loads(json.dumps(ops)))["flops"]
     cells[arch] = {"stats": st, "leaves": leaves,
                    "tp": cfg.family not in GATHER_AND_REPEAT,
@@ -512,14 +512,20 @@ def _expected_collectives(leaves, dp, mesh, n_scalars_dp=2):
     the reference's operand convention (float32 master weights and
     gradients, 4 bytes an element):
 
-      * the ZeRO-3 gather, before the forward: for each leaf, each dim
-        split over mesh axes (not one the compute keeps split) gathered in
-        turn, dim by dim; an all-gather's operand is its input, the block
-        gathered so far;
-      * the gradient's reduction over the data axes (and ``model`` for a
-        leaf the split leaves partial): a reduce-scatter when exactly one
-        dim is split over exactly those axes (operand: the whole
-        compute-shaped gradient), else an all-reduce of it;
+      * the ZeRO-3 gather, a layer at a time: for each layer's slice of a
+        stacked leaf (``blocks/``, ``enc_blocks/``), each dim split over
+        mesh axes (not one the compute keeps split) gathered in turn, dim
+        by dim, an all-gather's operand its input, the block gathered so
+        far (a slice whose ``layers`` dim is split first gathered over
+        those axes: its operand the local slice); twice for the blocks
+        that remat ``full`` recomputes (``blocks/``: the encoder's are
+        not rematerialised); a leaf without a ``layers`` dim once;
+      * each gradient's reduction over its axes (the data axes, and
+        ``model`` for a leaf the split leaves partial), in the gather's
+        backward, once a slice: a reduce-scatter when exactly one dim of
+        the slice is split over exactly those axes, else an all-reduce,
+        each of the compute-shaped slice, so L slices make the whole
+        compute-shaped gradient;
       * the scalars: the token count and the cross-entropy summed over
         the data axes (4 bytes each), and the squared norms of the
         leaves' blocks (4 bytes a leaf) over the whole mesh.
@@ -530,21 +536,27 @@ def _expected_collectives(leaves, dp, mesh, n_scalars_dp=2):
     gather = rs = ar = 0
     for lf in leaves:
         spec, keep = lf["spec"], set(lf["keep"])
+        stacked = lf["path"].startswith(("blocks/", "enc_blocks/"))
         local = [d // size(e) for d, e in zip(lf["shape"], spec)]
-        block = list(local)
-        for d, e in enumerate(spec):
-            if d not in keep and size(e) > 1:
-                gather += _nbytes(block)
+        n = lf["shape"][0] if stacked else 1  # the gathers a forward
+        block = local[1:] if stacked else list(local)
+        dims = spec[1:] if stacked else spec
+        shift = 1 if stacked else 0
+        times = 2 if lf["path"].startswith("blocks/") else 1
+        if stacked and size(spec[0]) > 1:
+            gather += times * n * _nbytes(block)
+        for d, e in enumerate(dims):
+            if d + shift not in keep and size(e) > 1:
+                gather += times * n * _nbytes(block)
                 block[d] *= size(e)
-        axes = list(dp) + (["model"] if lf["partial"] else [])
-        full = block  # gathered, but for the dims the compute keeps
+        axes = lf["axes"]
         if size(axes) > 1:
-            dims = [d for d, e in enumerate(spec) if set(e) & set(axes)]
-            if len(dims) == 1 and set(spec[dims[0]]) == set(axes) \
-                    and dims[0] not in keep:
-                rs += _nbytes(full)
+            split = [d for d, e in enumerate(dims) if set(e) & set(axes)]
+            if len(split) == 1 and set(dims[split[0]]) == set(axes) \
+                    and split[0] + shift not in keep:
+                rs += n * _nbytes(block)
             else:
-                ar += _nbytes(full)
+                ar += n * _nbytes(block)
     scalars = 4 * n_scalars_dp + 4 * len(leaves)
     return {"all-gather": gather, "reduce-scatter": rs,
             "all-reduce": ar}, scalars

@@ -14,6 +14,12 @@ two steps of:
   * reduced phi3.5-moe in float32 (``d_ff`` 2048: the expert weights
     split over "model" on their experts dim and over "data" by FSDP) with
     ``moe_impl="shard_map"`` at capacity factor 8 and remat ``full``;
+  * reduced phi-3-vision, whisper-large-v3 and hymba-1.5b in float32
+    with ``d_ff`` 8192 (their MLPs split over "data" by FSDP too), at
+    remat ``full``, ``none`` and ``full``: on (2, 2) split over "model"
+    (attention and the MLP, the VLM's vocab, whisper's cross attention,
+    hymba's SSM heads by their channels), on (2, 1) data parallel, each
+    layer's leaves gathered in the layer;
   * on (2, 1) qwen2 at microbatch 2 (each rank holds its rows of both
     microbatches), on (2, 2) qwen2 with ``compress_grads``.
 
@@ -66,17 +72,35 @@ CASES = {
     "dense": (QWEN, {"d_ff": 8192}, {"remat": "none"}),
     "moe": (MOE, {"d_ff": 2048, "moe_capacity_factor": 8.0},
             {"remat": "full", "moe_impl": "shard_map"}),
+    "vlm": ("phi-3-vision-4.2b", {"d_ff": 8192}, {"remat": "full"}),
+    "whisper": ("whisper-large-v3", {"d_ff": 8192}, {"remat": "none"}),
+    "hymba": ("hymba-1.5b", {"d_ff": 8192}, {"remat": "full"}),
 }
+SPLIT = ("vlm", "whisper", "hymba")
 VARIANT = {(2, 1): (QWEN, {"d_ff": 8192}, {"remat": "none", "microbatch": 2}),
            (2, 2): (QWEN, {"d_ff": 8192},
                     {"remat": "none", "compress_grads": True})}
 LAYER_OVER = {"moe_capacity_factor": 8.0}
 
 
-def _batches(seed=1, B=4, S=16):
+def _batches(seed=1, B=4, S=16, arch=QWEN):
+    """Tokens, and the VLM's image embeddings or the encoder-decoder's
+    frames."""
+    cfg = reduced(get_config(arch))
     rng = np.random.default_rng(seed)
-    return [{"tokens": rng.integers(0, 256, (B, S)).astype(np.int32)}
-            for _ in range(STEPS)]
+    out = []
+    for _ in range(STEPS):
+        b = {"tokens": rng.integers(0, 256, (B, S)).astype(np.int32)}
+        if cfg.family == "vlm":
+            b["image_embeds"] = (rng.standard_normal(
+                (B, cfg.num_image_tokens, cfg.d_model)) * 0.5
+            ).astype(np.float32)
+        if cfg.is_encoder_decoder:
+            b["frames"] = (rng.standard_normal(
+                (B, cfg.encoder_frames, cfg.d_model)) * 0.5
+            ).astype(np.float32)
+        out.append(b)
+    return out
 
 
 def _layer_inputs():
@@ -109,9 +133,9 @@ def _reference(arch, over, plan, batches):
 def world(request, tmp_path_factory):
     shape = request.param
     cases = dict(CASES, variant=VARIANT[shape])
-    batches = _batches()
     refs, jobs = {}, {}
     for name, (arch, over, plan) in cases.items():
+        batches = _batches(arch=arch)
         init, ref = _reference(arch, over, plan, batches)
         refs[name] = ref
         cfg = dataclasses.replace(reduced(get_config(arch)),
@@ -124,12 +148,16 @@ def world(request, tmp_path_factory):
     p, x = _layer_inputs()
     layer = {"over": LAYER_OVER, "x": torch.from_numpy(x),
              "p": {k: torch.from_numpy(v) for k, v in p.items()}}
+    gen = torch.Generator().manual_seed(11)
+    split_leaf = {"w": torch.randn((4, 6, 8), generator=gen),
+                  "x": torch.randn((4, 6), generator=gen)}
     res = run_world(parallel_world, shape[0] * shape[1],
-                    tmp_path_factory.mktemp("world"), shape, jobs, layer)
-    return shape, refs, res, (p, x)
+                    tmp_path_factory.mktemp("world"), shape, jobs, layer,
+                    split_leaf)
+    return shape, refs, res, (p, x, split_leaf)
 
 
-@pytest.mark.parametrize("case", ["dense", "moe", "variant"])
+@pytest.mark.parametrize("case", ["dense", "moe", "variant", *SPLIT])
 def test_sharded_steps_match_reference(world, case):
     _, refs, res, _ = world
     got = res[0]["train"][case]
@@ -143,7 +171,7 @@ def test_sharded_steps_match_reference(world, case):
 def test_local_blocks_are_the_named_slices(world):
     shape, _, res, _ = world
     split = 0
-    for case in ("dense", "moe", "variant"):
+    for case in ("dense", "moe", "variant", *SPLIT):
         whole = dict(flatten(res[0]["train"][case]["whole"]))
         for rank_out in res:
             out = rank_out["train"][case]
@@ -164,7 +192,7 @@ def test_local_blocks_are_the_named_slices(world):
 
 
 def test_ep_moe_layer_matches_reference(world):
-    _, _, res, (p, x) = world
+    _, _, res, (p, x, _) = world
     got = res[0]["layer"]
     cfg = dataclasses.replace(jreduced(jget_config(MOE)), dtype="float32",
                               **LAYER_OVER)
@@ -192,3 +220,28 @@ def test_mesh_compression_is_the_global_blocks(world):
         compression.compress_(g, e)  # the whole leaf's blocks
         assert torch.equal(got["g"][key], g), key
         assert torch.equal(got["e"][key], e), key
+
+
+def test_layers_dim_split_leaf_gathers_a_layer_at_a_time(world):
+    """A leaf whose ``layers`` dim FSDP splits over "data": each layer is
+    read from the rank that holds it (every rank sees the same layer
+    ``i``, its own block of the kept dim), and the gradient, summed over
+    the data ranks, lands on that rank's block alone: the whole
+    gradient equals autograd's on the whole leaf and batch (float32
+    sums in another order: rtol 1e-5), each rank holding L/2 layers of
+    it."""
+    shape, _, res, (_, _, leaf) = world
+    w, x = leaf["w"], leaf["x"]
+    wg = w.clone().requires_grad_(True)
+    loss = sum(((x @ wg[i]) ** 2).sum() for i in range(w.shape[0]))
+    want, = torch.autograd.grad(loss, [wg])
+    got = res[0]["split_leaf"]
+    np.testing.assert_allclose(got["loss"], float(loss.detach()), rtol=1e-5)
+    torch.testing.assert_close(got["grad"], want, rtol=1e-5, atol=1e-5)
+    m = shape[1]
+    for out in res:
+        assert out["split_leaf"]["local_shape"] == (2, 6, 8 // m)
+        n = 8 // m
+        c = out["split_leaf"]["model"]
+        for i, seen in enumerate(out["split_leaf"]["seen"]):
+            assert torch.equal(seen, w[i, :, c * n:(c + 1) * n]), i

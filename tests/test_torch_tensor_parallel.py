@@ -14,6 +14,23 @@ through numpy), two steps each of:
   * ``straddle``: 12 query heads over 6 KV heads (3 local heads over 2
     KV heads, in groups of 2 and 1: one K/V head a query head) with an
     untied head (``lm_head`` split by vocab);
+  * ``vlm``: reduced phi-3-vision (the dense split, image embeddings
+    over the first 4 positions after the vocab-parallel embedding's sum);
+  * ``whisper``: reduced whisper-large-v3 at remat ``full``, its
+    encoder's and decoder's self-attention and its cross attention by
+    heads, its MLPs by their hidden dim, and a vocab of 250, which
+    divides no ``model`` axis of 4 (as 51866 does not): the embedding
+    and head held alike by every rank, not split;
+  * ``whisper_seq``: the same under ``seq_shard_attn`` with 6 encoder
+    frames: the decoder's self-attention and the cross attention by the
+    decoder's query rows (the cross attention's rows against every
+    frame), the encoder's attention not split (6 frames do not split
+    over 4 ranks) and its leaves' gradients not summed over ``model``;
+  * ``hymba``: reduced hymba under ``seq_shard_attn`` with a window of 4
+    (its window layer through K1's ``window`` with ``q_offset``), its
+    MLP by its hidden dim and its SSM heads by their channels (K5 on 32
+    of the 128 channels a rank);
+  * ``hymba_heads``: reduced hymba with attention by heads;
 
 and one step of ``heads`` with ``collectives.reduce_sum`` and
 ``collectives.all_gather_dim`` counted.  Besides, on the local mesh of
@@ -56,18 +73,42 @@ from torch_worlds import run_world, tensor_world
 STEPS = 2
 QWEN = "qwen2-1.5b"
 STRADDLE = {"num_heads": 12, "num_kv_heads": 6, "tie_embeddings": False}
+VLM, WHISPER, HYMBA = "phi-3-vision-4.2b", "whisper-large-v3", "hymba-1.5b"
 CASES = {
     "heads": (QWEN, {}, {"remat": "none"}),
     "seq": (QWEN, {}, {"remat": "none", "seq_shard_attn": True}),
     "straddle": (QWEN, STRADDLE, {"remat": "none"}),
+    "vlm": (VLM, {}, {"remat": "none"}),
+    "whisper": (WHISPER, {"vocab_size": 250}, {"remat": "full"}),
+    "whisper_seq": (WHISPER, {"encoder_frames": 6},
+                    {"remat": "none", "seq_shard_attn": True}),
+    "hymba": (HYMBA, {"sliding_window": 4},
+              {"remat": "none", "seq_shard_attn": True}),
+    "hymba_heads": (HYMBA, {}, {"remat": "full"}),
 }
 B, S = 4, 16
+COUNTED = ("heads", "hymba", "whisper")
 
 
-def _batches(seed=1):
+def _batches(seed=1, arch=QWEN, over=None):
+    """The global batches of a case: tokens, and the VLM's image
+    embeddings or the encoder-decoder's frames."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), **(over or {}))
     rng = np.random.default_rng(seed)
-    return [{"tokens": rng.integers(0, 256, (B, S)).astype(np.int32)}
-            for _ in range(STEPS)]
+    out = []
+    for _ in range(STEPS):
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+            np.int32)}
+        if cfg.family == "vlm":
+            b["image_embeds"] = (rng.standard_normal(
+                (B, cfg.num_image_tokens, cfg.d_model)) * 0.5
+            ).astype(np.float32)
+        if cfg.is_encoder_decoder:
+            b["frames"] = (rng.standard_normal(
+                (B, cfg.encoder_frames, cfg.d_model)) * 0.5
+            ).astype(np.float32)
+        out.append(b)
+    return out
 
 
 def _job(arch, over, plan, init, batches):
@@ -81,17 +122,19 @@ def _job(arch, over, plan, init, batches):
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    batches = _batches()
     refs, jobs, inits = {}, {}, {}
     for name, (arch, over, plan) in CASES.items():
-        key = tuple(sorted(over.items()))
+        batches = _batches(1, arch, over)
+        key = (arch,) + tuple(sorted(over.items()))
         if key not in inits:  # the reference's unsharded step: no split
             inits[key] = reference_run(arch, over, JPlan(remat="none"),
                                        batches, STEPS)
         init, refs[name] = inits[key]
         jobs[name] = _job(arch, over, plan, init, batches)
-    # the counted step on a state of its own (the steps update in place)
-    count = _job(*CASES["heads"], inits[()][0], batches)
+    # the counted steps on states of their own (the steps update in place)
+    count = {name: _job(*CASES[name], inits[(CASES[name][0],) + tuple(
+        sorted(CASES[name][1].items()))][0], _batches(1, *CASES[name][:2]))
+        for name in COUNTED}
     res = run_world(tensor_world, 4, tmp_path_factory.mktemp("world"),
                     (1, 4), jobs, count)
     return refs, res
@@ -127,6 +170,35 @@ def test_split_leaves_stay_local(world):
                 (rank, key)
 
 
+@pytest.mark.parametrize("case,key,dim", [
+    ("hymba", "params/blocks/ssm_w_in", 2),
+    ("hymba", "params/blocks/ssm_A_log", 1),
+    ("hymba", "params/blocks/ssm_w_out", 1),
+    ("hymba", "params/blocks/ssm_D", 1),
+    ("hymba_heads", "params/blocks/attn_wq", 2),
+    ("whisper", "params/blocks/xattn_wq", 2),
+    ("whisper", "params/enc_blocks/attn_wo", 1),
+    ("whisper", "params/enc_blocks/mlp_wd", 1),
+    ("whisper", "params/embed", None),
+    ("vlm", "params/embed", 0)])
+def test_new_regions_stay_local(world, case, key, dim):
+    """The regions this split adds keep their leaves' blocks local: the
+    SSM's channels, the cross attention's and the encoder's heads, the
+    VLM's vocab; a vocab of 250, which no layout splits over 4 ranks, is
+    held whole by every rank."""
+    _, res = world
+    want = dict(flatten(res[0]["train"][case]["whole"]))[key]
+    for rank, out in enumerate(res):
+        got = dict(flatten(out["train"][case]["local"]))[key]
+        if dim is not None:
+            n = want.shape[dim] // 4
+            want_r = want.narrow(dim, rank * n, n)
+        else:
+            want_r = want
+        assert got.shape == want_r.shape and torch.equal(got, want_r), \
+            (rank, key)
+
+
 def test_heads_mode_collectives(world):
     """One step in heads mode: two forward ``reduce_sum``s over ``model``
     a layer (attention's output projection and the MLP's down
@@ -135,7 +207,7 @@ def test_heads_mode_collectives(world):
     at all (``wq``, ``wo``, the MLP, ``embed`` stay split; the rest is
     held whole)."""
     _, res = world
-    calls = res[0]["calls"]
+    calls = res[0]["calls"]["heads"]
     cfg = reduced(get_config(QWEN))
     D, L = cfg.d_model, cfg.num_layers
     sums = [c for c in calls if c[0] == "reduce_sum"]
@@ -148,6 +220,44 @@ def test_heads_mode_collectives(world):
     gathers = [c for c in calls if c[0] == "all_gather_dim"
                and "model" in c[1]]
     assert not gathers, gathers
+
+
+def test_new_regions_collectives(world):
+    """One step each of ``hymba`` (attention by the sequence, the SSM by
+    its channels) and ``whisper`` (by heads, a vocab no rank splits),
+    with ``reduce_sum`` and ``all_gather_dim`` counted.  hymba, a layer:
+    the SSM's B, C and low-rank dt products in one sum ``(B, S, 2N +
+    16)``, the SSM's output and the MLP's ``(B, S, D)``, attention's rows
+    gathered back over ``model`` once (``(B, S/4, H, Dh)``), its leaves
+    gathered over ``model`` (``wq``'s heads, ``wo``'s heads: laid out on
+    ``model``, read whole); plus the embedding and the loss's two sums.
+    whisper, a layer: attention's and the MLP's sums, and the decoder's
+    cross attention's; no vocab sum, no gather over ``model``."""
+    _, res = world
+    hcfg = dataclasses.replace(reduced(get_config(HYMBA)),
+                               **CASES["hymba"][1])
+    D, L, N = hcfg.d_model, hcfg.num_layers, hcfg.ssm_state
+    calls = res[0]["calls"]["hymba"]
+    sums = [c[2] for c in calls if c[0] == "reduce_sum"]
+    assert sums.count((B, S, 2 * N + 16)) == L, sums
+    assert sums.count((B, S, D)) == 2 * L, sums
+    assert sums.count((B * S, D)) == 1 and sums.count((B, S - 1)) == 2
+    assert len(sums) == 3 * L + 3, sums
+    rows = [c for c in calls if c[0] == "all_gather_dim"
+            and c[1] == ("model",) and c[2][:2] == (B, S // 4)]
+    assert len(rows) == L, calls
+    wcfg = reduced(get_config(WHISPER))
+    calls = res[0]["calls"]["whisper"]
+    sums = [c[2] for c in calls if c[0] == "reduce_sum"]
+    # remat full recomputes the decoder's blocks (not the encoder's), up
+    # to the last tensor the backward reads (checkpoint's early stop):
+    # the MLP's sum is not recomputed
+    Le, Ld = wcfg.encoder_layers, wcfg.num_layers
+    assert sums.count((B, wcfg.encoder_frames, D)) == 2 * Le, sums
+    assert sums.count((B, S, D)) == 3 * Ld + 2 * Ld, sums
+    assert len(sums) == 2 * Le + 5 * Ld, sums
+    assert not [c for c in calls if c[0] == "all_gather_dim"
+                and "model" in c[1]], calls
 
 
 @pytest.mark.parametrize("seq_shard", [False, True], ids=["heads", "seq"])

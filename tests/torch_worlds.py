@@ -179,12 +179,49 @@ def moe_layer_world(rank, mesh_shape, cfg_over, p, x):
         if rank == 0 else None
 
 
-def parallel_world(rank, mesh_shape, cases, layer):
-    """:func:`train_world`'s cases and :func:`moe_layer_world`'s layer
-    (``{"over", "p", "x"}``) in one world."""
+def layer_split_world(rank, mesh_shape, w, x):
+    """A stacked leaf ``w`` ``(L, d, n)`` whose ``layers`` dim is split
+    over "data" (as FSDP splits hymba's SSM matrices on 16×16) and whose
+    ``n`` is split over "model" and kept there, read a layer at a time
+    under a gathering: ``loss = sum_i sum((x_r @ w_i)**2)`` over each data
+    rank's rows ``x_r`` and each model rank's columns.  Returns (rank 0)
+    the loss summed over the mesh and the gradient gathered whole, and
+    each layer's gathered block on every rank."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives, fsdp
+    from repro_torch.parallel.sharding import Sharding
+
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="cpu")
+    sh = Sharding(mesh, (("data",), (), ("model",)), tuple(w.shape))
+    local = sh.local(w).contiguous().requires_grad_(True)
+    xl = collectives.slice_block(x, 0, mesh, "data")
+    g = fsdp.Gathering([local], [fsdp.Leaf(mesh, sh.spec, (2,), ("data",))])
+    seen = []
+    with fsdp.installed(g):
+        loss = 0.0
+        for p in fsdp.layers({"w": local}):
+            wi = fsdp.layer(p)["w"]
+            seen.append(wi.detach().clone())
+            loss = loss + ((xl @ wi) ** 2).sum()
+        grad, = torch.autograd.grad(loss, [local])
+    total = collectives.all_reduce(loss.detach().reshape(1).clone(), mesh,
+                                   ("data", "model"))
+    whole = sh.full(grad.contiguous())
+    return {"loss": float(total), "grad": whole if rank == 0 else None,
+            "local_shape": tuple(grad.shape), "seen": seen,
+            "model": mesh.coord("model")}
+
+
+def parallel_world(rank, mesh_shape, cases, layer, split_leaf):
+    """:func:`train_world`'s cases, :func:`moe_layer_world`'s layer
+    (``{"over", "p", "x"}``) and :func:`layer_split_world`'s leaf
+    (``{"w", "x"}``) in one world."""
     return {"train": train_world(rank, mesh_shape, cases),
             "layer": moe_layer_world(rank, mesh_shape, layer["over"],
-                                     layer["p"], layer["x"])}
+                                     layer["p"], layer["x"]),
+            "split_leaf": layer_split_world(rank, mesh_shape,
+                                            split_leaf["w"],
+                                            split_leaf["x"])}
 
 
 def count_collectives(rank, mesh_shape, case):
@@ -229,11 +266,12 @@ def count_collectives(rank, mesh_shape, case):
     return calls if rank == 0 else None
 
 
-def tensor_world(rank, mesh_shape, cases, count_case):
-    """:func:`train_world`'s cases and :func:`count_collectives`' step in
-    one world."""
+def tensor_world(rank, mesh_shape, cases, count_cases):
+    """:func:`train_world`'s cases and :func:`count_collectives`' step of
+    each of ``count_cases`` (by name) in one world."""
     return {"train": train_world(rank, mesh_shape, cases),
-            "calls": count_collectives(rank, mesh_shape, count_case)}
+            "calls": {name: count_collectives(rank, mesh_shape, case)
+                      for name, case in count_cases.items()}}
 
 
 def psum_world(rank, stacked, err):
