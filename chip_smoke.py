@@ -314,7 +314,20 @@ them, and on any mismatch.  Phases, one or more lines each:
      plain versions with their times and bounds: K5 and K5-bwd at hymba's
      800 of 3200 channels (a ``model`` axis of 4), and K1 with its LSE and
      K1-bwd on whisper's non-causal encoder at a sequence-split rank (375
-     of 1500 frames at ``q_offset`` 375).
+     of 1500 frames at ``q_offset`` 375);
+ 49. the dense decoders' serving split over ``model`` (``serve/
+     sharded.py``), on one card: K1 at glm4-9b's split prefill rank of
+     ``prefill_32k`` on 16x16 (bf16, B 2, S = T 32768, causal, 2 query
+     heads reading 1 KV head) timed with SDPA's time and its bound, and
+     held against its plain version at S = T 4096; then qwen2-1.5b at
+     full width in bf16 (8 slots, a cache of 32768, prompts of 4096, 16
+     decode steps) with its cache read whole and read in 16 blocks of
+     2048 whose partials ``merge_partials`` joins (the arithmetic of the
+     decode on a cache split over 16 ranks), fed the same tokens: the
+     logits within ``TOL``'s bf16 tolerance, finite, of the expected
+     shape; and the same at 4 layers in float32, each run choosing its own
+     greedy tokens: identical.  The served runs' K1 launches join K1's
+     count.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -4597,6 +4610,133 @@ def phase_dryrun(cfg) -> None:
     assert dry["collectives"]["total_ops"] == 0, dry["collectives"]
 
 
+# phase 49: the dense decoders served split over ``model``.  K1 at
+# glm4-9b's split prefill rank (prefill_32k on 16x16: 2 rows a data rank,
+# 32 heads over 16 = 2 query heads reading 1 of its 2 KV heads), held
+# against its plain version at SV_K1_CHECK_S with the same heads; then
+# qwen2-1.5b served with its cache read whole and read in SV_BLOCKS blocks
+# merged as the ranks of a sequence-split cache merge theirs
+SV_K1 = dict(B=2, S=32768, H=2, KH=1, D=128)
+SV_K1_CHECK_S = 4096
+SV_SLOTS_SPLIT, SV_CACHE, SV_PROMPT, SV_STEPS = 8, 32768, 4096, 16
+SV_BLOCKS, SV_F32_LAYERS = 16, 4
+
+
+def _k1_split_prefill_case(gen) -> dict:
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    B, S, H, KH, D = (SV_K1[k] for k in ("B", "S", "H", "KH", "D"))
+
+    def qkv(n):
+        return (torch.randn((B, n, h, D), generator=gen, device=dev).to(dt)
+                for h in (H, KH, KH))
+
+    q, k, v = qkv(SV_K1_CHECK_S)
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=True)
+    want = flash_attention.plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = max_err(got, want, dt)
+    plain_ms = time_ms(lambda: flash_attention.plain(q, k, v, causal=True),
+                       reps=3, inner=1)
+    del q, k, v, got, want
+    q, k, v = qkv(S)
+    ms = time_ms(lambda: flash_attention.flash_attention_cuda(
+        q, k, v, causal=True), reps=5, inner=3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=5, inner=3)
+    pairs = S * (S + 1) // 2
+    bms, by = bound_ms(2 * (2 * B * S * H * D + 2 * B * S * KH * D),
+                       4.0 * B * H * D * pairs, BF16_FLOPS)
+    log(f"[49 K1 split prefill] glm4-9b's rank of prefill_32k on 16x16: "
+        f"bf16 B={B} S=T={S} H={H} KH={KH} D={D} causal: ms={ms:.4f} "
+        f"library_ms={lib_ms:.4f} ms/library_ms={ms / lib_ms:.2f} "
+        f"bound_ms={bms:.5f} ({by}); against the plain version at "
+        f"S=T={SV_K1_CHECK_S}: max_abs_err={err:.3g} (tol {TOL[dt]:g} "
+        f"abs+rel), plain_ms={plain_ms:.4f} (there)")
+    return dict(shape="glm4-9b prefill_32k 16x16 rank", B=B, S=S, T=S, H=H,
+                KH=KH, D=D, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                plain_at_S=SV_K1_CHECK_S, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def _served(model, params, tokens, steps, blocks, forced=None):
+    """The prefill into a cache of SV_CACHE positions, then ``steps``
+    decode steps reading the cache whole (``blocks`` 1) or in ``blocks``
+    merged blocks, each step fed the greedy token (or ``forced``'s)."""
+    logits, cache = model.prefill(params, tokens, max_seq=SV_CACHE)
+    seen, chosen = [logits.float()], []
+    for i in range(steps):
+        nxt = (logits.argmax(-1).to(torch.int32)[:, None] if forced is None
+               else forced[:, i:i + 1])
+        chosen.append(nxt)
+        logits, cache = model.decode_step(params, cache, nxt,
+                                          kv_blocks=blocks)
+        seen.append(logits.float())
+    torch.cuda.synchronize()
+    return torch.stack(seen), torch.cat(chosen, 1)
+
+
+def phase_serve_split(gen) -> dict:
+    """49: K1 at glm4-9b's split prefill rank; qwen2-1.5b at full width in
+    bf16, 8 slots, a cache of 32768, prompts of 4096, 16 decode steps,
+    its cache read whole and read in 16 blocks of 2048 merged by
+    ``merge_partials`` (the sequence-split decode's arithmetic on one
+    card), fed the same tokens: logits within the kernels' bf16
+    tolerance; then the same at 4 layers in float32, each run choosing
+    its own greedy tokens: identical.  Returns K1's row and its launches
+    in the served runs."""
+    t0 = time.perf_counter()
+    row = _k1_split_prefill_case(gen)
+    torch.cuda.empty_cache()
+    n0 = flash_attention.launches
+    cfg = get_config("qwen2-1.5b")
+    out = {}
+    for dt, layers in (("bfloat16", cfg.num_layers),
+                       ("float32", SV_F32_LAYERS)):
+        c = dataclasses.replace(cfg, dtype=dt, num_layers=layers)
+        model = build_model(c)
+        params = model.serving_params(model.init(seed=0))
+        tokens = torch.randint(0, c.vocab_size, (SV_SLOTS_SPLIT, SV_PROMPT),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        t1 = time.perf_counter()
+        whole, toks = _served(model, params, tokens, SV_STEPS, 1)
+        t_whole = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        split, split_toks = _served(
+            model, params, tokens, SV_STEPS, SV_BLOCKS,
+            forced=toks if dt == "bfloat16" else None)
+        t_split = time.perf_counter() - t1
+        assert bool(torch.isfinite(split).all()) and split.shape == (
+            SV_STEPS + 1, SV_SLOTS_SPLIT, c.vocab_size), split.shape
+        rel = float((split - whole).abs().max() / whole.abs().max())
+        if dt == "bfloat16":
+            err = max_err(split, whole, torch.bfloat16)
+            log(f"[49 serve split] {c.name} bf16, {layers} layers, "
+                f"{SV_SLOTS_SPLIT} slots, cache {SV_CACHE}, prompt "
+                f"{SV_PROMPT}, {SV_STEPS} steps: cache read in {SV_BLOCKS} "
+                f"blocks of {SV_CACHE // SV_BLOCKS} merged vs read whole, "
+                f"fed the same tokens: max |diff| of the logits {err:.4g} "
+                f"(tol {TOL[torch.bfloat16]:g} abs+rel), {rel:.3g} of max "
+                f"|logit|; whole {t_whole:.2f} s, blocks {t_split:.2f} s "
+                f"(host clock, prefill included)")
+        else:
+            same = bool(torch.equal(split_toks, toks))
+            log(f"[49 serve split] {c.name} float32, {layers} layers: greedy "
+                f"tokens of the merged read identical to the whole read's: "
+                f"{same} ({toks.numel()} tokens); logits {rel:.3g} of max "
+                f"|logit| apart")
+            assert same, (split_toks, toks)
+        out[dt] = rel
+        del model, params, whole, split
+        torch.cuda.empty_cache()
+    launches = flash_attention.launches - n0
+    took = time.perf_counter() - t0
+    log(f"[49 serve split] K1 launches in the served runs {launches}; the "
+        f"phase took {took:.1f} s")
+    return {"K1": row, "flash_attention": launches, "seconds": took}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4723,6 +4863,7 @@ def main() -> int:
            for k in ("flash_attention", "flash_attention_bwd")}
     tp = phase_tp_kernels(gen, k1_bwd, k1_train)
     phase_dryrun(cfg)
+    sv = phase_serve_split(torch.Generator(device="cuda").manual_seed(49))
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -4735,9 +4876,10 @@ def main() -> int:
                        + pv["flash_attention"] + sw["flash_attention"]
                        + ms["flash_attention"] + hs["flash_attention"]
                        + xs["flash_attention"] + ht["flash_attention"]
-                       + par["flash_attention"]),
+                       + par["flash_attention"] + sv["flash_attention"]),
              hymba_prefill=sk["flash_attention"],
-             split_ranks=[fwd for fwd, _ in tp] + [fam["K1"]], **k1),
+             split_ranks=[fwd for fwd, _ in tp] + [fam["K1"], sv["K1"]],
+             **k1),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
              includes=[PAGED_COMMON, HOPPER_COMMON],

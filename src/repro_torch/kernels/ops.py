@@ -21,6 +21,10 @@ transposing or padding happens here.
     :func:`masked_decode_attention`, one token against a window layer's
     ring buffer: the plain version on every device, as in the reference,
     where the dense decode and verify reads are never a Pallas kernel;
+    :func:`decode_attention_partial` and :func:`merge_partials`, one
+    token against each block of a sequence-split cache and the blocks'
+    partials joined (the arithmetic GSPMD makes of the reference's
+    dense decode read on a cache split over ``model``), plain too;
   * :func:`mlstm_scan` — the xLSTM matrix memory of the train path (K6,
     and K6-bwd under autograd), q/k ``(B, H, S, D)``, v ``(B, H, S, DV)``,
     gates ``(B, H, S)``; :func:`mlstm_scan_with_state` — the prefill's,
@@ -52,8 +56,9 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.paged_attention_mq import (
     paged_attention_mq as paged_decode_attention_mq)
 
-__all__ = ["decode_attention", "decode_attention_mq", "flash_attention",
-           "masked_decode_attention",
+__all__ = ["decode_attention", "decode_attention_mq",
+           "decode_attention_partial", "flash_attention",
+           "masked_decode_attention", "merge_partials",
            "mlstm_scan", "mlstm_scan_with_state", "mlstm_step", "moe_gmm",
            "paged_decode_attention", "paged_decode_attention_mq", "ssm_scan",
            "ssm_scan_with_state", "ssm_step"]
@@ -64,6 +69,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Single-token attention against a dense cache: q ``(B, 1, H, D)``,
     k/v ``(B, T, KH, D)``, valid lengths ``(B,)``."""
     return ref.attention(q, k, v, causal=False, window=0, kv_len=kv_len)
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, valid: torch.Tensor):
+    """One decode token against one block of a sequence-split cache: the
+    block's float32 ``(out (B, H, D), lse (B, H))`` over the positions
+    ``valid`` ``(B, T)`` marks, q ``(B, 1, H, D)``, k/v ``(B, T, KH, D)``;
+    :func:`merge_partials` joins the blocks.  The plain version on every
+    device, as the dense decode read is."""
+    return ref.decode_attention_partial(q, k, v, valid)
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Blocks' partial attentions ``(n, ..., D)`` with their ``(n, ...)``
+    log-sum-exps merged into the attention over their union (float32)."""
+    return ref.merge_partials(out, lse)
 
 
 def masked_decode_attention(q: torch.Tensor, k: torch.Tensor,

@@ -70,6 +70,50 @@ def attention(
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, valid: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode token against one block of a cache: q ``(B, 1, H, D)``,
+    k/v ``(B, T, KH, D)``, ``valid`` ``(B, T)`` the positions it sees.
+    Returns the block's float32 ``(out (B, H, D), lse (B, H))``: the
+    softmax-weighted values normalised within the block and the
+    log-sum-exp of its scaled scores; a block that ``valid`` leaves empty
+    gives ``out`` 0 and ``lse`` ``-inf`` (never NaN).  :func:`merge_partials`
+    of the blocks' pairs is the attention over their union."""
+    B, _, H, D = q.shape
+    KH = k.shape[2]
+    qf = q.float().reshape(B, 1, KH, H // KH, D) * (D ** -0.5)
+    s = torch.einsum("bskgd,btkd->bkgst", qf, k.float())  # (B, KH, G, 1, T)
+    seen = valid[:, None, None, None, :]
+    s = torch.where(seen, s, NEG_INF)
+    mx = s.amax(-1, keepdim=True)
+    p = torch.where(seen, torch.exp(s - mx), 0.0)
+    total = p.sum(-1).reshape(B, H)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float()).reshape(B, H, D)
+    some = total > 0
+    out = torch.where(some[..., None], out / torch.where(
+        some, total, 1.0)[..., None], 0.0)
+    lse = torch.where(some, mx.reshape(B, H) + torch.log(total),
+                      -torch.inf)
+    return out, lse
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The attention over the union of blocks from each block's partial
+    (:func:`decode_attention_partial`), stacked on a leading dim: ``out``
+    ``(n, ..., D)``, ``lse`` ``(n, ...)``.  ``m = max lse``, ``w = exp(lse
+    - m)``, ``sum(w * out) / sum(w)`` in float32; a block of ``lse``
+    ``-inf`` weighs 0, and where every block is empty the result is 0."""
+    m = lse.amax(0)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    w = torch.exp(lse.float() - m)
+    total = w.sum(0)
+    merged = (w[..., None] * out.float()).sum(0)
+    return torch.where(total[..., None] > 0,
+                       merged / torch.where(total > 0, total, 1.0)[..., None],
+                       0.0)
+
+
 def masked_decode_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, valid: torch.Tensor
                             ) -> torch.Tensor:

@@ -11,12 +11,17 @@ port's own step once on fake tensors of one rank's local blocks
 OpCounter`, on the mesh's (fake) world: the counter's FLOPs, bytes,
 collectives and live-memory peak stand in for XLA's.
 
-Train cells go through ``make_train_artifacts`` (the sharded step);
-prefill and decode cells through ``model.prefill`` and
-``model.decode_step`` with bf16 parameters, on meshes whose ``model``
-axis is 1: the port has no sharded serving (ROADMAP, "sharded serving
-cells"), so each data rank holds the whole parameters and its rows of
-the batch and the cache.
+Train cells go through ``make_train_artifacts`` (the sharded step).
+Prefill and decode cells take bf16 parameters.  The dense decoders'
+go through ``serve/sharded.py``'s ``make_serve_artifacts`` on any mesh,
+as the reference lays them out: the parameters by
+``make_param_shardings`` (their ``model`` dims and FSDP over the data
+axes, gathered a layer at a time), the batch over the data axes, the
+cache by ``cache_spec`` (its K/V sequence over ``model``), the step split
+over ``model``.  The other families' serving cells are built on meshes
+whose ``model`` axis is 1 only, each data rank holding the whole
+parameters and its rows of the batch and the cache (ROADMAP, "sharded
+serving cells").
 """
 from __future__ import annotations
 
@@ -32,10 +37,10 @@ from repro_torch.launch import op_stats
 from repro_torch.models.api import Model
 from repro_torch.parallel.sharding import (Plan, Sharding, batch_specs,
                                            cache_spec, replicated)
+from repro_torch.serve.sharded import (SERVING_ROADMAP, SPLIT_FAMILIES,
+                                       make_serve_artifacts)
 from repro_torch.train import OptimizerConfig, make_train_artifacts
 from repro_torch.tree import Tree, tree_map
-
-SERVING_ROADMAP = "sharded serving cells"
 
 
 def default_plan(cfg: ModelConfig, mesh, *, remat: str = "full",
@@ -87,17 +92,20 @@ def build_cell(arch: str, shape_name: str, mesh,
                            (art.state_specs, art.batch_input_specs), plan,
                            (art.state_shardings, art.batch_shardings))
 
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{arch} × {shape_name} on {desc}: serving over the model axis "
-            f"is not ported (ROADMAP, '{SERVING_ROADMAP}')")
-    # serving paths use bf16 parameters, whole on every rank
+    # serving paths use bf16 parameters
     p_specs, _ = model.param_specs()
     p_specs = tree_map(
         lambda s: torch.empty(s.shape, dtype=torch.bfloat16, device="meta")
         if s.dtype == torch.float32 else s, p_specs)
-    p_shard = tree_map(lambda s: replicated(mesh, tuple(s.shape)), p_specs)
     B = shape.global_batch
+    if cfg.family in SPLIT_FAMILIES:
+        return _split_serving_cell(model, shape, mesh, plan, p_specs,
+                                   (arch, shape_name, desc))
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"{arch} × {shape_name} on {desc}: serving over the model axis "
+            f"is not ported (ROADMAP, '{SERVING_ROADMAP}')")
+    p_shard = tree_map(lambda s: replicated(mesh, tuple(s.shape)), p_specs)
 
     if shape.kind == "prefill":
         b_specs = model.input_specs(shape)
@@ -125,6 +133,30 @@ def build_cell(arch: str, shape_name: str, mesh,
     return LoweredCell(arch, shape_name, desc, "decode", decode_fn,
                        (p_specs, cache_specs, tok_spec), plan,
                        (p_shard, cache_shard, tok_shard))
+
+
+def _split_serving_cell(model: Model, shape: ShapeConfig, mesh, plan: Plan,
+                        p_specs: Tree, names) -> LoweredCell:
+    """A dense decoder's prefill or decode cell on the reference's
+    serving layouts, its step ``make_serve_artifacts``' (the prompt's
+    cache of ``seq_len`` positions)."""
+    B = shape.global_batch
+    art = make_serve_artifacts(model, mesh, plan, B, shape.seq_len)
+    if shape.kind == "prefill":
+        b_specs = model.input_specs(shape)
+
+        def prefill_fn(params, batch):
+            return art.prefill_fn(params, batch["tokens"])
+
+        return LoweredCell(*names, "prefill", prefill_fn, (p_specs, b_specs),
+                           plan, (art.param_shardings,
+                                  batch_specs(b_specs, mesh, plan)))
+    specs = model.input_specs(shape)
+    tok_shard = batch_specs({"tokens": specs["tokens"]}, mesh,
+                            plan)["tokens"]
+    return LoweredCell(*names, "decode", art.decode_fn,
+                       (p_specs, art.cache_specs, specs["tokens"]), plan,
+                       (art.param_shardings, art.cache_shardings, tok_shard))
 
 
 def _batch_only(shardings: Tree, mesh, what: str,

@@ -9,14 +9,14 @@ axis).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, rope_angles
-from repro_torch.parallel import tensor
+from repro_torch.parallel import collectives, tensor
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -66,6 +66,29 @@ def attend_train(p: Dict[str, torch.Tensor], x: torch.Tensor,
     ``q_offset`` (which a non-causal call ignores), the output rows
     gathered back over ``model``.  The mode is this call's
     (``Split.attn_mode`` of its ``S``)."""
+    return _attend(p, x, cfg, causal=causal, window=window,
+                   use_rope=use_rope, prefix=prefix, kv=kv)[0]
+
+
+def attend_prefill(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                   cfg: ModelConfig, block: Tuple[int, int]):
+    """The prefill's causal self-attention, as :func:`attend_train`
+    computes it (under a split the rank's heads or query rows), and the
+    cache's entries at the positions ``block = (start, n)``: ``(out,
+    k, v)``, k (RoPE'd) and v ``(B, n, KH, Dh)`` of every KV head.  Where
+    the rank's own K and V already hold every KV head they are sliced;
+    where it projected only its heads' KV heads (attention by heads),
+    its ``n`` positions are projected for all of them from the rows it
+    holds alike (``wk`` and ``wv`` are held alike), with no
+    collective."""
+    return _attend(p, x, cfg, causal=True, window=0, use_rope=True,
+                   prefix="attn", kv=None, block=block)
+
+
+def _attend(p, x, cfg, *, causal, window, use_rope, prefix, kv,
+            block: Optional[Tuple[int, int]] = None):
+    """``(out, k, v)``: :func:`attend_train`'s output and, for a
+    ``block``, :func:`attend_prefill`'s cache entries (else None)."""
     assert kv is None or not use_rope
     sp = tensor.active()
     S = x.shape[1]
@@ -93,6 +116,7 @@ def attend_train(p: Dict[str, torch.Tensor], x: torch.Tensor,
         q = q + p[f"{prefix}_bq"].to(dt)
         k = k + w["bk"].to(dt)
         v = v + w["bv"].to(dt)
+    every_kv = idx is None and w["wk"] is p[f"{prefix}_wk"]
     if idx is not None:
         k, v = k.index_select(2, idx), v.index_select(2, idx)
     if use_rope:
@@ -101,13 +125,36 @@ def attend_train(p: Dict[str, torch.Tensor], x: torch.Tensor,
         q = apply_rope(q, cos, sin) if n == S else \
             apply_rope(q, cos[off:off + n], sin[off:off + n])
         k = apply_rope(k, cos, sin)
+    kc = vc = None
+    if block is not None:
+        start, size = block
+        if every_kv:
+            kc, vc = k.narrow(1, start, size), v.narrow(1, start, size)
+        else:
+            kc, vc = _kv_at(p, x, cfg, start, size, prefix)
     out = out_proj(p, ops.flash_attention(q, k, v, causal=causal,
                                           window=window, q_offset=off), prefix)
     if mode == "heads":
-        return sp.reduce_sum(out)
-    if mode == "seq":
-        return sp.gather(out, 1)
-    return out
+        out = sp.reduce_sum(out)
+    elif mode == "seq":
+        out = sp.gather(out, 1)
+    return out, kc, vc
+
+
+def _kv_at(p, x: torch.Tensor, cfg: ModelConfig, start: int, n: int,
+           prefix: str = "attn"):
+    """K (RoPE'd) and V of every KV head at positions ``start ..
+    start+n-1`` of ``x``."""
+    dt = x.dtype
+    xs = x.narrow(1, start, n)
+    k = _proj(xs, p[f"{prefix}_wk"])
+    v = _proj(xs, p[f"{prefix}_wv"])
+    if cfg.qkv_bias:
+        k = k + p[f"{prefix}_bk"].to(dt)
+        v = v + p[f"{prefix}_bv"].to(dt)
+    cos, sin = rope_angles(torch.arange(start, start + n, device=x.device),
+                           cfg.head_dim, cfg.rope_theta)
+    return apply_rope(k, cos, sin), v
 
 
 def _kv_heads(p, cfg: ModelConfig, h0: int, hl: int, prefix: str):
@@ -145,7 +192,7 @@ def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
                   pos: torch.Tensor, cfg: ModelConfig, *,
                   use_rope: bool = True, window: int = 0,
                   slot_pos: Optional[torch.Tensor] = None,
-                  prefix: str = "attn") -> torch.Tensor:
+                  prefix: str = "attn", kv_blocks: int = 1) -> torch.Tensor:
     """One-token attention against a dense cache ``(B, S_max, KH, Dh)``.
 
     The new token's K/V is written at ``pos`` in place (the reference
@@ -167,7 +214,17 @@ def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
     tokens fill the window its decode also attends to the zero K/V of
     slots that hold no position, and disagrees with its own forward; the
     port's decode computes the windowed attention its forward computes (a
-    difference by design, ROADMAP §3)."""
+    difference by design, ROADMAP §3).
+
+    Under a serving split over ``model``, and with ``kv_blocks > 1`` on
+    one device, the cache is read in sequence blocks:
+    :func:`_attend_decode_blocks`."""
+    if kv_blocks > 1 or tensor.active() is not None:
+        if window > 0:
+            raise ValueError("a window layer's ring is not read in "
+                             "sequence blocks")
+        return _attend_decode_blocks(p, x, cache_k, cache_v, pos, cfg,
+                                     kv_blocks, use_rope, prefix)
     B = x.shape[0]
     q, k, v = qkv(p, x, cfg, prefix)  # (B, 1, *, Dh)
     if use_rope:
@@ -188,6 +245,76 @@ def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
         out = ops.masked_decode_attention(q, cache_k, cache_v, valid)
     else:
         out = ops.decode_attention(q, cache_k, cache_v, kv_len=pos + 1)
+    return out_proj(p, out, prefix)
+
+
+def _attend_decode_blocks(p, x, cache_k, cache_v, pos, cfg, kv_blocks,
+                          use_rope, prefix) -> torch.Tensor:
+    """One-token attention against a dense cache read in sequence blocks,
+    each block's partial softmax (``ops.decode_attention_partial``)
+    merged by ``ops.merge_partials``: the decode of a cache whose
+    sequence is split over ``model``, or, with ``kv_blocks`` on one
+    device, the same arithmetic over that many blocks of a whole cache.
+
+    Under the split ``cache_k``/``cache_v`` ``(B, S_max/m, KH, Dh)`` are
+    this rank's block, positions ``rank·S_max/m ..`` (``Split.
+    cache_block``: a cache laid out otherwise raises).  Every rank
+    projects the new token's K/V (``wk`` and ``wv`` are held alike); the
+    rank whose block holds ``pos`` writes it there, by a ``where`` on the
+    row (no host sync), after today's clamp of a parked slot's ``pos``
+    into the last row, which the last rank holds.  Attention split by
+    heads gathers the ranks' query heads over ``model`` (``B·H·Dh``
+    values); every rank reads all heads over its block, masked by global
+    position ``< pos + 1``, and the blocks' ``(out, lse)`` are gathered
+    over ``model`` (one all-gather) and merged.  By heads each rank then
+    keeps its heads for its rows of ``wo`` and the terms are summed over
+    ``model``; unsplit, ``wo`` is whole."""
+    sp = tensor.active()
+    B, T = x.shape[0], cache_k.shape[1]
+    if sp is not None:
+        if kv_blocks != 1:
+            raise ValueError("under a split each rank reads its one block")
+        start = sp.rank * sp.cache_block(T * sp.size)
+        heads = sp.attn_mode(1) == "heads"
+        total = T * sp.size
+    else:
+        start, heads, total = 0, False, T
+    q, k, v = qkv(p, x, cfg, prefix)  # (B, 1, *, Dh)
+    if heads:
+        q = collectives.all_gather_dim(q, 2, sp.mesh, tensor.AXIS)
+    if use_rope:
+        cos, sin = rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    bidx = torch.arange(B, device=x.device)
+    at = pos.long().clamp(max=total - 1) - start
+    own = ((at >= 0) & (at < T))[:, None, None]
+    at = at.clamp(0, T - 1)
+    cache_k[bidx, at] = torch.where(own, k[:, 0].to(cache_k.dtype),
+                                    cache_k[bidx, at])
+    cache_v[bidx, at] = torch.where(own, v[:, 0].to(cache_v.dtype),
+                                    cache_v[bidx, at])
+    kpos = start + torch.arange(T, device=x.device)
+    valid = kpos[None, :] < (pos + 1)[:, None]  # (B, T)
+    n = kv_blocks
+    if T % n:
+        raise ValueError(f"{T} positions do not split into {n} blocks")
+    out, lse = ops.decode_attention_partial(
+        q if n == 1 else q.repeat_interleave(n, 0),
+        cache_k.reshape(B * n, T // n, *cache_k.shape[2:]),
+        cache_v.reshape(B * n, T // n, *cache_v.shape[2:]),
+        valid.reshape(B * n, T // n))
+    out = out.unflatten(0, (B, n)).movedim(1, 0)  # (n, B, H, Dh)
+    lse = lse.unflatten(0, (B, n)).movedim(1, 0)
+    if sp is not None:
+        both = torch.cat([out, lse[..., None]], -1)
+        both = collectives.all_gather_dim(both, 0, sp.mesh, tensor.AXIS)
+        out, lse = both[..., :-1], both[..., -1]
+    out = ops.merge_partials(out, lse).to(q.dtype)[:, None]  # (B, 1, H, Dh)
+    if heads:
+        hl = p[f"{prefix}_wq"].shape[1]
+        return sp.reduce_sum(out_proj(p, out.narrow(2, sp.rank * hl, hl),
+                                      prefix))
     return out_proj(p, out, prefix)
 
 

@@ -33,7 +33,10 @@ on their vocab as the reference's ``hints.logits`` pins them.  The
 sharded step also installs its gathering (``parallel/fsdp.py``): then
 :func:`layers` gives each layer's slices of the rank's blocks, each
 block function gathers its layer first, and the embedding, head and
-final norm are gathered where read.
+final norm are gathered where read.  The dense decoders' prefill and
+decode run under the same split and gathering when served on a mesh
+(``serve/sharded.py``): the cache is each rank's block of the sequence,
+and the logits come back whole over the vocab.
 
 Remat ``"full"`` is ``torch.utils.checkpoint`` (non-reentrant) around
 each block, the reference's ``jax.checkpoint`` of the scan body; for the
@@ -69,8 +72,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import moe
 from repro_torch.models import recurrent as rec
 from repro_torch.models.attention import (attend_decode, attend_decode_paged,
-                                          attend_train, attend_verify,
-                                          attend_verify_paged, out_proj, qkv)
+                                          attend_prefill, attend_train,
+                                          attend_verify, attend_verify_paged,
+                                          out_proj, qkv)
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        init_param, rope_angles)
 from repro_torch.parallel import fsdp, tensor
@@ -574,7 +578,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             lens: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
     """Full forward emitting the decode cache (:func:`init_cache`'s
     layout for ``max_seq`` positions).  Returns (last-token logits
-    ``(B, V)``, cache).
+    ``(B, V)``, cache).  Under the serving split over ``model`` (the
+    dense decoders, ``serve/sharded.py``) the forward is split as the
+    train forward is, the cache is this rank's block of the sequence
+    (``Split.cache_block``) and the logits come back whole over the
+    vocab.
 
     ``lens`` (B,) marks ragged rows of a right-padded batch: logits come
     from position ``lens[b] - 1`` and the cache position is ``lens[b]``,
@@ -595,16 +603,17 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError("padded prefill (lens) unsupported for MoE: "
                          "expert capacity scales with the padded length "
                          "and pad tokens would evict real ones")
+    sp = tensor.active()
     x = embed_tokens(params, cfg, tokens, extra)
     full = torch.full((B,), S, dtype=torch.int32, device=x.device)
     if cfg.family == "ssm":
         x, cache = _xlstm_prefill(cfg, params["blocks"], x)
         logits = lm_logits(params, cfg, x[:, -1:])
         return logits[:, 0], dict(cache, pos=full)
-    cos, sin = rope_angles(torch.arange(S, device=tokens.device),
-                           cfg.head_dim, cfg.rope_theta)
     per_layer = layers(cfg, params["blocks"])
     if cfg.family == "hybrid":
+        cos, sin = rope_angles(torch.arange(S, device=tokens.device),
+                               cfg.head_dim, cfg.rope_theta)
         cache_layers = []
         for i, p in enumerate(per_layer):
             x, cl = _hybrid_block_prefill(cfg, p, x, layer_window(cfg, i),
@@ -612,26 +621,40 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache_layers.append(cl)
         logits = lm_logits(params, cfg, x[:, -1:])
         return logits[:, 0], {"layers": cache_layers, "pos": full}
-    shape = (len(per_layer), B, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    # the cache positions this rank holds: all of them, or under the
+    # serving split its block; the prompt reaches ``n`` of them
+    held = max_seq if sp is None else sp.cache_block(max_seq)
+    start = 0 if sp is None else min(sp.rank * held, S)
+    n = max(0, min(S, start + held) - start)
+    shape = (len(per_layer), B, held, cfg.num_kv_heads, cfg.head_dim)
     kcache = torch.zeros(shape, dtype=x.dtype, device=x.device)
     vcache = torch.zeros(shape, dtype=x.dtype, device=x.device)
     for i, p in enumerate(per_layer):
+        p = fsdp.layer(p)
         h = apply_norm(p, "norm1", x, cfg.norm)
-        q, k, v = qkv(p, h, cfg)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        attn = ops.flash_attention(q, k, v, causal=True)
-        x, _ = _ffn_residual(p, x + out_proj(p, attn), cfg)
-        kcache[i, :, :S] = k
-        vcache[i, :, :S] = v
+        attn, k, v = attend_prefill(p, h, cfg, (start, n))
+        x, _ = _ffn_residual(p, x + attn, cfg)
+        kcache[i, :, :n] = k
+        vcache[i, :, :n] = v
     if lens is None:
         x_last = x[:, -1:]
         pos = full
     else:
         pos = lens.to(device=x.device, dtype=torch.int32)
         x_last = x[torch.arange(B, device=x.device), pos.long() - 1][:, None]
-    logits = lm_logits(params, cfg, x_last)
+    logits = _whole_logits(params, cfg, x_last)
     return logits[:, 0], {"k": kcache, "v": vcache, "pos": pos}
+
+
+def _whole_logits(params: Params, cfg: ModelConfig,
+                  x: torch.Tensor) -> torch.Tensor:
+    """:func:`lm_logits` over the whole vocab: under a vocab-parallel
+    split the ranks' blocks gathered over ``model``."""
+    logits = lm_logits(params, cfg, x)
+    sp = tensor.active()
+    if sp is not None and sp.splits("vocab"):
+        logits = sp.gather(logits, logits.dim() - 1)
+    return logits
 
 
 def _hybrid_block_prefill(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -726,15 +749,24 @@ def _hybrid_block_decode(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+                tokens: torch.Tensor, kv_blocks: int = 1
+                ) -> Tuple[torch.Tensor, Params]:
     """tokens: (B, 1).  Returns (logits (B, V), cache with ``pos + 1``).
 
     Dispatches on the family and the cache layout: a ``k_pool`` key marks
     the paged cache.  The new token's K/V (and a recurrent layer's new
     state) is written into the given cache in place (the reference
     returns new arrays); the returned dict holds the same tensors and the
-    advanced ``pos``."""
+    advanced ``pos``.
+
+    Under the serving split over ``model`` (the dense decoders,
+    ``serve/sharded.py``) the dense cache's K/V are this rank's block of
+    the sequence (``models/attention.py``'s ``_attend_decode_blocks``)
+    and the logits come back whole over the vocab.  ``kv_blocks > 1``
+    reads a whole dense cache on one device in that many sequence
+    blocks, merged as the split merges its ranks' blocks."""
     require_ported(cfg)
+    sp = tensor.active()
     pos = cache["pos"]
     x = embed_tokens(params, cfg, tokens)
     blocks = params["blocks"]
@@ -746,7 +778,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
             x = _hybrid_block_decode(cfg, p, cl, x, pos, layer_window(cfg, i))
     else:
         paged = "k_pool" in cache
+        if paged and (sp is not None or kv_blocks > 1):
+            raise ValueError("the paged cache is read whole, on one device")
         for i, p in enumerate(layers(cfg, blocks)):
+            p = fsdp.layer(p)
             h = apply_norm(p, "norm1", x, cfg.norm)
             if paged:
                 attn = attend_decode_paged(p, h, cache["k_pool"][i],
@@ -754,9 +789,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                                            cache["page_table"], pos, cfg)
             else:
                 attn = attend_decode(p, h, cache["k"][i], cache["v"][i], pos,
-                                     cfg)
+                                     cfg, kv_blocks=kv_blocks)
             x, _ = _ffn_residual(p, x + attn, cfg)
-    logits = lm_logits(params, cfg, x)[:, 0]
+    logits = _whole_logits(params, cfg, x)[:, 0]
     return logits, dict(cache, pos=pos + 1)
 
 

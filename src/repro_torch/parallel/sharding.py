@@ -264,8 +264,8 @@ def cache_spec(shape: Tuple[int, ...], mesh, plan: Plan, batch: int,
     data axes, the sequence axis of big K/V leaves over ``model`` (over
     data and ``model`` when the batch could not shard), and for recurrent
     state leaves (no sequence axis) the largest divisible dim over the
-    ``model`` axes.  The port serves on no mesh; this is kept for parity
-    with the reference's dry-run layouts."""
+    ``model`` axes.  The dense decoders' sharded serving reads and
+    writes the cache so (``serve/sharded.py``)."""
     sizes = mesh_sizes(mesh)
     dp = tuple(a for a in plan.dp_axes if a in sizes)
     dp_size = _axes_of(sizes, dp)

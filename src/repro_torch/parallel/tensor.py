@@ -49,6 +49,13 @@ over ``model`` the gradient of every other leaf a split region reads
 (:meth:`Split.partial`), so a leaf added to a region is summed with no
 table to update.  The model's split functions ask :meth:`Split.splits`.
 
+Serving installs the same split for a forward with no backward
+(``serve/sharded.py``, the dense decoders), with :attr:`Split.cache_seq`
+the decode cache's positions, whose sequence the serving layout splits
+over ``model``: the prefill emits each rank's block of it and the
+decode's attention reads the rank's block, the blocks' partial
+softmaxes merged over ``model`` (``models/attention.py``).
+
 Over a ``model`` group of one rank nothing is split: :func:`active` is
 None and every split function runs the unsplit code.
 """
@@ -112,11 +119,17 @@ def kept_dim(name: str, axes: Sequence[str], spec, heads: bool
 class Split:
     """The mesh, the attention mode (``"heads"``, ``"seq"`` or None:
     attention not split) and the regions split (``REGIONS``' keys,
-    ``"attn"`` with the mode) of one forward and backward."""
+    ``"attn"`` with the mode) of one forward and backward; for a serving
+    forward (no backward), ``cache_seq``: the positions of the decode
+    cache whose sequence the serving layout splits over ``model``
+    (``sharding.cache_spec``), each rank holding the block of
+    ``cache_seq / m`` positions at its index (0: a train forward, no
+    cache)."""
 
     mesh: Any
     attn: Optional[str] = None
     regions: FrozenSet[str] = frozenset()
+    cache_seq: int = 0
 
     def splits(self, region: str) -> bool:
         """Whether ``region`` computes this rank's block."""
@@ -168,6 +181,20 @@ class Split:
         """The ranks' blocks of ``dim`` gathered; the gradient's block
         back."""
         return collectives.gather(x, dim, self.mesh, AXIS)
+
+    def cache_block(self, positions: int) -> int:
+        """The positions of this rank's block of a decode cache of
+        ``positions`` in all; raises unless the serving layout splits
+        that cache's sequence over ``model`` (a split forward never
+        gathers the cache whole)."""
+        if not self.cache_seq or positions != self.cache_seq \
+                or positions % self.size:
+            raise ValueError(
+                f"a split serving step reads and writes a decode cache of "
+                f"{positions} positions in blocks over {AXIS} "
+                f"({self.size} ranks), but the serving layout splits "
+                f"{self.cache_seq or 'no cache'} positions so")
+        return positions // self.size
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over ``model`` of a tensor with no

@@ -43,6 +43,7 @@ ENV = {**os.environ, "PYTHONPATH": f"{REPO}/src"}
 SEQ, BATCH = 32, 8
 ARCHS = ("qwen2-1.5b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b", "xlstm-125m",
          "whisper-large-v3", "phi-3-vision-4.2b")
+DENSE = ("qwen2-1.5b",)  # the family served split over model
 
 WORLD_CODE = r'''
 import json, os, sys, tempfile
@@ -112,10 +113,15 @@ for arch in ARCHS:
     serving = {}
     for name in ("prefill_32k", "decode_32k"):
         try:
-            build_cell(arch, name, mesh)
-            serving[name] = "built"
+            scell = build_cell(arch, name, mesh, cfg=cfg)
         except NotImplementedError as e:
             serving[name] = str(e)
+            continue
+        sst = analyze_cell(scell)
+        serving[name] = {"args": sst["argument_size_in_bytes"],
+                         "flops": sst["flops"],
+                         "kernels": sst["hlo_stats"]["kernels"],
+                         "collectives": sst["collectives"]["total_ops"]}
     cells[arch]["serving"] = serving
 out["cells"] = cells
 
@@ -135,9 +141,12 @@ out["prefill_one"] = analyze_cell(pcell)["hlo_stats"]["kernels"]
 # the CLI: one train cell and the serving cells on 16x16, then reanalyze
 with tempfile.TemporaryDirectory() as d:
     res, hlo = os.path.join(d, "r.json"), os.path.join(d, "hlo")
-    for shp in ("train_4k", "prefill_32k", "decode_32k"):
-        dryrun.main(["--arch", "qwen2-1.5b", "--shape", shp, "--mesh",
-                     "single", "--out", res, "--hlo-dir", hlo])
+    for arch, shp in (("qwen2-1.5b", "train_4k"),
+                      ("qwen2-1.5b", "prefill_32k"),
+                      ("qwen2-1.5b", "decode_32k"),
+                      ("hymba-1.5b", "decode_32k")):
+        dryrun.main(["--arch", arch, "--shape", shp, "--mesh", "single",
+                     "--out", res, "--hlo-dir", hlo])
     before = json.load(open(res))
     reanalyze.main(["--out", res, "--hlo-dir", hlo])
     after = json.load(open(res))
@@ -581,9 +590,72 @@ def test_fake_world_cells_come_out_ok_with_their_layouts_traffic(world):
         else:
             # the split compute adds its activations' all-reduces
             assert got["all-reduce"] > want["all-reduce"] + scalars, arch
-        # a model axis of 4: serving is refused, the ROADMAP entry named
-        for name, msg in cell["serving"].items():
-            assert "sharded serving cells" in msg, (arch, name, msg)
+        # a model axis of 4: the dense decoders' serving cells build and
+        # count on the reference's layouts; the others are refused, the
+        # ROADMAP entry named
+        for name, got in cell["serving"].items():
+            if arch in DENSE:
+                assert got["flops"] > 0 and got["collectives"] > 0
+                assert got["args"] == _reference_serving_args(arch, name), \
+                    (arch, name)
+                calls = got["kernels"].get("K1", {}).get("calls", 0)
+                assert calls == (2 if name == "prefill_32k" else 0), calls
+            else:
+                assert "sharded serving cells" in got, (arch, name, got)
+
+
+def _local_bytes(shape, spec, dtype, sizes):
+    """The bytes of one rank's block of a leaf laid out by ``spec`` (a
+    ``PartitionSpec``) on a mesh of ``sizes``, rounded up to the
+    allocator's granule as the counter counts every storage."""
+    from repro_torch.launch.op_stats import _ALLOC_ROUND
+
+    n = int(np.dtype(dtype).itemsize)
+    for d, e in zip(shape, tuple(spec) + (None,) * len(shape)):
+        axes = () if e is None else (e,) if isinstance(e, str) else e
+        n *= d // int(np.prod([sizes[a] for a in axes]))
+    return -(-n // _ALLOC_ROUND) * _ALLOC_ROUND
+
+
+def _reference_serving_args(arch, shape_name):
+    """A rank's argument bytes of a reduced serving cell on the fake (4,
+    4) mesh, by the reference's own layouts on an abstract mesh: its
+    bf16 parameters by ``make_param_shardings``, the prompts by
+    ``batch_specs``, the decode cache by ``cache_specs_sharding``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AbstractMesh
+
+    from repro.configs import get_config as jget_config
+    from repro.configs import get_shape as jget_shape
+    from repro.configs import reduced as jreduced
+    from repro.models import build_model as jbuild_model
+    from repro.parallel import sharding as jsh
+
+    sizes = {"data": 4, "model": 4}
+    mesh = AbstractMesh(tuple(sizes.values()), tuple(sizes))
+    cfg, shape = jreduced(jget_config(arch)), jget_shape(shape_name)
+    plan = jsh.Plan(dp_axes=("data",), fsdp_axes=("data",), remat="full")
+    model = jbuild_model(cfg)
+    specs, axes = model.param_specs()
+    specs = jax.tree.map(lambda s: jax.ShapeDtypeStruct(
+        s.shape, jnp.bfloat16 if s.dtype == jnp.float32 else s.dtype), specs)
+    pairs = [(specs, jsh.make_param_shardings(mesh, axes, specs, plan))]
+    if shape.kind == "prefill":
+        batch = model.input_specs(shape)
+        pairs.append((batch, jsh.batch_specs(batch, mesh, plan)))
+    else:
+        inputs = model.input_specs(shape)
+        pairs.append((inputs["cache"], jsh.cache_specs_sharding(
+            inputs["cache"], mesh, plan, shape.global_batch,
+            shape.seq_len)))
+        tok = {"tokens": inputs["tokens"]}
+        pairs.append((tok, jsh.batch_specs(tok, mesh, plan)))
+    total = 0
+    for tree, shard in pairs:
+        for x, sh in zip(jax.tree.leaves(tree), jax.tree.leaves(shard)):
+            total += _local_bytes(x.shape, sh.spec, x.dtype, sizes)
+    return total
 
 
 def test_fake_world_kernels_count_once_a_call(world):
@@ -686,12 +758,16 @@ def test_dryrun_cli_and_reanalyze(world):
         assert k in rec, k
     assert rec["collectives"]["total_ops"] > 0
     for shp in ("prefill_32k", "decode_32k"):
-        bad = before[f"baseline|qwen2-1.5b|{shp}|16x16"]
-        assert not bad["ok"] and "sharded serving cells" in bad["error"]
+        served = before[f"baseline|qwen2-1.5b|{shp}|16x16"]
+        assert served["ok"] and served["kind"] == shp.split("_")[0]
+        assert served["flops"] > 0 and served["collectives"]["total_ops"] > 0
+    bad = before["baseline|hymba-1.5b|decode_32k|16x16"]
+    assert not bad["ok"] and "sharded serving cells" in bad["error"]
     assert before["_skips"] and all(s["shape"] == "long_500k"
                                     for s in before["_skips"])
     assert world["cli"]["records"] == [
-        "baseline__qwen2-1.5b__train_4k__16x16.ops.json.gz"]
+        f"baseline__qwen2-1.5b__{shp}__16x16.ops.json.gz"
+        for shp in ("decode_32k", "prefill_32k", "train_4k")]
     assert after[key]["hlo_stats"] == rec["hlo_stats"]
     assert after[key]["flops"] == rec["flops"]
 

@@ -115,9 +115,13 @@ def test_entry_points_default_to_the_card():
             train_cli.main()
 
 
-def test_cuda_entries_never_return_the_plain_version():
+def test_cuda_entries_never_return_the_plain_version(tmp_path, monkeypatch):
     """The CUDA entry points refuse CPU tensors instead of computing the
-    plain result, and the build refuses to run without nvcc."""
+    plain result, and the build refuses to run without nvcc.  The build
+    looks in an empty directory of the test's own, so a library that a
+    card's run left under ``build/`` cannot stand in for the build."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_lib", None)
     counters = (flash_attention, flash_attention_bwd, paged_attention,
                 paged_attention_mq, mlstm_scan)
     before = [m.launches for m in counters]

@@ -327,3 +327,41 @@ def elastic_world(rank, mesh_shape, case, ckpt_dir, mode):
                         gather_tree(state, lay))
     after = gather_tree(step(state, saved + 1), lay)
     return (restored, after, saved) if rank == 0 else None
+
+
+def serve_world(rank, mesh_shape, cases, max_seq, steps):
+    """Each case ``{"arch", "over", "params", "tokens", "lens"}`` (the
+    whole parameters, the global right-padded prompts and their lengths):
+    ``serve/sharded.py``'s split prefill of this rank's rows into a cache
+    of ``max_seq`` positions, then ``steps`` greedy decode steps.
+    Returns per case this rank's logits of every step (whole over the
+    vocab), its greedy tokens, its cache block after the prefill and
+    after the last step, and its place on the mesh."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import shard_tree
+    from repro_torch.parallel.sharding import Plan, Sharding
+    from repro_torch.serve.sharded import make_serve_artifacts
+
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="cpu")
+    out = {}
+    for name, case in cases.items():
+        model = _model(case["arch"], case["over"])
+        tokens, lens = case["tokens"], case["lens"]
+        B = tokens.shape[0]
+        art = make_serve_artifacts(model, mesh, Plan(), B, max_seq)
+        params = shard_tree(case["params"], art.param_shardings)
+        rows = Sharding(mesh, (("data",), ()), tuple(tokens.shape))
+        logits, cache = art.prefill_fn(
+            params, rows.local(tokens),
+            lens=Sharding(mesh, (("data",),), (B,)).local(lens))
+        first = {k: v.clone() for k, v in cache.items()}
+        seen, chosen = [logits], []
+        for _ in range(steps):
+            nxt = logits.argmax(-1).to(torch.int32)[:, None]
+            chosen.append(nxt)
+            logits, cache = art.decode_fn(params, cache, nxt)
+            seen.append(logits)
+        out[name] = {"logits": torch.stack(seen), "tokens": torch.cat(
+            chosen, 1), "prefill_cache": first, "cache": cache,
+            "data": mesh.coord("data"), "model": mesh.coord("model")}
+    return out
