@@ -9,10 +9,8 @@ at full width (K1 and K1-bwd, global and sliding-window, and K5
 forward, K5-bwd backward for its SSM heads), and train phi3.5-moe at
 full width, depth cut to 2 layers (K4 for the expert FFN forward and
 its dX, K1 and K1-bwd); then run the canonical serve and train workflows
-through the control plane (``repro_torch.core.run_workflow``), and the
-train workflow at full width planned for the card, whose runs then
-calibrate the cost model and feed an exploration of the card's slices;
-then the encoder-decoder (whisper-large-v3) and the VLM
+through the control plane (``repro_torch.core.run_workflow``); then the
+encoder-decoder (whisper-large-v3) and the VLM
 (phi-3-vision-4.2b): K1 and K1-bwd at their shapes, each served and
 trained at full width, and their templates at full width planned for
 the card; last, the parallel layer on an NCCL world of one (the sharded
@@ -22,7 +20,12 @@ split over ``model``) and K1 and K1-bwd at the split's per-rank shapes.
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU and nvcc; exits non-zero (printing no result) without
-them, and on any mismatch.  Phases, one or more lines each:
+them, and on any mismatch.  Phases, one or more lines each, in this
+order but for phases 29-31 (the train workflow at full width planned for
+the card, whose runs then calibrate the cost model and feed an
+exploration of the card's slices), which run right after the build:
+phase 31 fits host-clock step times, and a full run's earlier phases
+left its global batch 2 slower (ROADMAP §3):
 
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the kernels compiled from ``src/repro_torch/kernels/csrc``;
@@ -327,7 +330,24 @@ them, and on any mismatch.  Phases, one or more lines each:
      logits within ``TOL``'s bf16 tolerance, finite, of the expected
      shape; and the same at 4 layers in float32, each run choosing its own
      greedy tokens: identical.  The served runs' K1 launches join K1's
-     count.
+     count;
+ 50. the MoE decoders' and phi-3-vision's serving split over ``model``
+     (the experts held split: each rank routes all its tokens, runs its
+     experts' slots and the partial outputs are summed), on one card: K4
+     at a rank's local experts of the 16x16 cells (qwen3-moe decode 8
+     experts x 64 rows, phi3.5-moe decode 1 x 16, qwen3-moe prefill 8 x
+     5120, phi3.5-moe prefill 1 x 10240; D 4096, the gate/up product),
+     bf16, each against its plain version (``GMM_TOL``), timed with
+     ``torch.bmm``'s time and its bound; K1 at phi-3-vision's split
+     prefill rank (B 2, S = T 32768, 2 heads of 96) against its plain
+     version at S = T 4096, timed with SDPA's; then phi3.5-moe at full
+     width, 2 layers, bf16, phase 49's slots, cache, prompts and steps,
+     with its 16 experts computed as 16 blocks whose partial outputs are
+     summed (``moe.expert_blocks``), against the whole layer, fed the
+     same tokens: the logits within ``TOL``'s bf16 tolerance; and the
+     same in float32, each run choosing its own greedy tokens:
+     identical.  The served runs' K4 and K1 launches join their kernels'
+     counts.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -4622,9 +4642,11 @@ SV_SLOTS_SPLIT, SV_CACHE, SV_PROMPT, SV_STEPS = 8, 32768, 4096, 16
 SV_BLOCKS, SV_F32_LAYERS = 16, 4
 
 
-def _k1_split_prefill_case(gen) -> dict:
+def _k1_split_prefill_case(gen, shape=None, tag="49 K1 split prefill",
+                           what="glm4-9b") -> dict:
     dev, dt = torch.device("cuda"), torch.bfloat16
-    B, S, H, KH, D = (SV_K1[k] for k in ("B", "S", "H", "KH", "D"))
+    shape = shape or SV_K1
+    B, S, H, KH, D = (shape[k] for k in ("B", "S", "H", "KH", "D"))
 
     def qkv(n):
         return (torch.randn((B, n, h, D), generator=gen, device=dev).to(dt)
@@ -4647,31 +4669,34 @@ def _k1_split_prefill_case(gen) -> dict:
     pairs = S * (S + 1) // 2
     bms, by = bound_ms(2 * (2 * B * S * H * D + 2 * B * S * KH * D),
                        4.0 * B * H * D * pairs, BF16_FLOPS)
-    log(f"[49 K1 split prefill] glm4-9b's rank of prefill_32k on 16x16: "
+    log(f"[{tag}] {what}'s rank of prefill_32k on 16x16: "
         f"bf16 B={B} S=T={S} H={H} KH={KH} D={D} causal: ms={ms:.4f} "
         f"library_ms={lib_ms:.4f} ms/library_ms={ms / lib_ms:.2f} "
         f"bound_ms={bms:.5f} ({by}); against the plain version at "
         f"S=T={SV_K1_CHECK_S}: max_abs_err={err:.3g} (tol {TOL[dt]:g} "
         f"abs+rel), plain_ms={plain_ms:.4f} (there)")
-    return dict(shape="glm4-9b prefill_32k 16x16 rank", B=B, S=S, T=S, H=H,
+    return dict(shape=f"{what} prefill_32k 16x16 rank", B=B, S=S, T=S, H=H,
                 KH=KH, D=D, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 plain_at_S=SV_K1_CHECK_S, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
 
 
-def _served(model, params, tokens, steps, blocks, forced=None):
+def _served(model, params, tokens, steps, blocks, forced=None, experts=1):
     """The prefill into a cache of SV_CACHE positions, then ``steps``
     decode steps reading the cache whole (``blocks`` 1) or in ``blocks``
-    merged blocks, each step fed the greedy token (or ``forced``'s)."""
-    logits, cache = model.prefill(params, tokens, max_seq=SV_CACHE)
-    seen, chosen = [logits.float()], []
-    for i in range(steps):
-        nxt = (logits.argmax(-1).to(torch.int32)[:, None] if forced is None
-               else forced[:, i:i + 1])
-        chosen.append(nxt)
-        logits, cache = model.decode_step(params, cache, nxt,
-                                          kv_blocks=blocks)
-        seen.append(logits.float())
+    merged blocks, each step fed the greedy token (or ``forced``'s); a
+    MoE's experts computed whole (``experts`` 1) or as ``experts`` blocks
+    whose partial outputs are summed (``moe.expert_blocks``)."""
+    with moe.expert_blocks(experts):
+        logits, cache = model.prefill(params, tokens, max_seq=SV_CACHE)
+        seen, chosen = [logits.float()], []
+        for i in range(steps):
+            nxt = (logits.argmax(-1).to(torch.int32)[:, None]
+                   if forced is None else forced[:, i:i + 1])
+            chosen.append(nxt)
+            logits, cache = model.decode_step(params, cache, nxt,
+                                              kv_blocks=blocks)
+            seen.append(logits.float())
     torch.cuda.synchronize()
     return torch.stack(seen), torch.cat(chosen, 1)
 
@@ -4737,6 +4762,108 @@ def phase_serve_split(gen) -> dict:
     return {"K1": row, "flash_attention": launches, "seconds": took}
 
 
+# phase 50: the MoE decoders and phi-3-vision served split over
+# ``model``.  K4 at the local experts of a rank of the 16x16 serving cells
+# (D 4096; the gate/up product, K = D, N = d_ff): (name, experts, rows an
+# expert, d_ff) — a decode rank holds 8 slots (its capacity rows an
+# expert are 8 x the layer's capacity at S 1), a prefill rank 2 rows of
+# 32768 (2 x the capacity at S 32768)
+SM_K4 = (("qwen3-moe decode rank", 8, 64, 1536),
+         ("phi3.5-moe decode rank", 1, 16, 6400),
+         ("qwen3-moe prefill rank", 8, 5120, 1536),
+         ("phi3.5-moe prefill rank", 1, 10240, 6400))
+# K1 at phi-3-vision's prefill_32k rank on 16x16: 2 rows of 32768, 2 of
+# its 32 heads of 96 (MHA)
+SM_K1 = dict(B=2, S=32768, H=2, KH=2, D=96)
+# phi3.5-moe at full width served with its 16 experts computed as 16
+# blocks (a rank each on a model axis of 16), against the whole layer: 2
+# of its 32 layers, phase 49's slots, cache, prompts and steps.  The
+# cache is read whole in both runs (phase 49 holds the blocked read): the
+# blocked read rounds the hidden states otherwise in bf16, and routing is
+# not continuous in them (a near-tied top-k choice can flip), so the two
+# together are no test of the experts' blocks (with both, the bf16 logits
+# were 0.70 apart, beyond the tolerance; NVIDIA H100 80GB HBM3, 700 W)
+SM_LAYERS, SM_EXPERT_BLOCKS = 2, 16
+
+
+def phase_serve_split_moe(gen) -> dict:
+    """50: K4 at the local-expert shapes of a rank of the MoE serving
+    cells (``SM_K4``) and K1 at phi-3-vision's split prefill rank, each
+    against its plain version with its time, the library's and its
+    bound; then phi3.5-moe at full width, 2 layers, in bf16, served with
+    its experts as 16 blocks whose partial outputs are summed (the
+    experts' arithmetic of a model axis of 16, on one card), against the
+    whole layer, fed the same tokens: logits within ``TOL``'s bf16
+    tolerance; the same in float32, each run choosing its own greedy
+    tokens: identical.  Returns the kernel rows and the served runs'
+    launches."""
+    t0 = time.perf_counter()
+    rows = []
+    for name, e, g, f in SM_K4:
+        r = _k4_case(name, torch.bfloat16, e * g, 4096, f, [g] * e, gen,
+                     tag="50 K4 split")
+        rows.append(dict(r, shape=name, experts=e, rows_per_expert=g, K=4096,
+                         N=f))
+        torch.cuda.empty_cache()
+    k1 = _k1_split_prefill_case(gen, SM_K1, "50 K1 split prefill",
+                                "phi-3-vision-4.2b")
+    torch.cuda.empty_cache()
+    cfg = get_config("phi3.5-moe-42b-a6.6b")
+    assert cfg.num_experts % SM_EXPERT_BLOCKS == 0, cfg.num_experts
+    n_k4, n_k1 = moe_gmm.launches, flash_attention.launches
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dt, num_layers=SM_LAYERS)
+        model = build_model(c)
+        params = model.serving_params(model.init(seed=0))
+        tokens = torch.randint(0, c.vocab_size, (SV_SLOTS_SPLIT, SV_PROMPT),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        t1 = time.perf_counter()
+        whole, toks = _served(model, params, tokens, SV_STEPS, 1)
+        t_whole = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        split, split_toks = _served(
+            model, params, tokens, SV_STEPS, 1,
+            forced=toks if dt == "bfloat16" else None,
+            experts=SM_EXPERT_BLOCKS)
+        t_split = time.perf_counter() - t1
+        assert bool(torch.isfinite(split).all()) and split.shape == (
+            SV_STEPS + 1, SV_SLOTS_SPLIT, c.vocab_size), split.shape
+        rel = float((split - whole).abs().max() / whole.abs().max())
+        if dt == "bfloat16":
+            err = max_err(split, whole, torch.bfloat16)
+            log(f"[50 serve split moe] {c.name} bf16, {SM_LAYERS} layers, "
+                f"{c.num_experts} experts top-{c.top_k}, {SV_SLOTS_SPLIT} "
+                f"slots, cache {SV_CACHE}, prompt {SV_PROMPT}, {SV_STEPS} "
+                f"steps: experts in {SM_EXPERT_BLOCKS} blocks summed vs the "
+                f"whole layer, fed the same tokens: max |diff| of the "
+                f"logits {err:.4g} (tol {TOL[torch.bfloat16]:g} abs+rel), "
+                f"{rel:.3g} of max |logit|, bit-identical "
+                f"{bool(torch.equal(split, whole))}; whole {t_whole:.2f} s, "
+                f"blocks {t_split:.2f} s (host clock, prefill included)")
+        else:
+            same = bool(torch.equal(split_toks, toks))
+            log(f"[50 serve split moe] {c.name} float32, {SM_LAYERS} "
+                f"layers: greedy tokens of the blocked run identical to the "
+                f"whole run's: {same} ({toks.numel()} tokens); logits "
+                f"{rel:.3g} of max |logit| apart")
+            assert same, (split_toks, toks)
+        out[dt] = rel
+        del model, params, whole, split
+        torch.cuda.empty_cache()
+    launches = {"moe_gmm": moe_gmm.launches - n_k4,
+                "flash_attention": flash_attention.launches - n_k1}
+    # prefill and decode steps, whole and blocked, 3 K4 launches a layer:
+    # each blocked call launches 16 times the whole call's
+    want = 2 * (SV_STEPS + 1) * SM_LAYERS * 3 * (1 + SM_EXPERT_BLOCKS)
+    assert launches["moe_gmm"] == want, (launches, want)
+    took = time.perf_counter() - t0
+    log(f"[50 serve split moe] launches in the served runs {launches}; the "
+        f"phase took {took:.1f} s")
+    return {"K4": rows, "K1": k1, "seconds": took, **launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4745,6 +4872,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     phase_build()
+    # the card: registered, planned for, trained on, calibrated from.
+    # First after the build: phase 31's fit holds host-clock step times,
+    # which a full run's earlier phases left slower at global batch 2
+    # (ROADMAP §3)
+    phase_card_catalog()
+    with tempfile.TemporaryDirectory() as runs:
+        card, card_runs = phase_card_train_workflow(runs)
+        phase_card_calibrate_explore(runs, card_runs)
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = phase_k1(gen)
     k2 = phase_k2(gen)
@@ -4820,12 +4955,6 @@ def main() -> int:
     wf = phase_serve_workflow()
     phase_train_workflow()
 
-    # the card: registered, planned for, trained on, calibrated from
-    phase_card_catalog()
-    with tempfile.TemporaryDirectory() as runs:
-        card, card_runs = phase_card_train_workflow(runs)
-        phase_card_calibrate_explore(runs, card_runs)
-
     # whisper-large-v3 and phi-3-vision-4.2b: the slice's kernels at their
     # shapes, then each main path (counters reset just before, read just
     # after each run), then both templates planned for the card
@@ -4848,8 +4977,8 @@ def main() -> int:
     state = {"ssm_scan": hs["ssm_scan_state"] + ht["ssm_scan_state"],
              "mlstm_scan": xs["mlstm_scan_state"]}
 
-    # parallelism and elasticity: an NCCL world of one, started here (after
-    # phase 31's host-clock fit) and destroyed after phase 44
+    # parallelism and elasticity: an NCCL world of one, started here and
+    # destroyed after phase 44
     mesh, rt, mt, mesh_base = phase_mesh_train(cfg)
     mc = phase_mesh_compress(cfg, mesh, rt, mesh_base)
     mm = phase_mesh_moe(mcfg, mesh)
@@ -4864,6 +4993,8 @@ def main() -> int:
     tp = phase_tp_kernels(gen, k1_bwd, k1_train)
     phase_dryrun(cfg)
     sv = phase_serve_split(torch.Generator(device="cuda").manual_seed(49))
+    sm = phase_serve_split_moe(
+        torch.Generator(device="cuda").manual_seed(50))
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -4876,9 +5007,11 @@ def main() -> int:
                        + pv["flash_attention"] + sw["flash_attention"]
                        + ms["flash_attention"] + hs["flash_attention"]
                        + xs["flash_attention"] + ht["flash_attention"]
-                       + par["flash_attention"] + sv["flash_attention"]),
+                       + par["flash_attention"] + sv["flash_attention"]
+                       + sm["flash_attention"]),
              hymba_prefill=sk["flash_attention"],
-             split_ranks=[fwd for fwd, _ in tp] + [fam["K1"], sv["K1"]],
+             split_ranks=[fwd for fwd, _ in tp] + [fam["K1"], sv["K1"],
+                                                    sm["K1"]],
              **k1),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -4946,8 +5079,8 @@ def main() -> int:
              includes=[HOPPER_COMMON],
              replaces="src/repro/kernels/moe_gmm.py:65",
              launches=moe_launches["moe_gmm"] + ms["moe_gmm"]
-             + mm["moe_gmm"],
-             serving_decode=sk["moe_gmm"], **k4),
+             + mm["moe_gmm"] + sm["moe_gmm"],
+             serving_decode=sk["moe_gmm"], split_ranks=sm["K4"], **k4),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,16 +12,17 @@ OpCounter`, on the mesh's (fake) world: the counter's FLOPs, bytes,
 collectives and live-memory peak stand in for XLA's.
 
 Train cells go through ``make_train_artifacts`` (the sharded step).
-Prefill and decode cells take bf16 parameters.  The dense decoders'
-go through ``serve/sharded.py``'s ``make_serve_artifacts`` on any mesh,
-as the reference lays them out: the parameters by
-``make_param_shardings`` (their ``model`` dims and FSDP over the data
-axes, gathered a layer at a time), the batch over the data axes, the
-cache by ``cache_spec`` (its K/V sequence over ``model``), the step split
-over ``model``.  The other families' serving cells are built on meshes
-whose ``model`` axis is 1 only, each data rank holding the whole
-parameters and its rows of the batch and the cache (ROADMAP, "sharded
-serving cells").
+Prefill and decode cells take bf16 parameters.  The dense and MoE
+decoders' and the VLM's go through ``serve/sharded.py``'s
+``make_serve_artifacts`` on any mesh, as the reference lays them out:
+the parameters by ``make_param_shardings`` (their ``model`` dims —
+heads, MLP, vocab, the MoE's experts — and FSDP over the data axes,
+gathered a layer at a time except the dims the split keeps), the batch
+over the data axes, the cache by ``cache_spec`` (its K/V sequence over
+``model``), the step split over ``model``.  The other families' (hymba,
+the xLSTM, whisper) serving cells are built on meshes whose ``model``
+axis is 1 only, each data rank holding the whole parameters and its
+rows of the batch and the cache (ROADMAP, "sharded serving cells").
 """
 from __future__ import annotations
 
@@ -137,16 +138,18 @@ def build_cell(arch: str, shape_name: str, mesh,
 
 def _split_serving_cell(model: Model, shape: ShapeConfig, mesh, plan: Plan,
                         p_specs: Tree, names) -> LoweredCell:
-    """A dense decoder's prefill or decode cell on the reference's
-    serving layouts, its step ``make_serve_artifacts``' (the prompt's
-    cache of ``seq_len`` positions)."""
+    """A dense or MoE decoder's or the VLM's prefill or decode cell on
+    the reference's serving layouts, its step ``make_serve_artifacts``'
+    (the prompt's cache of ``seq_len`` positions; the prefill takes the
+    batch's other inputs, the VLM's image embeddings)."""
     B = shape.global_batch
     art = make_serve_artifacts(model, mesh, plan, B, shape.seq_len)
     if shape.kind == "prefill":
         b_specs = model.input_specs(shape)
 
         def prefill_fn(params, batch):
-            return art.prefill_fn(params, batch["tokens"])
+            extra = {k: v for k, v in batch.items() if k != "tokens"}
+            return art.prefill_fn(params, batch["tokens"], extra or None)
 
         return LoweredCell(*names, "prefill", prefill_fn, (p_specs, b_specs),
                            plan, (art.param_shardings,

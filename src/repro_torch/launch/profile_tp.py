@@ -26,12 +26,14 @@ kernels' and their count; then the card's name and power limit.  The
 mesh's losses are the same function's at every shape, each summed in
 another order in bf16.
 
-``--serve`` serves instead (``serve/sharded.py``, the dense decoders
-split over ``model``): for each architecture, in bf16 and then in
-float32, rank 0 first serves it unsplit on its one card (the model's
-own ``prefill`` and ``decode_step``), then every mesh serves it split:
-``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` random tokens (seed 0)
-prefilled into a cache of ``SERVE_CACHE`` positions, then
+``--serve`` serves instead (``serve/sharded.py``, the dense and MoE
+decoders and the VLM split over ``model``): for each architecture, in
+bf16 and then in float32, rank 0 first serves it unsplit on its one card
+(the model's own ``prefill`` and ``decode_step``), then every mesh serves
+it split: ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` random tokens
+(seed 0; the VLM's first positions random image embeddings of the token
+embeddings' size, split over the data axis with the rows) prefilled
+into a cache of ``--cache`` positions (``SERVE_CACHE`` by default), then
 ``SERVE_STEPS`` greedy decode steps, the last under ``torch.profiler``
 on rank 0.  Parameters are drawn in the compute dtype from seed 0 (the
 same for both runs).  Prints per run the prefill ms and the median
@@ -64,6 +66,9 @@ import torch.multiprocessing as mp
 
 ARCH, SEQ, BATCH = "qwen2-1.5b", 4096, 4
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 4, 4096, 32768, 32
+# the VLM's random image embeddings: about the size of the token
+# embeddings at init
+IMAGE_STD = 0.02
 
 
 def arch_config(arch: str, layers: int = 0, *, cuda: bool = True):
@@ -248,7 +253,7 @@ def serve_arch(rank, arch, args, device) -> None:
     from repro_torch.tree import tree_map
 
     cuda = device.type == "cuda"
-    prompt, cache_len, steps = (SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS) \
+    prompt, cache_len, steps = (SERVE_PROMPT, args.cache, SERVE_STEPS) \
         if cuda else (64, 1024, 4)
     for dt in ("bfloat16", "float32") if cuda else ("float32",):
         cfg = get_config(arch) if cuda else reduced(get_config(arch))
@@ -259,6 +264,11 @@ def serve_arch(rank, arch, args, device) -> None:
         gen = torch.Generator().manual_seed(0)
         tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt),
                                generator=gen, dtype=torch.int32).to(device)
+        extra = {}
+        if cfg.num_image_tokens:
+            extra["image_embeds"] = (IMAGE_STD * torch.randn(
+                (SERVE_BATCH, cfg.num_image_tokens, cfg.d_model),
+                generator=gen)).to(device=device, dtype=getattr(torch, dt))
         base = None
         if rank == 0:
             params = model.init(seed=0)
@@ -266,7 +276,8 @@ def serve_arch(rank, arch, args, device) -> None:
                 torch.cuda.reset_peak_memory_stats(device)
             with torch.no_grad():
                 base, base_margin, pf, walls, prof = _serve(
-                    lambda t: model.prefill(params, t, max_seq=cache_len),
+                    lambda t: model.prefill(params, t, extra or None,
+                                            max_seq=cache_len),
                     lambda c, t: model.decode_step(params, c, t), tokens,
                     steps, device, cuda)
             del params
@@ -286,12 +297,14 @@ def serve_arch(rank, arch, args, device) -> None:
                               shard_tree(whole, art.param_shardings))
             del whole
             rows = Sharding(mesh, (("data",), ()), tuple(tokens.shape))
+            local = {k: Sharding(mesh, (("data",), (), ()), tuple(
+                v.shape)).local(v) for k, v in extra.items()}
             if cuda:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(device)
             dist.barrier()
             got, margin, pf, walls, prof = _serve(
-                lambda t: art.prefill_fn(params, t),
+                lambda t: art.prefill_fn(params, t, local or None),
                 lambda c, t: art.decode_fn(params, c, t),
                 rows.local(tokens), steps, device, cuda and rank == 0)
             peak = torch.full((), _peak(device), device=device)
@@ -420,6 +433,8 @@ def main() -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--serve", action="store_true",
                     help="serve split over model instead of training")
+    ap.add_argument("--cache", type=int, default=SERVE_CACHE,
+                    help="serving: the decode cache's positions")
     args = ap.parse_args()
     worlds = {a * b for (a, b), _ in map(_mesh_shape, args.meshes)}
     if len(worlds) != 1:

@@ -287,10 +287,18 @@ def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
 def _ffn_residual(p, x, cfg) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``(x + its FFN on the norm2'ed x, the MoE layer's float32 aux
     loss or None)``: the routed experts for the MoE decoders (capacity
-    from this call's sequence length, as in the reference), else the MLP
-    (none when ``d_ff`` is 0)."""
+    from this call's sequence length, as in the reference; under a split
+    that holds the experts split, this rank's experts' partial output
+    summed over ``model``), else the MLP (none when ``d_ff`` is 0)."""
     if cfg.num_experts > 0:
-        out, aux = moe.apply_moe(p, apply_norm(p, "norm2", x, cfg.norm), cfg)
+        xn = apply_norm(p, "norm2", x, cfg.norm)
+        sp = tensor.active()
+        if sp is not None and sp.splits("experts"):
+            out, aux = moe.apply_moe_split(p, sp.sum_grad(xn), cfg, sp.rank,
+                                           sp.size)
+            out = sp.reduce_sum(out)
+        else:
+            out, aux = moe.apply_moe(p, xn, cfg)
         return x + out, aux
     if cfg.d_ff > 0:
         x = x + apply_mlp(p, apply_norm(p, "norm2", x, cfg.norm), cfg)

@@ -26,6 +26,14 @@ What differs is the layout and the arithmetic's order:
     are summed in k order.  Nothing is scattered with atomics, so a step
     gives the same bits every time (resume is exact on the card).
 
+Served split over ``model`` (``serve/sharded.py``, where the reference's
+serving layout puts ``experts`` on ``model``), each rank holds ``E/m``
+experts and :func:`apply_moe_split` gives its partial output: the whole
+routing and dispatch plan, then only its experts' slots (``_experts``),
+the partials summed over ``model`` by the caller
+(``lm._ffn_residual``).  :func:`expert_blocks` runs the same arithmetic
+on one device.
+
 On a mesh the aux loss is the Switch loss of the global batch, as GSPMD
 computes the reference's scatter path: the top-1 densities are averaged
 over the ranks that hold different tokens before their product with the
@@ -44,12 +52,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import activation
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, tensor
 
-# the leaves whose experts dim the expert-parallel layer keeps local (the
-# reference's shard_map in_specs ``P("model", None, None)``); the router
-# is gathered whole
-EXPERT_LEAVES = ("moe_wg", "moe_wu", "moe_wd")
+# the leaves whose experts dim the expert-parallel layer and the split
+# serving layer keep local (the reference's shard_map in_specs
+# ``P("model", None, None)``; ``parallel/tensor.py``'s experts region);
+# the router is gathered whole
+EXPERT_LEAVES = tensor.REGIONS["experts"][0]
 
 _moe_impl = "scatter"  # scatter | shard_map
 _moe_mesh = None
@@ -57,6 +66,9 @@ _moe_dp_axes: Tuple[str, ...] = ("data",)
 # when a list, each layer call appends (kept entries, all entries) as
 # device tensors: the dropped share of a run
 drop_stats: Optional[list] = None
+# the experts computed in this many blocks, their partial outputs summed
+# (:func:`expert_blocks`)
+_expert_blocks = 1
 
 
 def set_moe_impl(impl: str, mesh=None, dp_axes=("data",)) -> None:
@@ -79,6 +91,22 @@ def moe_impl(impl: str, mesh=None, dp_axes=("data",)):
         yield
     finally:
         set_moe_impl(*saved)
+
+
+@contextlib.contextmanager
+def expert_blocks(n: int):
+    """For a block of code, :func:`apply_moe` computes the experts as
+    ``n`` blocks of ``E/n``, each block's partial output as
+    :func:`apply_moe_split` gives it on rank r of n, summed in block
+    order: the arithmetic of the experts held split over ``n`` ranks, on
+    one device."""
+    global _expert_blocks
+    saved = _expert_blocks
+    _expert_blocks = n
+    try:
+        yield
+    finally:
+        _expert_blocks = saved
 
 
 def _dp(mesh) -> Tuple[str, ...]:
@@ -235,18 +263,11 @@ def _count_drops(tok_slot: torch.Tensor, dropped_slot: int) -> None:
         drop_stats.append((kept, tok_slot.numel()))
 
 
-def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor,
-              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x ``(B, S, D)`` normed, one group per batch row -> ``(output
-    (B, S, D) in x's dtype, float32 aux loss)``; under
-    ``set_moe_impl("shard_map", mesh)``, :func:`apply_moe_shardmap`."""
-    if _moe_impl == "shard_map":
-        return apply_moe_shardmap(p, x, cfg)
-    B, S, D = x.shape
+def _route(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig):
+    """The router over every expert: x ``(B, S, D)`` -> (top-k expert ids
+    ``(B, S, K)``, their renormalised float32 gates ``(B, S, K)``, the
+    float32 Switch aux loss)."""
     E, K = cfg.num_experts, cfg.top_k
-    C = moe_capacity(cfg, S)
-    dt = x.dtype
-
     logits = x.float() @ p["router"].float()  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     expert_ids = top_k(probs.detach(), K)  # (B, S, K)
@@ -265,19 +286,93 @@ def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor,
                           _dp(_moe_mesh))
     else:
         aux = (density * density_prob).sum() * E * cfg.router_aux_weight
+    return expert_ids, gate_vals, aux.float()
 
+
+def _plan(p, x, cfg):
+    """Routing and capacity dispatch of x ``(B, S, D)`` over every expert,
+    the capacity from this call's sequence length: (gates, the
+    :func:`dispatch_plan`, capacity, aux loss); the dropped entries
+    counted once."""
+    B, S, _ = x.shape
+    E = cfg.num_experts
+    C = moe_capacity(cfg, S)
+    expert_ids, gates, aux = _route(p, x, cfg)
     plan = dispatch_plan(expert_ids, E, C)
     _count_drops(plan["tok_slot"], E * B * C)
-    buf = _Dispatch.apply(x.reshape(B * S, D), plan["slot_tok"],
-                          plan["tok_slot"])  # (E·B·C, D)
-    sizes = [B * C] * E
+    return gates, plan, C, aux
+
+
+def _experts(p, x, gates, plan, C, cfg, first: int = 0) -> torch.Tensor:
+    """The expert FFN of the slots of the ``n`` experts ``p["moe_w*"]``
+    hold (experts ``first`` to ``first + n - 1``; all E by default) and
+    the combine of their entries, every entry routed to another expert
+    weighing zero: ``(B, S, D)`` in x's dtype.  Only those experts'
+    ``n·B·C`` slots are dispatched, three K4 launches over ``n`` groups
+    of ``B·C`` rows."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    n = p["moe_wg"].shape[0]
+    dt = x.dtype
+    tok_slot, slot_tok, slot_entry = (plan[k] for k in (
+        "tok_slot", "slot_tok", "slot_entry"))
+    if n < E:
+        lo, hi = first * B * C, (first + n) * B * C
+        tok_slot = torch.where((tok_slot >= lo) & (tok_slot < hi),
+                               tok_slot - lo, hi - lo)
+        slot_tok, slot_entry = slot_tok[lo:hi], slot_entry[lo:hi]
+    buf = _Dispatch.apply(x.reshape(B * S, D), slot_tok,
+                          tok_slot)  # (n·B·C, D)
+    sizes = [B * C] * n
     h_g = ops.moe_gmm(buf, sizes, p["moe_wg"].to(dt))
     h_u = ops.moe_gmm(buf, sizes, p["moe_wu"].to(dt))
     h = activation(h_g, cfg.act) * h_u
-    out_buf = ops.moe_gmm(h, sizes, p["moe_wd"].to(dt))  # (E·B·C, D)
-    out = _Combine.apply(out_buf, gate_vals.reshape(B * S, K),
-                         plan["tok_slot"], plan["slot_entry"])
-    return out.view(B, S, D), aux.float()
+    out_buf = ops.moe_gmm(h, sizes, p["moe_wd"].to(dt))  # (n·B·C, D)
+    out = _Combine.apply(out_buf, gates.reshape(B * S, K), tok_slot,
+                         slot_entry)
+    return out.view(B, S, D)
+
+
+def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor,
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x ``(B, S, D)`` normed, one group per batch row -> ``(output
+    (B, S, D) in x's dtype, float32 aux loss)``; under
+    ``set_moe_impl("shard_map", mesh)``, :func:`apply_moe_shardmap`;
+    under :func:`expert_blocks` ``(n)``, the sum of the ``n`` partials
+    :func:`apply_moe_split` gives, in block order."""
+    if _moe_impl == "shard_map":
+        return apply_moe_shardmap(p, x, cfg)
+    gates, plan, C, aux = _plan(p, x, cfg)
+    n = _expert_blocks
+    if n == 1:
+        return _experts(p, x, gates, plan, C, cfg), aux
+    e = cfg.num_experts // n
+    out = None
+    for r in range(n):
+        pr = {k: p[k][r * e:(r + 1) * e] for k in EXPERT_LEAVES}
+        part = _experts(pr, x, gates, plan, C, cfg, r * e)
+        out = part if out is None else out + part
+    return out, aux
+
+
+def apply_moe_split(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    cfg: ModelConfig, rank: int, ranks: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts held split over ``ranks`` ranks (the serving
+    layout, ``serve/sharded.py``): ``p["moe_w*"]`` hold this rank's
+    ``E/ranks`` experts (from ``rank·E/ranks`` on), ``p["router"]`` the
+    whole router, and x ``(B, S, D)`` is the same on every rank.  Every
+    rank routes all its tokens exactly as :func:`apply_moe` does (the
+    same capacity and dispatch over all E experts, so the dropped
+    entries are the unsplit layer's), then runs only its experts' slots
+    and combines only their entries.  Returns ``(this rank's partial
+    output, whose sum over the ranks is the layer's output; the float32
+    aux loss of the whole routing, the same on every rank)``."""
+    E = cfg.num_experts
+    e = p["moe_wg"].shape[0]
+    assert e * ranks == E, (e, ranks, E)
+    gates, plan, C, aux = _plan(p, x, cfg)
+    return _experts(p, x, gates, plan, C, cfg, rank * e), aux
 
 
 # ===========================================================================

@@ -50,11 +50,15 @@ over ``model`` the gradient of every other leaf a split region reads
 table to update.  The model's split functions ask :meth:`Split.splits`.
 
 Serving installs the same split for a forward with no backward
-(``serve/sharded.py``, the dense decoders), with :attr:`Split.cache_seq`
-the decode cache's positions, whose sequence the serving layout splits
-over ``model``: the prefill emits each rank's block of it and the
-decode's attention reads the rank's block, the blocks' partial
-softmaxes merged over ``model`` (``models/attention.py``).
+(``serve/sharded.py``: the dense and MoE decoders and the VLM), with
+:attr:`Split.cache_seq` the decode cache's positions, whose sequence the
+serving layout splits over ``model``: the prefill emits each rank's
+block of it and the decode's attention reads the rank's block, the
+blocks' partial softmaxes merged over ``model`` (``models/attention.py``).
+The serving layout also holds the routed experts split (the
+``experts`` region): every rank routes all its tokens with the whole
+router, runs its ``E/m`` experts' slots and the ranks' partial outputs
+are summed over ``model`` (``models/moe.py`` ``apply_moe_split``).
 
 Over a ``model`` group of one rank nothing is split: :func:`active` is
 None and every split function runs the unsplit code.
@@ -76,11 +80,17 @@ AXIS = "model"
 # The split regions: the names of the leaves each reads (a name ending in
 # ``_`` is a prefix) and the logical dim it keeps split over ``model``.
 # Attention keeps its heads split only when split by heads; split by the
-# sequence it keeps no dim split.
+# sequence it keeps no dim split.  The routed experts keep their experts
+# dim split only where the layout asks for it (``experts=True``): the
+# serving layout does, each rank running its experts' slots
+# (``models/moe.py`` ``apply_moe_split``); the train step gathers them
+# whole (ROADMAP queue 1), and the router, which every rank reads whole
+# to route all its tokens, is in no region.
 REGIONS = {"attn": (("attn_", "xattn_"), "heads"),
            "mlp": (("mlp_",), "mlp"),
            "ssm": (("ssm_",), "mlp"),
-           "vocab": (("embed", "lm_head"), "vocab")}
+           "vocab": (("embed", "lm_head"), "vocab"),
+           "experts": (("moe_wg", "moe_wu", "moe_wd"), "experts")}
 
 
 def region_of(name: str) -> Optional[str]:
@@ -93,15 +103,17 @@ def region_of(name: str) -> Optional[str]:
     return None
 
 
-def kept_dim(name: str, axes: Sequence[str], spec, heads: bool
-             ) -> Optional[int]:
+def kept_dim(name: str, axes: Sequence[str], spec, heads: bool,
+             experts: bool = False) -> Optional[int]:
     """The dim of the leaf ``name`` (logical ``axes``, layout ``spec``)
     that its region keeps split over ``model``: the region's logical dim
     when it is laid out over ``model`` alone, the heads only when
-    attention is split by ``heads``.  None: the leaf is held alike by
-    every ``model`` rank (or is read by no region)."""
+    attention is split by ``heads``, the experts only when ``experts``.
+    None: the leaf is held alike by every ``model`` rank (or is read by
+    no region)."""
     region = region_of(name)
-    if region is None or (region == "attn" and not heads):
+    if region is None or (region == "attn" and not heads) \
+            or (region == "experts" and not experts):
         return None
     logical = REGIONS[region][1]
     if logical not in axes:

@@ -1,5 +1,5 @@
-"""Serving on a mesh: the dense decoders' prefill and decode split over
-``model``, on the reference's serving layouts.
+"""Serving on a mesh: the dense and MoE decoders' and the VLM's prefill
+and decode split over ``model``, on the reference's serving layouts.
 
 Counterpart of the serving half of the reference package's
 ``launch/cells.py`` (``build_cell`` for a prefill or decode shape): the
@@ -18,7 +18,15 @@ install, around the model's own ``prefill`` and ``decode_step``:
     than one rank): attention by heads where they divide the axis (else
     unsplit, or by the query rows under ``Plan.seq_shard_attn``, as the
     train step decides), the MLP by its hidden dim, the embedding and
-    head by vocab blocks, with ``cache_seq`` the cache's positions.
+    head by vocab blocks, with ``cache_seq`` the cache's positions;
+    the MoE decoders' routed experts held split by their experts dim,
+    as the reference's serving layout puts ``experts`` on ``model``
+    (``_Layout(..., experts=True)``; the router gathered whole): every
+    rank routes all its tokens, runs its ``E/m`` experts' slots through
+    K4 and the partial outputs are summed over ``model``
+    (``models/moe.py`` ``apply_moe_split``).  The VLM's image embeddings
+    replace the first positions after the vocab blocks' sum, as in its
+    split training.
 
 The prefill then emits this rank's block of the cache (its rows, its
 ``max_seq / m`` positions) and the decode reads and writes that block
@@ -27,8 +35,9 @@ merged over ``model``).  The logits come back whole over the vocab for
 this rank's rows.  On a mesh of one rank nothing is gathered or split
 and the steps are the model's own calls, bit for bit.
 
-Only the dense decoders are served so; the other families raise on a
-mesh of more than one rank (ROADMAP, "sharded serving cells").
+Only the dense and MoE decoders and the VLM are served so; hymba, the
+xLSTM and whisper raise on a mesh of more than one rank (ROADMAP,
+"sharded serving cells").
 """
 from __future__ import annotations
 
@@ -45,7 +54,7 @@ from repro_torch.train.step import _Layout
 from repro_torch.tree import Tree, flatten, leaves
 
 SERVING_ROADMAP = "sharded serving cells"
-SPLIT_FAMILIES = ("dense",)
+SPLIT_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass
@@ -65,8 +74,8 @@ class ServeArtifacts:
 def make_serve_artifacts(model: Model, mesh, plan: Plan, batch: int,
                          max_seq: int) -> ServeArtifacts:
     """Serving of ``batch`` slots and a cache of ``max_seq`` positions on
-    ``mesh``.  Raises ``NotImplementedError`` for a family other than the
-    dense decoders on a mesh of more than one rank, and ``ValueError``
+    ``mesh``.  Raises ``NotImplementedError`` for a family not in
+    ``SPLIT_FAMILIES`` on a mesh of more than one rank, and ``ValueError``
     when the cache layout does not split the K/V sequence over ``model``
     where ``model`` has more than one rank (a split decode never gathers
     the cache whole)."""
@@ -77,7 +86,7 @@ def make_serve_artifacts(model: Model, mesh, plan: Plan, batch: int,
         raise NotImplementedError(
             f"serving {cfg.name} ({cfg.family}) on a mesh of {ranks} ranks "
             f"is not ported (ROADMAP, '{SERVING_ROADMAP}')")
-    layout = _Layout(model, mesh, plan)
+    layout = _Layout(model, mesh, plan, experts=True)
     cache_specs = model.cache_specs(batch, max_seq)
     cache_sh = cache_specs_sharding(cache_specs, mesh, plan, batch, max_seq)
     if m > 1:

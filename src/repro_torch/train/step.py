@@ -110,9 +110,13 @@ GATHER_AND_REPEAT = ("ssm",)
 
 class _Layout:
     """The parameters' layouts on a mesh, in the params tree's leaf
-    order, and what the step does with each leaf's gradient."""
+    order, and what the step does with each leaf's gradient.
+    ``experts``: keep the routed experts' experts dim split over
+    ``model`` where the layout puts it there (the serving layout,
+    ``serve/sharded.py``; the train step gathers them whole)."""
 
-    def __init__(self, model: Model, mesh, plan: Plan):
+    def __init__(self, model: Model, mesh, plan: Plan,
+                 experts: bool = False):
         specs, axes = model.param_specs()
         self.tree = make_param_shardings(mesh, axes, specs, plan)
         self.paths = [k for k, _ in flatten(self.tree)]
@@ -142,7 +146,8 @@ class _Layout:
                 keep = (d,)
             d = None
             if self.tp and self.m > 1:
-                d = tensor.kept_dim(name, axes_flat[path], sh.spec, heads)
+                d = tensor.kept_dim(name, axes_flat[path], sh.spec, heads,
+                                    experts)
                 region = tensor.region_of(name)
                 if d is not None:
                     keep = (d,)

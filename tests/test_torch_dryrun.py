@@ -43,7 +43,9 @@ ENV = {**os.environ, "PYTHONPATH": f"{REPO}/src"}
 SEQ, BATCH = 32, 8
 ARCHS = ("qwen2-1.5b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b", "xlstm-125m",
          "whisper-large-v3", "phi-3-vision-4.2b")
-DENSE = ("qwen2-1.5b",)  # the family served split over model
+# the families served split over model: the dense and MoE decoders and
+# the VLM
+SPLIT = ("qwen2-1.5b", "phi3.5-moe-42b-a6.6b", "phi-3-vision-4.2b")
 
 WORLD_CODE = r'''
 import json, os, sys, tempfile
@@ -124,6 +126,41 @@ for arch in ARCHS:
                          "collectives": sst["collectives"]["total_ops"]}
     cells[arch]["serving"] = serving
 out["cells"] = cells
+
+# a reduced MoE decode cell on a fake (1, 4) world: the serving layout
+# (the experts held split over model), and the same cell on a layout that
+# puts no experts on model (the experts gathered whole, the unsplit layer)
+fake_world(4)
+mesh14 = make_mesh((1, 4), device="cpu")
+mcfg = reduced(get_config("phi3.5-moe-42b-a6.6b"))
+whole = {"vocab": "model", "heads": "model", "mlp": "model"}
+moe_cells = {}
+for tag, kw in (("split", {}), ("whole", {"logical": whole})):
+    mst = analyze_cell(build_cell("phi3.5-moe-42b-a6.6b", "decode_32k",
+                                  mesh14, default_plan(mcfg, mesh14, **kw),
+                                  cfg=mcfg))
+    moe_cells[tag] = {"args": mst["argument_size_in_bytes"],
+                      "temp": mst["temp_size_in_bytes"],
+                      "K4": mst["hlo_stats"]["kernels"]["K4"],
+                      "ops": mst["collectives"]["op_count_by_kind"]}
+out["moe_decode_1x4"] = moe_cells
+
+# every serving cell of the production meshes: built, or refused
+from repro_torch.configs import get_shape
+serving_cells = {}
+for multi in (False, True):
+    fake_world(512 if multi else 256)
+    pmesh = make_production_mesh(multi_pod=multi)
+    for arch, name, ok, _ in all_cells():
+        if not ok or get_shape(name).kind == "train":
+            continue
+        key = "|".join((arch, name, "2x16x16" if multi else "16x16"))
+        try:
+            build_cell(arch, name, pmesh)
+            serving_cells[key] = "ok"
+        except NotImplementedError as e:
+            serving_cells[key] = str(e)
+out["serving_cells"] = serving_cells
 
 # the probe's cell on one device: a fake world of one
 fake_world(1)
@@ -590,11 +627,11 @@ def test_fake_world_cells_come_out_ok_with_their_layouts_traffic(world):
         else:
             # the split compute adds its activations' all-reduces
             assert got["all-reduce"] > want["all-reduce"] + scalars, arch
-        # a model axis of 4: the dense decoders' serving cells build and
-        # count on the reference's layouts; the others are refused, the
-        # ROADMAP entry named
+        # a model axis of 4: the dense and MoE decoders' and the VLM's
+        # serving cells build and count on the reference's layouts; the
+        # others are refused, the ROADMAP entry named
         for name, got in cell["serving"].items():
-            if arch in DENSE:
+            if arch in SPLIT:
                 assert got["flops"] > 0 and got["collectives"] > 0
                 assert got["args"] == _reference_serving_args(arch, name), \
                     (arch, name)
@@ -617,11 +654,12 @@ def _local_bytes(shape, spec, dtype, sizes):
     return -(-n // _ALLOC_ROUND) * _ALLOC_ROUND
 
 
-def _reference_serving_args(arch, shape_name):
+def _reference_serving_args(arch, shape_name, sizes=None):
     """A rank's argument bytes of a reduced serving cell on the fake (4,
-    4) mesh, by the reference's own layouts on an abstract mesh: its
-    bf16 parameters by ``make_param_shardings``, the prompts by
-    ``batch_specs``, the decode cache by ``cache_specs_sharding``."""
+    4) mesh (or one of ``sizes``), by the reference's own layouts on an
+    abstract mesh: its bf16 parameters by ``make_param_shardings``, the
+    prompts by ``batch_specs``, the decode cache by
+    ``cache_specs_sharding``."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import AbstractMesh
@@ -632,7 +670,7 @@ def _reference_serving_args(arch, shape_name):
     from repro.models import build_model as jbuild_model
     from repro.parallel import sharding as jsh
 
-    sizes = {"data": 4, "model": 4}
+    sizes = sizes or {"data": 4, "model": 4}
     mesh = AbstractMesh(tuple(sizes.values()), tuple(sizes))
     cfg, shape = jreduced(jget_config(arch)), jget_shape(shape_name)
     plan = jsh.Plan(dp_axes=("data",), fsdp_axes=("data",), remat="full")
@@ -656,6 +694,43 @@ def _reference_serving_args(arch, shape_name):
         for x, sh in zip(jax.tree.leaves(tree), jax.tree.leaves(shard)):
             total += _local_bytes(x.shape, sh.spec, x.dtype, sizes)
     return total
+
+
+def test_moe_decode_cell_holds_its_experts_split(world):
+    """Reduced phi3.5-moe's decode cell on a fake (1, 4) world: a rank's
+    arguments are its blocks by the reference's own serving layouts
+    (the experts over ``model``); K4 counts a quarter of the rows (and
+    FLOPs) of the same cell with the experts gathered whole; and the
+    partial outputs' sum is one more all-reduce a layer."""
+    from repro_torch.configs import get_config, reduced
+
+    cells = world["moe_decode_1x4"]
+    split, whole = cells["split"], cells["whole"]
+    L = reduced(get_config("phi3.5-moe-42b-a6.6b")).num_layers
+    assert split["args"] == _reference_serving_args(
+        "phi3.5-moe-42b-a6.6b", "decode_32k", {"data": 1, "model": 4})
+    assert split["K4"]["calls"] == whole["K4"]["calls"] == 3 * L
+    assert split["K4"]["flops"] * 4 == whole["K4"]["flops"] > 0
+    assert split["ops"]["all-reduce"] == whole["ops"]["all-reduce"] + L
+    assert split["temp"] < whole["temp"]
+
+
+def test_production_serving_cells_split_or_refused(world):
+    """On 16×16 and 2×16×16: the 28 prefill and decode cells of the
+    dense and MoE decoders and the VLM build; the 16 of hymba, the xLSTM
+    and whisper are refused, naming the ROADMAP entry."""
+    cells = world["serving_cells"]
+    assert len(cells) == 44
+    ok = {k for k, v in cells.items() if v == "ok"}
+    refused = {k: v for k, v in cells.items() if v != "ok"}
+    assert len(ok) == 28 and len(refused) == 16, sorted(refused)
+    for key, why in refused.items():
+        assert key.split("|")[0] in ("hymba-1.5b", "xlstm-125m",
+                                     "whisper-large-v3"), key
+        assert "sharded serving cells" in why, (key, why)
+    for arch in ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
+                 "phi-3-vision-4.2b"):
+        assert sum(k.startswith(arch + "|") for k in ok) == 4, arch
 
 
 def test_fake_world_kernels_count_once_a_call(world):

@@ -267,8 +267,7 @@ def test_split_decode_refuses_a_cache_laid_out_otherwise():
 
 
 def test_other_families_keep_their_refusal():
-    for arch in ("phi3.5-moe-42b-a6.6b", "hymba-1.5b", "xlstm-125m",
-                 "phi-3-vision-4.2b", "whisper-large-v3"):
+    for arch in ("hymba-1.5b", "xlstm-125m", "whisper-large-v3"):
         model = build_model(reduced(get_config(arch)), "cpu")
         with pytest.raises(NotImplementedError,
                            match="sharded serving cells"):

@@ -331,13 +331,17 @@ def elastic_world(rank, mesh_shape, case, ckpt_dir, mode):
 
 def serve_world(rank, mesh_shape, cases, max_seq, steps):
     """Each case ``{"arch", "over", "params", "tokens", "lens"}`` (the
-    whole parameters, the global right-padded prompts and their lengths):
+    whole parameters, the global right-padded prompts and their lengths,
+    or None: whole rows), and optionally ``"extra"`` (the global extra
+    inputs, each with the batch first: the VLM's image embeddings):
     ``serve/sharded.py``'s split prefill of this rank's rows into a cache
     of ``max_seq`` positions, then ``steps`` greedy decode steps.
     Returns per case this rank's logits of every step (whole over the
     vocab), its greedy tokens, its cache block after the prefill and
-    after the last step, and its place on the mesh."""
+    after the last step, its place on the mesh, and the MoE prefill's
+    (kept, all) routed entries of its rows (None for another family)."""
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
     from repro_torch.parallel import shard_tree
     from repro_torch.parallel.sharding import Plan, Sharding
     from repro_torch.serve.sharded import make_serve_artifacts
@@ -350,10 +354,21 @@ def serve_world(rank, mesh_shape, cases, max_seq, steps):
         B = tokens.shape[0]
         art = make_serve_artifacts(model, mesh, Plan(), B, max_seq)
         params = shard_tree(case["params"], art.param_shardings)
-        rows = Sharding(mesh, (("data",), ()), tuple(tokens.shape))
-        logits, cache = art.prefill_fn(
-            params, rows.local(tokens),
-            lens=Sharding(mesh, (("data",),), (B,)).local(lens))
+
+        def local(x):
+            return Sharding(mesh, (("data",),) + ((),) * (x.dim() - 1),
+                            tuple(x.shape)).local(x)
+
+        extra = {k: local(v) for k, v in case.get("extra", {}).items()}
+        moe.drop_stats = [] if model.cfg.num_experts else None
+        try:
+            logits, cache = art.prefill_fn(
+                params, local(tokens), extra or None,
+                lens=None if lens is None else local(lens))
+            drops = None if moe.drop_stats is None else tuple(
+                int(sum(int(s[i]) for s in moe.drop_stats)) for i in (0, 1))
+        finally:
+            moe.drop_stats = None
         first = {k: v.clone() for k, v in cache.items()}
         seen, chosen = [logits], []
         for _ in range(steps):
@@ -363,5 +378,6 @@ def serve_world(rank, mesh_shape, cases, max_seq, steps):
             seen.append(logits)
         out[name] = {"logits": torch.stack(seen), "tokens": torch.cat(
             chosen, 1), "prefill_cache": first, "cache": cache,
-            "data": mesh.coord("data"), "model": mesh.coord("model")}
+            "data": mesh.coord("data"), "model": mesh.coord("model"),
+            "drops": drops}
     return out

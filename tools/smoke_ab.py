@@ -9,7 +9,8 @@ from its own root (its own ``src`` and kernel build), in the order given.
 workflow at global batch 2 and 4 planned for the card, and the
 calibration whose residual phase 31 bounds) after the device and build
 phases, nothing else; ``--upto-31`` runs the tree's whole ``main()`` and
-stops where phase 32 would start.  A tree is a directory holding a
+stops where phase 32 would start (phases 29-31 run right after the
+build in a tree that orders them so, after phase 28 in an older one).  A tree is a directory holding a
 checkout (``git archive <commit> | tar -x -C TREE``).  Prints, per tree,
 the lines of phases 5, 10, 30 and 31 and whether the calibration held.
 """
