@@ -347,7 +347,23 @@ left its global batch 2 slower (ROADMAP §3):
      same tokens: the logits within ``TOL``'s bf16 tolerance; and the
      same in float32, each run choosing its own greedy tokens:
      identical.  The served runs' K4 and K1 launches join their kernels'
-     counts.
+     counts;
+ 51. whisper's, hymba's and the xLSTM's serving split over ``model``,
+     on one card: K5 with its final state at hymba's split prefill rank
+     of ``prefill_32k`` on 16x16 (B 2, S 32768, 200 of 3200 channels),
+     K1 at whisper's decoder prefill rank (B 2, S = T 32768, its 20
+     heads of 64 unsplit) against its plain version at S = T 4096 and
+     timed with SDPA's, and K6 with its final state at the xLSTM's
+     prefill rank (B 2, 4 heads, S 32768, D = DV 384), bf16, each
+     against its plain version and timed beside its bound; then hymba at
+     full width cut to 4 layers (layer 0 global) and whisper at full
+     width cut to 4 + 4 layers, 4 slots, prompts of 2560 (past hymba's
+     window, so its rings wrap), phase 49's cache and steps, each global
+     or self-attention cache read whole and read in 16 merged blocks: in
+     bf16 each step from the same cache and token, the logits within
+     ``TOL``'s bf16 2e-2 of their max |logit|; in float32 over 16 steps,
+     each run choosing its own greedy tokens: identical.  The served
+     runs' K1 and K5 launches join their kernels' counts.
 
 The second-to-last lines are the kernel table (JSON) and the
 ``nvidia-smi`` name/power line; the last line is the result JSON.
@@ -409,7 +425,7 @@ from repro_torch.train import (OptimizerConfig, Plan,  # noqa: E402
                                init_train_state, make_grad_fn,
                                make_train_artifacts, make_train_step)
 from repro_torch.train.optimizer import global_norm  # noqa: E402
-from repro_torch.tree import flatten, leaves  # noqa: E402
+from repro_torch.tree import flatten, leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 BF16_FLOPS = 989e12         # H100 SXM, dense tensor cores
@@ -1205,6 +1221,18 @@ def time_events_ms(fn, reps: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _events_ms(fn):
+    """``(fn(), its device ms between CUDA events)``: one call timed, for
+    a plain version whose check already calls it once."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def _live_mask(S, T, window, q_offset, dev, causal=True):
@@ -3422,16 +3450,21 @@ def phase_slice_workflows(runs: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-def _k5_state_case(name, dtype, B, S, Din, N, gen) -> dict:
+def _k5_state_case(name, dtype, B, S, Din, N, gen, tag="36",
+                   plain_reps=2, exact=True) -> dict:
     """K5 with its final state at a prefill's shape against its plain
     version (``ref.ssm_scan_chunked`` at K5's chunk): the state (and, in
     float32, y) against the scan run in float64, within max(2e-5, 4x the
     float32 plain version's own error), as phase 17 holds the
-    checkpoints; bf16 y at 2e-2 abs+rel."""
+    checkpoints (without ``exact``: against the plain version's float32
+    scan, within 2e-5); bf16 y at 2e-2 abs+rel.  ``plain_reps`` 0 times
+    the plain version by the check's own call (CUDA events)."""
     xs = _ssm_inputs(gen, dtype, B, S, Din, N)
     y, h = ssm_scan.ssm_scan_cuda(*xs, with_state=True)
-    want = ref.ssm_scan_chunked(*xs, chunk=ref.SSM_CHUNK)
-    exact = _ssm_fwd_ckpt64(*xs)
+    want, first_ms = _events_ms(lambda: ref.ssm_scan_chunked(
+        *xs, chunk=ref.SSM_CHUNK))
+    against = "float64" if exact else "the plain version"
+    exact = _ssm_fwd_ckpt64(*xs) if exact else (want[0], None, want[1])
     torch.cuda.synchronize()
     pairs = [(h, want[1], exact[2])]
     if dtype == torch.float32:
@@ -3455,7 +3488,8 @@ def _k5_state_case(name, dtype, B, S, Din, N, gen) -> dict:
     ms = time_ms(lambda: ssm_scan.ssm_scan_cuda(*xs, with_state=True),
                  reps=5, inner=5)
     plain_ms = time_events_ms(lambda: ref.ssm_scan_chunked(
-        *xs, chunk=ref.SSM_CHUNK), reps=2)
+        *xs, chunk=ref.SSM_CHUNK), reps=plain_reps) if plain_reps \
+        else first_ms
     # x and dt read, y written, B and C read, A and D read, the state
     # written; per (b, t, channel, n) one exponential and 7 float32 ops
     elems = B * S * Din * N
@@ -3463,9 +3497,10 @@ def _k5_state_case(name, dtype, B, S, Din, N, gen) -> dict:
     nbytes = (size * 3 * B * S * Din + 4 * 2 * B * S * N
               + 4 * (Din * N + Din) + 4 * B * Din * N)
     bms, by = ssm_bound_ms(nbytes, 7.0 * elems, elems)
-    log(f"[36 K5+state] {name} {str(dtype)[6:]} B={B} S={S} Din={Din} N={N}: "
+    log(f"[{tag} K5+state] {name} {str(dtype)[6:]} B={B} S={S} Din={Din} "
+        f"N={N}: "
         f"max_abs_err={err:.3g} (final state"
-        f"{' and y' if dtype == torch.float32 else ''} against float64: "
+        f"{' and y' if dtype == torch.float32 else ''} against {against}: "
         f"{kern:.3g} abs+rel, bound {bound:.3g} = max(2e-05, 4 x the float32 "
         f"plain version's {plain:.3g}); {each}"
         + (f"; y tol {TOL[dtype]:g} abs+rel against the plain version"
@@ -3477,19 +3512,22 @@ def _k5_state_case(name, dtype, B, S, Din, N, gen) -> dict:
                 bound_by=by, library_ms=None)
 
 
-def _k6_state_case(name, dtype, B, H, S, D, DV, gen) -> dict:
+def _k6_state_case(name, dtype, B, H, S, D, DV, gen, tag="36",
+                   plain_reps=3) -> dict:
     """K6 with its final state at a prefill's shape against its plain
     version (``ref.mlstm_scan_chunked`` with its state, at the kernel's
     chunk): h, C, n and m in float32 against float64 within max(2e-5, 4x
     the float32 plain version's error), as phase 13; bf16 h, C and n at
-    2e-2 abs+rel, m at 2e-5."""
+    2e-2 abs+rel, m at 2e-5.  ``plain_reps`` 0 times the plain version
+    by the check's own call (CUDA events)."""
     chunk = mlstm_scan.kernel_chunk(dtype, D, DV)
     xs, _ = _mlstm_inputs(gen, dtype, B, H, S, D, DV)
     tc0 = mlstm_scan.tc_launches
     h, st = mlstm_scan.mlstm_scan_cuda(*xs, with_state=True)
     path = _path(mlstm_scan.tc_launches - tc0)
     got = (h,) + tuple(st)
-    wh, wst = ref.mlstm_scan_chunked(*xs, chunk=chunk, with_state=True)
+    (wh, wst), first_ms = _events_ms(lambda: ref.mlstm_scan_chunked(
+        *xs, chunk=chunk, with_state=True))
     want = (wh,) + tuple(wst)
     torch.cuda.synchronize()
     if dtype == torch.float32:
@@ -3522,7 +3560,8 @@ def _k6_state_case(name, dtype, B, H, S, D, DV, gen) -> dict:
     ms = time_ms(lambda: mlstm_scan.mlstm_scan_cuda(*xs, with_state=True),
                  reps=5, inner=3)
     plain_ms = time_ms(lambda: ref.mlstm_scan_chunked(
-        *xs, chunk=chunk, with_state=True), reps=3, inner=1)
+        *xs, chunk=chunk, with_state=True), reps=plain_reps, inner=1) \
+        if plain_reps else first_ms
     # as phase 13's forward bound, the final state written instead of the
     # per-row stats
     L, rows = K6_BOUND_CHUNK, B * H * S
@@ -3532,7 +3571,7 @@ def _k6_state_case(name, dtype, B, H, S, D, DV, gen) -> dict:
               + 4 * B * H * (D * DV + D + 1))
     bms, by = bound_ms(nbytes, rows * (2.0 * L * (D + DV) + 4.0 * D * DV),
                        peak)
-    log(f"[36 K6+state] {name} {str(dtype)[6:]} B={B} H={H} S={S} D={D} "
+    log(f"[{tag} K6+state] {name} {str(dtype)[6:]} B={B} H={H} S={S} D={D} "
         f"DV={DV} path={path} chunk={chunk}: max_abs_err={err:.3g} ({note}) "
         f"deterministic=True h_unchanged=True ms={ms:.4f} plain_ms="
         f"{plain_ms:.4f} library_ms=None bound_ms={bms:.5f} ({by})")
@@ -3856,11 +3895,11 @@ _FLASH = ops.flash_attention
 _K1_WINDOWED = [0]  # K1's launches with a window, while counted
 
 
-def _window_counting(q, k, v, *, causal=True, window=0):
+def _window_counting(q, k, v, *, causal=True, window=0, q_offset=0):
     """``ops.flash_attention`` that also counts the calls with a
     window."""
     _K1_WINDOWED[0] += window > 0
-    return _FLASH(q, k, v, causal=causal, window=window)
+    return _FLASH(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def phase_xlstm_serve(cfg) -> dict:
@@ -4681,14 +4720,17 @@ def _k1_split_prefill_case(gen, shape=None, tag="49 K1 split prefill",
                 library_ms=lib_ms)
 
 
-def _served(model, params, tokens, steps, blocks, forced=None, experts=1):
-    """The prefill into a cache of SV_CACHE positions, then ``steps``
-    decode steps reading the cache whole (``blocks`` 1) or in ``blocks``
-    merged blocks, each step fed the greedy token (or ``forced``'s); a
-    MoE's experts computed whole (``experts`` 1) or as ``experts`` blocks
-    whose partial outputs are summed (``moe.expert_blocks``)."""
+def _served(model, params, tokens, steps, blocks, forced=None, experts=1,
+            extra=None):
+    """The prefill (of ``extra`` too: whisper's frames) into a cache of
+    SV_CACHE positions, then ``steps`` decode steps reading the cache
+    whole (``blocks`` 1) or in ``blocks`` merged blocks, each step fed
+    the greedy token (or ``forced``'s); a MoE's experts computed whole
+    (``experts`` 1) or as ``experts`` blocks whose partial outputs are
+    summed (``moe.expert_blocks``)."""
     with moe.expert_blocks(experts):
-        logits, cache = model.prefill(params, tokens, max_seq=SV_CACHE)
+        logits, cache = model.prefill(params, tokens, extra,
+                                      max_seq=SV_CACHE)
         seen, chosen = [logits.float()], []
         for i in range(steps):
             nxt = (logits.argmax(-1).to(torch.int32)[:, None]
@@ -4864,6 +4906,155 @@ def phase_serve_split_moe(gen) -> dict:
     return {"K4": rows, "K1": k1, "seconds": took, **launches}
 
 
+# phase 51: whisper, hymba and the xLSTM served split over ``model``.
+# The kernels at the 16x16 prefill ranks the dry-run reports: K5 at
+# hymba's (2 rows of 32768, its 3200 SSM channels over 16), K1 at
+# whisper's decoder (2 rows of 32768, 20 heads of 64: 20 does not divide
+# 16, so every rank runs them all), K6 at the xLSTM's (unsplit: 2 rows,
+# 4 heads of 384)
+SR_K5 = dict(B=2, S=32768, Din=3200 // 16, N=16)
+SR_K1 = dict(B=2, S=32768, H=20, KH=20, D=64)
+SR_K6 = dict(B=2, H=4, S=32768, D=384, DV=384)
+# hymba cut to 4 layers (layer 0 global, 1-3 windows of 2048) and whisper
+# to 4 + 4 layers, both at full width; 4 slots with prompts of 2560 (past
+# hymba's window, so its rings wrap), phase 49's cache, blocks and steps
+SR_LAYERS, SR_SLOTS, SR_PROMPT = 4, 4, 2560
+FRAME_STD = 1.0  # whisper's random frames: about its encoder inputs' size
+
+
+def _sr_config(arch: str, dt: str):
+    cfg = get_config(arch)
+    over = dict(dtype=dt, num_layers=SR_LAYERS)
+    if cfg.is_encoder_decoder:
+        over["encoder_layers"] = SR_LAYERS
+    else:
+        over["global_attn_layers"] = (0,)
+    return dataclasses.replace(cfg, **over)
+
+
+def _served_stepwise(model, params, tokens, steps, blocks, extra):
+    """The prefill, then ``steps`` greedy decode steps reading the cache
+    whole; before each, the same step from a copy of the same cache with
+    the cache read in ``blocks`` merged blocks.  Returns both runs'
+    logits of every step: each step's difference is the blocked read's
+    own, not compounded through the decode's state (a recurrent state
+    carries a one-ulp bf16 difference into every later step)."""
+    logits, cache = model.prefill(params, tokens, extra, max_seq=SV_CACHE)
+    whole, split = [logits.float()], [logits.float()]
+    for _ in range(steps):
+        nxt = logits.argmax(-1).to(torch.int32)[:, None]
+        other = tree_map(lambda x: x.clone(), cache)
+        split.append(model.decode_step(params, other, nxt,
+                                       kv_blocks=blocks)[0].float())
+        del other
+        logits, cache = model.decode_step(params, cache, nxt)
+        whole.append(logits.float())
+    torch.cuda.synchronize()
+    return torch.stack(whole), torch.stack(split)
+
+
+def phase_serve_split_recurrent(gen) -> dict:
+    """51: K5 and K6 with their final states and K1 at the split prefill
+    ranks of hymba, the xLSTM and whisper (``SR_*``), bf16, each against
+    its plain version beside its bound (K1 beside SDPA); then hymba and
+    whisper at full width, cut to ``SR_LAYERS`` layers, their global or
+    self-attention caches read whole and in 16 merged blocks (the
+    arithmetic of the decode on a cache split over 16 ranks; hymba's
+    rings read whole): in bf16 each step from the same cache and token
+    (:func:`_served_stepwise`), logits within ``TOL``'s bf16 2e-2 of
+    the max |logit| (a logit near 0 moves by its row's rounding: hymba's
+    moved 0.039 beside a max |logit| of 4.2, past an abs+rel bound of
+    2e-2 there; NVIDIA H100 80GB HBM3, 700 W);
+    in float32, each run choosing its own greedy tokens over all the
+    steps: identical.  Returns the kernel rows and the served runs'
+    launches."""
+    t0 = time.perf_counter()
+    k5 = _k5_state_case("hymba prefill_32k 16x16 rank", torch.bfloat16,
+                        *SR_K5.values(), gen, tag="51", plain_reps=0,
+                        exact=False)
+    torch.cuda.empty_cache()
+    t_k5 = time.perf_counter() - t0
+    k1 = _k1_split_prefill_case(gen, SR_K1, "51 K1 split prefill",
+                                "whisper-large-v3's decoder")
+    torch.cuda.empty_cache()
+    t_k1 = time.perf_counter() - t0 - t_k5
+    k6 = _k6_state_case("xLSTM prefill_32k 16x16 rank", torch.bfloat16,
+                        *SR_K6.values(), gen, tag="51", plain_reps=0)
+    torch.cuda.empty_cache()
+    t_kernels = time.perf_counter() - t0
+    n_k1, n_k5, n_st = (flash_attention.launches, ssm_scan.launches,
+                        ssm_scan.state_launches)
+    out = {}
+    for arch in ("hymba-1.5b", "whisper-large-v3"):
+        for dt in ("bfloat16", "float32"):
+            c = _sr_config(arch, dt)
+            model = build_model(c)
+            params = model.serving_params(model.init(seed=0))
+            tokens = torch.randint(0, c.vocab_size, (SR_SLOTS, SR_PROMPT),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int32)
+            extra = None
+            if c.is_encoder_decoder:
+                extra = {"frames": (FRAME_STD * torch.randn(
+                    (SR_SLOTS, c.encoder_frames, c.d_model),
+                    generator=gen, device="cuda")).to(getattr(torch, dt))}
+            else:
+                assert SR_PROMPT > c.sliding_window, c.sliding_window
+            what = (f"{c.name} {dt}, {c.num_layers} layers"
+                    + (f" + {c.encoder_layers} encoder layers"
+                       if c.is_encoder_decoder else
+                       f" (layer 0 global, window {c.sliding_window})"))
+            t1 = time.perf_counter()
+            if dt == "bfloat16":
+                whole, split = _served_stepwise(model, params, tokens,
+                                                SV_STEPS, SV_BLOCKS, extra)
+            else:
+                whole, toks = _served(model, params, tokens, SV_STEPS, 1,
+                                      extra=extra)
+                split, split_toks = _served(model, params, tokens, SV_STEPS,
+                                            SV_BLOCKS, extra=extra)
+            took_runs = time.perf_counter() - t1
+            assert bool(torch.isfinite(split).all()) and split.shape == (
+                SV_STEPS + 1, SR_SLOTS, c.vocab_size), split.shape
+            rel = float((split - whole).abs().max() / whole.abs().max())
+            if dt == "bfloat16":
+                err = float((split - whole).abs().max())
+                log(f"[51 serve split recurrent] {what}, {SR_SLOTS} "
+                    f"slots, cache {SV_CACHE}, prompt {SR_PROMPT}, "
+                    f"{SV_STEPS} steps: each step's read of the cache in "
+                    f"{SV_BLOCKS} blocks merged vs read whole, from the same "
+                    f"cache and token: max |diff| of the logits {err:.4g}, "
+                    f"{rel:.3g} of max |logit| {float(whole.abs().max()):.4g}"
+                    f" (bound {TOL[torch.bfloat16]:g} of it); {took_runs:.2f}"
+                    f" s (host clock, prefill included)")
+                assert rel <= TOL[torch.bfloat16], (rel, what)
+            else:
+                same = bool(torch.equal(split_toks, toks))
+                log(f"[51 serve split recurrent] {what}: greedy tokens of "
+                    f"the merged read identical to the whole read's: {same} "
+                    f"({toks.numel()} tokens); logits {rel:.3g} of max "
+                    f"|logit| apart")
+                assert same, (split_toks, toks)
+            out[(arch, dt)] = rel
+            del model, params, whole, split, extra
+            torch.cuda.empty_cache()
+    launches = {"flash_attention": flash_attention.launches - n_k1,
+                "ssm_scan": ssm_scan.launches - n_k5,
+                "ssm_scan_state": ssm_scan.state_launches - n_st}
+    # hymba's prefill launches K1 and K5 (with its state) once a layer;
+    # whisper's K1 three times a layer (encoder, decoder, cross); 3
+    # prefills each (bf16's one, float32's whole and blocked runs)
+    want = {"flash_attention": 3 * SR_LAYERS * (1 + 3),
+            "ssm_scan": 3 * SR_LAYERS, "ssm_scan_state": 3 * SR_LAYERS}
+    assert launches == want, (launches, want)
+    took = time.perf_counter() - t0
+    log(f"[51 serve split recurrent] launches in the served runs "
+        f"{launches}; the phase took {took:.1f} s ({t_kernels:.1f} s the "
+        f"kernels' checks and times: K5 {t_k5:.1f}, K1 {t_k1:.1f}, K6 "
+        f"{t_kernels - t_k5 - t_k1:.1f})")
+    return {"K5": k5, "K1": k1, "K6": k6, "seconds": took, **launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4995,6 +5186,8 @@ def main() -> int:
     sv = phase_serve_split(torch.Generator(device="cuda").manual_seed(49))
     sm = phase_serve_split_moe(
         torch.Generator(device="cuda").manual_seed(50))
+    sr = phase_serve_split_recurrent(
+        torch.Generator(device="cuda").manual_seed(51))
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -5008,10 +5201,10 @@ def main() -> int:
                        + ms["flash_attention"] + hs["flash_attention"]
                        + xs["flash_attention"] + ht["flash_attention"]
                        + par["flash_attention"] + sv["flash_attention"]
-                       + sm["flash_attention"]),
+                       + sm["flash_attention"] + sr["flash_attention"]),
              hymba_prefill=sk["flash_attention"],
              split_ranks=[fwd for fwd, _ in tp] + [fam["K1"], sv["K1"],
-                                                    sm["K1"]],
+                                                    sm["K1"], sr["K1"]],
              **k1),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -5053,7 +5246,8 @@ def main() -> int:
              replaces="src/repro/kernels/mlstm_scan.py:117",
              launches=xl_launches["mlstm_scan"] + xs["mlstm_scan"],
              state_launches=state["mlstm_scan"],
-             with_state=sk["mlstm_scan"], **k6),
+             with_state=sk["mlstm_scan"], split_prefill_rank=sr["K6"],
+             **k6),
         dict(name="mlstm_scan_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/mlstm_scan_bwd.cu",
              includes=[MLSTM_TC, HOPPER_COMMON],
@@ -5064,9 +5258,11 @@ def main() -> int:
              includes=[SSM_COMMON],
              replaces="src/repro/kernels/ssm_scan.py:63",
              launches=(hy_launches["ssm_scan"] + hs["ssm_scan"]
-                       + ht["ssm_scan"] + fam["launches"]["ssm_scan"]),
-             state_launches=state["ssm_scan"],
-             with_state=sk["ssm_scan"], split_rank=fam["K5"], **k5),
+                       + ht["ssm_scan"] + fam["launches"]["ssm_scan"]
+                       + sr["ssm_scan"]),
+             state_launches=state["ssm_scan"] + sr["ssm_scan_state"],
+             with_state=sk["ssm_scan"], split_rank=fam["K5"],
+             split_prefill_rank=sr["K5"], **k5),
         dict(name="ssm_scan_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
              includes=[SSM_COMMON],

@@ -12,17 +12,17 @@ OpCounter`, on the mesh's (fake) world: the counter's FLOPs, bytes,
 collectives and live-memory peak stand in for XLA's.
 
 Train cells go through ``make_train_artifacts`` (the sharded step).
-Prefill and decode cells take bf16 parameters.  The dense and MoE
-decoders' and the VLM's go through ``serve/sharded.py``'s
-``make_serve_artifacts`` on any mesh, as the reference lays them out:
-the parameters by ``make_param_shardings`` (their ``model`` dims —
-heads, MLP, vocab, the MoE's experts — and FSDP over the data axes,
-gathered a layer at a time except the dims the split keeps), the batch
-over the data axes, the cache by ``cache_spec`` (its K/V sequence over
-``model``), the step split over ``model``.  The other families' (hymba,
-the xLSTM, whisper) serving cells are built on meshes whose ``model``
-axis is 1 only, each data rank holding the whole parameters and its
-rows of the batch and the cache (ROADMAP, "sharded serving cells").
+Prefill and decode cells take bf16 parameters and go through
+``serve/sharded.py``'s ``make_serve_artifacts`` on any mesh, as the
+reference lays them out: the parameters by ``make_param_shardings``
+(their ``model`` dims — heads, MLP, vocab, the MoE's experts — and FSDP
+over the data axes, gathered a layer at a time except the dims the
+split keeps), the batch over the data axes, the cache by ``cache_spec``
+(its K/V sequence over ``model``, every other leaf by its batch), the
+step split over ``model`` (the xLSTM's gathered whole and repeated on
+each ``model`` rank).  The ``long_500k`` cells of hymba and the xLSTM,
+whose layout splits their states over ``model``, are refused (ROADMAP,
+"sharded serving cells").
 """
 from __future__ import annotations
 
@@ -36,10 +36,8 @@ from repro_torch.configs import get_config, get_shape, shape_applicable
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch import op_stats
 from repro_torch.models.api import Model
-from repro_torch.parallel.sharding import (Plan, Sharding, batch_specs,
-                                           cache_spec, replicated)
-from repro_torch.serve.sharded import (SERVING_ROADMAP, SPLIT_FAMILIES,
-                                       make_serve_artifacts)
+from repro_torch.parallel.sharding import Plan, batch_specs
+from repro_torch.serve.sharded import make_serve_artifacts
 from repro_torch.train import OptimizerConfig, make_train_artifacts
 from repro_torch.tree import Tree, tree_map
 
@@ -98,50 +96,16 @@ def build_cell(arch: str, shape_name: str, mesh,
     p_specs = tree_map(
         lambda s: torch.empty(s.shape, dtype=torch.bfloat16, device="meta")
         if s.dtype == torch.float32 else s, p_specs)
-    B = shape.global_batch
-    if cfg.family in SPLIT_FAMILIES:
-        return _split_serving_cell(model, shape, mesh, plan, p_specs,
-                                   (arch, shape_name, desc))
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{arch} × {shape_name} on {desc}: serving over the model axis "
-            f"is not ported (ROADMAP, '{SERVING_ROADMAP}')")
-    p_shard = tree_map(lambda s: replicated(mesh, tuple(s.shape)), p_specs)
-
-    if shape.kind == "prefill":
-        b_specs = model.input_specs(shape)
-        b_shard = batch_specs(b_specs, mesh, plan)
-        _batch_only(b_shard, mesh, f"{arch} × {shape_name}")
-
-        def prefill_fn(params, batch):
-            extra = {k: v for k, v in batch.items() if k != "tokens"}
-            return model.prefill(params, batch["tokens"], extra or None)
-
-        return LoweredCell(arch, shape_name, desc, "prefill", prefill_fn,
-                           (p_specs, b_specs), plan, (p_shard, b_shard))
-
-    specs = model.input_specs(shape)
-    cache_specs, tok_spec = specs["cache"], specs["tokens"]
-    cache_shard = _map(lambda x: Sharding(
-        mesh, cache_spec(tuple(x.shape), mesh, plan, B, shape.seq_len),
-        tuple(x.shape)), cache_specs)
-    tok_shard = batch_specs({"tokens": tok_spec}, mesh, plan)["tokens"]
-    _batch_only(cache_shard, mesh, f"{arch} × {shape_name}", B)
-
-    def decode_fn(params, cache, tokens):
-        return model.decode_step(params, cache, tokens)
-
-    return LoweredCell(arch, shape_name, desc, "decode", decode_fn,
-                       (p_specs, cache_specs, tok_spec), plan,
-                       (p_shard, cache_shard, tok_shard))
+    return _serving_cell(model, shape, mesh, plan, p_specs,
+                         (arch, shape_name, desc))
 
 
-def _split_serving_cell(model: Model, shape: ShapeConfig, mesh, plan: Plan,
-                        p_specs: Tree, names) -> LoweredCell:
-    """A dense or MoE decoder's or the VLM's prefill or decode cell on
-    the reference's serving layouts, its step ``make_serve_artifacts``'
-    (the prompt's cache of ``seq_len`` positions; the prefill takes the
-    batch's other inputs, the VLM's image embeddings)."""
+def _serving_cell(model: Model, shape: ShapeConfig, mesh, plan: Plan,
+                  p_specs: Tree, names) -> LoweredCell:
+    """A prefill or decode cell on the reference's serving layouts, its
+    step ``make_serve_artifacts``' (the prompt's cache of ``seq_len``
+    positions; the prefill takes the batch's other inputs: the
+    encoder-decoder's frames, the VLM's image embeddings)."""
     B = shape.global_batch
     art = make_serve_artifacts(model, mesh, plan, B, shape.seq_len)
     if shape.kind == "prefill":
@@ -160,38 +124,6 @@ def _split_serving_cell(model: Model, shape: ShapeConfig, mesh, plan: Plan,
     return LoweredCell(*names, "decode", art.decode_fn,
                        (p_specs, art.cache_specs, specs["tokens"]), plan,
                        (art.param_shardings, art.cache_shardings, tok_shard))
-
-
-def _batch_only(shardings: Tree, mesh, what: str,
-                batch: Optional[int] = None) -> None:
-    """Raise unless every split dim of a serving layout is the batch."""
-    for sh in _leaves(shardings):
-        for d, e in enumerate(sh.spec):
-            if mesh.size(e) > 1 and not (
-                    (batch is None and d == 0) or sh.shape[d] == batch):
-                raise NotImplementedError(
-                    f"{what}: dim {d} of {sh.shape} split over {e}, which "
-                    f"the port does not serve (ROADMAP, "
-                    f"'{SERVING_ROADMAP}')")
-
-
-def _map(fn, tree):
-    """``fn`` of every tensor leaf of a tree of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, Sharding):
-        return [tree]
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return []
 
 
 def _local_fakes(specs, shardings):

@@ -26,13 +26,14 @@ kernels' and their count; then the card's name and power limit.  The
 mesh's losses are the same function's at every shape, each summed in
 another order in bf16.
 
-``--serve`` serves instead (``serve/sharded.py``, the dense and MoE
-decoders and the VLM split over ``model``): for each architecture, in
-bf16 and then in float32, rank 0 first serves it unsplit on its one card
-(the model's own ``prefill`` and ``decode_step``), then every mesh serves
-it split: ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` random tokens
-(seed 0; the VLM's first positions random image embeddings of the token
-embeddings' size, split over the data axis with the rows) prefilled
+``--serve`` serves instead (``serve/sharded.py``, every family split
+over ``model``): for each architecture, in bf16 and then in float32,
+rank 0 first serves it unsplit on its one card (the model's own
+``prefill`` and ``decode_step``), then every mesh serves it split:
+``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` random tokens (seed 0; the
+VLM's first positions random image embeddings of the token embeddings'
+size, the encoder-decoder's random frames, each split over the data axis
+with the rows) prefilled
 into a cache of ``--cache`` positions (``SERVE_CACHE`` by default), then
 ``SERVE_STEPS`` greedy decode steps, the last under ``torch.profiler``
 on rank 0.  Parameters are drawn in the compute dtype from seed 0 (the
@@ -67,8 +68,9 @@ import torch.multiprocessing as mp
 ARCH, SEQ, BATCH = "qwen2-1.5b", 4096, 4
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 4, 4096, 32768, 32
 # the VLM's random image embeddings: about the size of the token
-# embeddings at init
-IMAGE_STD = 0.02
+# embeddings at init; the encoder-decoder's random frames: about its
+# encoder inputs' size
+IMAGE_STD, FRAME_STD = 0.02, 1.0
 
 
 def arch_config(arch: str, layers: int = 0, *, cuda: bool = True):
@@ -250,6 +252,7 @@ def serve_arch(rank, arch, args, device) -> None:
     from repro_torch.parallel.sharding import Sharding
     from repro_torch.serve.sharded import make_serve_artifacts
     from repro_torch.train import Plan
+    from repro_torch.train.step import GATHER_AND_REPEAT
     from repro_torch.tree import tree_map
 
     cuda = device.type == "cuda"
@@ -259,7 +262,10 @@ def serve_arch(rank, arch, args, device) -> None:
         cfg = get_config(arch) if cuda else reduced(get_config(arch))
         cfg = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
         if args.layers:
-            cfg = dataclasses.replace(cfg, num_layers=args.layers)
+            cfg = dataclasses.replace(cfg, num_layers=args.layers,
+                                      encoder_layers=(
+                                          args.layers
+                                          if cfg.is_encoder_decoder else 0))
         model = build_model(cfg, device=device)
         gen = torch.Generator().manual_seed(0)
         tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt),
@@ -268,6 +274,10 @@ def serve_arch(rank, arch, args, device) -> None:
         if cfg.num_image_tokens:
             extra["image_embeds"] = (IMAGE_STD * torch.randn(
                 (SERVE_BATCH, cfg.num_image_tokens, cfg.d_model),
+                generator=gen)).to(device=device, dtype=getattr(torch, dt))
+        if cfg.is_encoder_decoder:
+            extra["frames"] = (FRAME_STD * torch.randn(
+                (SERVE_BATCH, cfg.encoder_frames, cfg.d_model),
                 generator=gen)).to(device=device, dtype=getattr(torch, dt))
         base = None
         if rank == 0:
@@ -325,7 +335,8 @@ def serve_arch(rank, arch, args, device) -> None:
                     _report_parting(base, split, base_margin,
                                     torch.cat([p[3] for p in mine]))
                 attn = tensor.attn_mode(cfg, plan, shape[1], prompt) \
-                    if shape[1] > 1 else None
+                    if shape[1] > 1 and cfg.family not in \
+                    GATHER_AND_REPEAT else None
                 _report_serve(arch, dt, text, attn or "none", pf, walls,
                               float(peak), same, device, prof, lat)
                 if dt == "float32" and not same:

@@ -148,12 +148,12 @@ class Model:
     def decode_step(self, params, cache, tokens: torch.Tensor,
                     kv_blocks: int = 1):
         """One decode step (see :func:`repro_torch.models.lm.decode_step`;
-        ``kv_blocks`` reads a decoder's dense cache in that many sequence
-        blocks)."""
+        ``kv_blocks`` reads a decoder's dense cache, the hybrid's global
+        layers' and the encoder-decoder's self-attention cache in that
+        many sequence blocks)."""
         if self.cfg.is_encoder_decoder:
-            if kv_blocks != 1:
-                raise ValueError("the encoder-decoder's cache is read whole")
-            return encdec.decode_step(params, self.cfg, cache, tokens)
+            return encdec.decode_step(params, self.cfg, cache, tokens,
+                                      kv_blocks)
         return lm.decode_step(params, self.cfg, cache, tokens, kv_blocks)
 
     def decode_and_sample(self, params, cache, last_token: torch.Tensor, *,

@@ -71,18 +71,22 @@ def attend_train(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def attend_prefill(p: Dict[str, torch.Tensor], x: torch.Tensor,
-                   cfg: ModelConfig, block: Tuple[int, int]):
-    """The prefill's causal self-attention, as :func:`attend_train`
-    computes it (under a split the rank's heads or query rows), and the
-    cache's entries at the positions ``block = (start, n)``: ``(out,
-    k, v)``, k (RoPE'd) and v ``(B, n, KH, Dh)`` of every KV head.  Where
-    the rank's own K and V already hold every KV head they are sliced;
-    where it projected only its heads' KV heads (attention by heads),
-    its ``n`` positions are projected for all of them from the rows it
-    holds alike (``wk`` and ``wv`` are held alike), with no
-    collective."""
-    return _attend(p, x, cfg, causal=True, window=0, use_rope=True,
-                   prefix="attn", kv=None, block=block)
+                   cfg: ModelConfig, block: Tuple[int, int], *,
+                   window: int = 0, use_rope: bool = True,
+                   prefix: str = "attn",
+                   kv: Optional[torch.Tensor] = None):
+    """The prefill's attention, as :func:`attend_train` computes it
+    (under a split the rank's heads or query rows; causal self-attention,
+    ``window`` 0 = global, or with ``kv`` the cross attention over the
+    encoder's states), and the cache's entries at the positions ``block
+    = (start, n)`` of its K/V source: ``(out, k, v)``, k (RoPE'd where
+    ``use_rope``) and v ``(B, n, KH, Dh)`` of every KV head.  Where the
+    rank's own K and V already hold every KV head they are sliced; where
+    it projected only its heads' KV heads (attention by heads), its ``n``
+    positions are projected for all of them from the rows it holds alike
+    (``wk`` and ``wv`` are held alike), with no collective."""
+    return _attend(p, x, cfg, causal=kv is None, window=window,
+                   use_rope=use_rope, prefix=prefix, kv=kv, block=block)
 
 
 def _attend(p, x, cfg, *, causal, window, use_rope, prefix, kv,
@@ -131,7 +135,8 @@ def _attend(p, x, cfg, *, causal, window, use_rope, prefix, kv,
         if every_kv:
             kc, vc = k.narrow(1, start, size), v.narrow(1, start, size)
         else:
-            kc, vc = _kv_at(p, x, cfg, start, size, prefix)
+            kc, vc = _kv_at(p, src, cfg, start, size, prefix,
+                            rope=use_rope, bias=kv is None)
     out = out_proj(p, ops.flash_attention(q, k, v, causal=causal,
                                           window=window, q_offset=off), prefix)
     if mode == "heads":
@@ -142,49 +147,51 @@ def _attend(p, x, cfg, *, causal, window, use_rope, prefix, kv,
 
 
 def _kv_at(p, x: torch.Tensor, cfg: ModelConfig, start: int, n: int,
-           prefix: str = "attn"):
-    """K (RoPE'd) and V of every KV head at positions ``start ..
-    start+n-1`` of ``x``."""
+           prefix: str = "attn", rope: bool = True, bias: bool = True):
+    """K (RoPE'd where ``rope``) and V of every KV head at positions
+    ``start .. start+n-1`` of ``x`` (the biases where the config has
+    them and ``bias``)."""
     dt = x.dtype
     xs = x.narrow(1, start, n)
     k = _proj(xs, p[f"{prefix}_wk"])
     v = _proj(xs, p[f"{prefix}_wv"])
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and bias:
         k = k + p[f"{prefix}_bk"].to(dt)
         v = v + p[f"{prefix}_bv"].to(dt)
+    if not rope:
+        return k, v
     cos, sin = rope_angles(torch.arange(start, start + n, device=x.device),
                            cfg.head_dim, cfg.rope_theta)
     return apply_rope(k, cos, sin), v
 
 
-def _kv_heads(p, cfg: ModelConfig, h0: int, hl: int, prefix: str):
-    """``wk``, ``wv`` (and ``bk``, ``bv``) cut to the KV heads that the
-    query heads ``h0 .. h0+hl-1`` read (query head ``h`` reads KV head
-    ``h // (H / KH)``; the leaves themselves when that is all of them),
-    and the index that gives one K/V head a query head where the heads
-    straddle KV groups unevenly (``index_select`` on the heads dim; None
-    where they fall in equal groups)."""
+def _kv_range(cfg: ModelConfig, h0: int, hl: int, device):
+    """``(lo, hi, idx)``: the KV heads ``lo .. hi-1`` that the query
+    heads ``h0 .. h0+hl-1`` read (query head ``h`` reads KV head ``h //
+    (H / KH)``), and the index that gives one of them to each query head
+    where the heads straddle KV groups unevenly (``index_select`` on the
+    heads dim; None where they fall in equal groups)."""
     g = cfg.num_heads // cfg.num_kv_heads
     lo, hi = h0 // g, (h0 + hl - 1) // g + 1
+    counts = {min((j + 1) * g, h0 + hl) - max(j * g, h0)
+              for j in range(lo, hi)}
+    idx = None
+    if len(counts) > 1:
+        idx = torch.arange(h0, h0 + hl, device=device) // g - lo
+    return lo, hi, idx
+
+
+def _kv_heads(p, cfg: ModelConfig, h0: int, hl: int, prefix: str):
+    """``wk``, ``wv`` (and ``bk``, ``bv``) cut to the KV heads that the
+    query heads ``h0 .. h0+hl-1`` read (the leaves themselves when that
+    is all of them), and :func:`_kv_range`'s index."""
+    lo, hi, idx = _kv_range(cfg, h0, hl, p[f"{prefix}_wk"].device)
     names = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
     kv = {n: p[f"{prefix}_{n}"] for n in names}
     if (lo, hi) != (0, cfg.num_kv_heads):
         kv = {n: t[lo:hi] if n[0] == "b" else t[:, lo:hi]
               for n, t in kv.items()}
-    counts = {min((j + 1) * g, h0 + hl) - max(j * g, h0)
-              for j in range(lo, hi)}
-    idx = None
-    if len(counts) > 1:
-        idx = torch.arange(h0, h0 + hl, device=p[f"{prefix}_wk"].device) \
-            // g - lo
     return kv, idx
-
-
-def cross_kv(p: Dict[str, torch.Tensor], enc: torch.Tensor,
-             prefix: str = "xattn"):
-    """Cross-attention K/V of the encoder states ``(B, T, D)``: each
-    ``(B, T, KH, Dh)``, no bias (as the reference)."""
-    return _proj(enc, p[f"{prefix}_wk"]), _proj(enc, p[f"{prefix}_wv"])
 
 
 def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -217,16 +224,28 @@ def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
     difference by design, ROADMAP §3).
 
     Under a serving split over ``model``, and with ``kv_blocks > 1`` on
-    one device, the cache is read in sequence blocks:
-    :func:`_attend_decode_blocks`."""
-    if kv_blocks > 1 or tensor.active() is not None:
-        if window > 0:
-            raise ValueError("a window layer's ring is not read in "
-                             "sequence blocks")
+    one device, a dense cache (``window`` 0) is read in sequence blocks:
+    :func:`_attend_decode_blocks`.  A window layer's ring is read whole
+    (``kv_blocks`` 1): under the split the serving layout holds it whole
+    over ``model``, and every rank writes the same slot and reads every
+    slot.  Its ``wk`` and ``wv`` are held alike, so every rank projects
+    the new token's K/V of every KV head itself; where attention is split
+    by heads the ranks' query heads are gathered over ``model``
+    (``B·H·Dh`` values), every rank attends with all of them, keeps its
+    heads for its rows of ``wo``, and the terms are summed over
+    ``model``."""
+    sp = tensor.active()
+    if window == 0 and (kv_blocks > 1 or sp is not None):
         return _attend_decode_blocks(p, x, cache_k, cache_v, pos, cfg,
                                      kv_blocks, use_rope, prefix)
+    if kv_blocks > 1:
+        raise ValueError("a window layer's ring is read whole, not in "
+                         "sequence blocks")
+    heads = sp is not None and sp.attn_mode(1) == "heads"
     B = x.shape[0]
     q, k, v = qkv(p, x, cfg, prefix)  # (B, 1, *, Dh)
+    if heads:
+        q = collectives.all_gather_dim(q, 2, sp.mesh, tensor.AXIS)
     if use_rope:
         cos, sin = rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -245,7 +264,35 @@ def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
         out = ops.masked_decode_attention(q, cache_k, cache_v, valid)
     else:
         out = ops.decode_attention(q, cache_k, cache_v, kv_len=pos + 1)
+    if heads:
+        hl = p[f"{prefix}_wq"].shape[1]
+        return sp.reduce_sum(out_proj(p, out.narrow(2, sp.rank * hl, hl),
+                                      prefix))
     return out_proj(p, out, prefix)
+
+
+def attend_cross_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                        xk: torch.Tensor, xv: torch.Tensor, cfg: ModelConfig,
+                        prefix: str = "xattn") -> torch.Tensor:
+    """One token's cross attention over the whole cross cache ``xk``/
+    ``xv`` ``(B, T, KH, Dh)`` (every frame valid), the plain read.  Under
+    a split by heads the rank's query heads read the KV heads they map
+    to (:func:`_kv_range`) and the output projection's terms over its
+    rows of ``wo`` are summed over ``model``; unsplit, every rank reads
+    every head."""
+    sp = tensor.active()
+    heads = sp is not None and sp.attn_mode(1) == "heads"
+    q = _proj(x, p[f"{prefix}_wq"])  # (B, 1, H or H/m, Dh)
+    if heads:
+        hl = q.shape[2]
+        lo, hi, idx = _kv_range(cfg, sp.rank * hl, hl, x.device)
+        xk, xv = xk[:, :, lo:hi], xv[:, :, lo:hi]
+        if idx is not None:
+            xk, xv = xk.index_select(2, idx), xv.index_select(2, idx)
+    xlen = torch.full((x.shape[0],), xk.shape[1], dtype=torch.int32,
+                      device=x.device)
+    out = out_proj(p, ops.decode_attention(q, xk, xv, kv_len=xlen), prefix)
+    return sp.reduce_sum(out) if heads else out
 
 
 def _attend_decode_blocks(p, x, cache_k, cache_v, pos, cfg, kv_blocks,

@@ -37,11 +37,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
-from repro_torch.models.attention import (_proj, attend_decode, attend_train,
-                                          cross_kv, out_proj, qkv)
+from repro_torch.models.attention import (attend_cross_decode, attend_decode,
+                                          attend_prefill, attend_train)
 from repro_torch.models.common import apply_norm
-from repro_torch.models.lm import (Params, apply_mlp, attention_shapes,
+from repro_torch.models.lm import (Params, _whole_logits, apply_mlp,
+                                   attention_shapes, cache_block,
                                    embed_tokens, layers, lm_logits,
                                    mlp_shapes, norm_shapes, token_nll)
 from repro_torch.parallel import fsdp
@@ -122,29 +122,13 @@ def _dec_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return x + (pe[None] if pe.dim() == 2 else pe)
 
 
-def _dec_block(cfg: ModelConfig, p, x: torch.Tensor, enc: torch.Tensor
-               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """One decoder block over the whole sequence: ``(x, (k, v, xk, xv))``,
-    the self-attention's K/V and the cross attention's K/V of ``enc``."""
-    h = apply_norm(p, "norm1", x, cfg.norm)
-    q, k, v = qkv(p, h, cfg)
-    x = x + out_proj(p, ops.flash_attention(q, k, v, causal=True))
-    h2 = apply_norm(p, "norm2", x, cfg.norm)
-    xk, xv = cross_kv(p, enc)
-    qx = _proj(h2, p["xattn_wq"])
-    xout = ops.flash_attention(qx, xk, xv, causal=False)
-    x = x + out_proj(p, xout, prefix="xattn")
-    x = x + apply_mlp(p, apply_norm(p, "norm3", x, cfg.norm), cfg)
-    return x, (k, v, xk, xv)
-
-
 def _dec_block_train(cfg: ModelConfig, p, x: torch.Tensor,
                      enc: torch.Tensor) -> torch.Tensor:
-    """:func:`_dec_block`'s output through the train path's attention
-    (``attend_train``: the causal self-attention and the cross attention
-    over ``enc``, split over ``model`` by heads or by the decoder's query
-    rows); ``p`` may be a layer's slices under the sharded step's
-    gathering."""
+    """One decoder block over the whole sequence (the causal
+    self-attention, the cross attention over ``enc``, then the MLP)
+    through the train path's attention (``attend_train``: split over
+    ``model`` by heads or by the decoder's query rows); ``p`` may be a
+    layer's slices under the sharded step's gathering."""
     p = fsdp.layer(p)
     h = apply_norm(p, "norm1", x, cfg.norm)
     x = x + attend_train(p, h, cfg, causal=True, use_rope=False)
@@ -208,41 +192,70 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Encode the frames, run the decoder over the whole prompt, and emit
     the cache: ``(last-token logits (B, V), cache)``.  Every row is a
     full-length prompt (no padded ``lens``: the engine groups the
-    encoder-decoder's requests by exact length)."""
+    encoder-decoder's requests by exact length).
+
+    Under the serving split over ``model`` (``serve/sharded.py``) the
+    encoder and the decoder are split as the train forward splits them;
+    the self-attention cache is this rank's block of the sequence
+    (``lm.cache_block``), the cross cache ``xk``/``xv`` is whole and the
+    same on every ``model`` rank (every KV head: where the rank projected
+    only its heads', all are projected from the encoder's states it holds
+    alike, as ``attend_prefill`` does), and the logits come back whole
+    over the vocab."""
     B, S = tokens.shape
     max_seq = max_seq or S
     enc = encode(params, cfg, extra["frames"])
     x = _dec_embed(params, cfg, tokens, torch.arange(S, device=tokens.device))
-    cache = init_cache(cfg, B, max_seq, x.device)
-    for i, p in enumerate(layers(cfg, params["blocks"])):
-        x, (k, v, xk, xv) = _dec_block(cfg, p, x, enc)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+    per_layer = layers(cfg, params["blocks"])
+    held, start, n = cache_block(S, max_seq)
+    L, T, KH, Dh = len(per_layer), enc.shape[1], cfg.num_kv_heads, \
+        cfg.head_dim
+
+    def zeros(s):
+        return torch.zeros((L, B, s, KH, Dh), dtype=x.dtype, device=x.device)
+
+    cache = {"k": zeros(held), "v": zeros(held), "xk": zeros(T),
+             "xv": zeros(T)}
+    for i, p in enumerate(per_layer):
+        p = fsdp.layer(p)
+        h = apply_norm(p, "norm1", x, cfg.norm)
+        attn, k, v = attend_prefill(p, h, cfg, (start, n), use_rope=False)
+        x = x + attn
+        h2 = apply_norm(p, "norm2", x, cfg.norm)
+        xattn, xk, xv = attend_prefill(p, h2, cfg, (0, T), use_rope=False,
+                                       prefix="xattn", kv=enc)
+        x = x + xattn
+        x = x + apply_mlp(p, apply_norm(p, "norm3", x, cfg.norm), cfg)
+        cache["k"][i, :, :n] = k
+        cache["v"][i, :, :n] = v
         cache["xk"][i] = xk
         cache["xv"][i] = xv
-    cache["pos"].fill_(S)
-    return lm_logits(params, cfg, x[:, -1:])[:, 0], cache
+    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return _whole_logits(params, cfg, x[:, -1:])[:, 0], cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+                tokens: torch.Tensor, kv_blocks: int = 1
+                ) -> Tuple[torch.Tensor, Params]:
     """tokens ``(B, 1)`` at each row's ``pos``: ``(logits (B, V), cache
     with pos + 1)``.  The self-attention K/V is written in place; the
-    cross cache is read as it is."""
+    cross cache is read as it is (``attend_cross_decode``).  Under the
+    serving split over ``model`` the self-attention cache is this rank's
+    block of the sequence (``models/attention.py``'s
+    ``_attend_decode_blocks``), the cross cache whole, and the logits
+    come back whole over the vocab; ``kv_blocks > 1`` reads a whole
+    self-attention cache on one device in that many sequence blocks,
+    merged as the split merges its ranks' blocks."""
     pos = cache["pos"]
-    B = tokens.shape[0]
     x = _dec_embed(params, cfg, tokens, pos[:, None])
-    T = cache["xk"].shape[2]
-    xlen = torch.full((B,), T, dtype=torch.int32, device=x.device)
     for i, p in enumerate(layers(cfg, params["blocks"])):
+        p = fsdp.layer(p)
         h = apply_norm(p, "norm1", x, cfg.norm)
         x = x + attend_decode(p, h, cache["k"][i], cache["v"][i], pos, cfg,
-                              use_rope=False)
+                              use_rope=False, kv_blocks=kv_blocks)
         h2 = apply_norm(p, "norm2", x, cfg.norm)
-        qx = _proj(h2, p["xattn_wq"])
-        xout = ops.decode_attention(qx, cache["xk"][i], cache["xv"][i],
-                                    kv_len=xlen)
-        x = x + out_proj(p, xout, prefix="xattn")
+        x = x + attend_cross_decode(p, h2, cache["xk"][i], cache["xv"][i],
+                                    cfg)
         x = x + apply_mlp(p, apply_norm(p, "norm3", x, cfg.norm), cfg)
-    logits = lm_logits(params, cfg, x)[:, 0]
+    logits = _whole_logits(params, cfg, x)[:, 0]
     return logits, dict(cache, pos=pos + 1)

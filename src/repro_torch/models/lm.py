@@ -33,10 +33,11 @@ on their vocab as the reference's ``hints.logits`` pins them.  The
 sharded step also installs its gathering (``parallel/fsdp.py``): then
 :func:`layers` gives each layer's slices of the rank's blocks, each
 block function gathers its layer first, and the embedding, head and
-final norm are gathered where read.  The dense decoders' prefill and
-decode run under the same split and gathering when served on a mesh
-(``serve/sharded.py``): the cache is each rank's block of the sequence,
-and the logits come back whole over the vocab.
+final norm are gathered where read.  Every family's prefill and decode
+run under the same split and gathering when served on a mesh
+(``serve/sharded.py``): the K/V cache is each rank's block of the
+sequence (the hybrid's rings and states whole), and the logits come
+back whole over the vocab.
 
 Remat ``"full"`` is ``torch.utils.checkpoint`` (non-reentrant) around
 each block, the reference's ``jax.checkpoint`` of the scan body; for the
@@ -68,15 +69,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
 from repro_torch.models import moe
 from repro_torch.models import recurrent as rec
 from repro_torch.models.attention import (attend_decode, attend_decode_paged,
                                           attend_prefill, attend_train,
-                                          attend_verify, attend_verify_paged,
-                                          out_proj, qkv)
-from repro_torch.models.common import (activation, apply_norm, apply_rope,
-                                       init_param, rope_angles)
+                                          attend_verify, attend_verify_paged)
+from repro_torch.models.common import activation, apply_norm, init_param
 from repro_torch.parallel import fsdp, tensor
 from repro_torch.tree import unflatten
 
@@ -586,11 +584,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             lens: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
     """Full forward emitting the decode cache (:func:`init_cache`'s
     layout for ``max_seq`` positions).  Returns (last-token logits
-    ``(B, V)``, cache).  Under the serving split over ``model`` (the
-    dense decoders, ``serve/sharded.py``) the forward is split as the
-    train forward is, the cache is this rank's block of the sequence
-    (``Split.cache_block``) and the logits come back whole over the
-    vocab.
+    ``(B, V)``, cache).  Under the serving split over ``model``
+    (``serve/sharded.py``) the forward is split as the train forward is,
+    the cache's K/V (the hybrid's global layers') are this rank's block
+    of the sequence (``Split.cache_block``), every other cache leaf is
+    whole and the same on every ``model`` rank, and the logits come back
+    whole over the vocab.
 
     ``lens`` (B,) marks ragged rows of a right-padded batch: logits come
     from position ``lens[b] - 1`` and the cache position is ``lens[b]``,
@@ -611,29 +610,22 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError("padded prefill (lens) unsupported for MoE: "
                          "expert capacity scales with the padded length "
                          "and pad tokens would evict real ones")
-    sp = tensor.active()
     x = embed_tokens(params, cfg, tokens, extra)
     full = torch.full((B,), S, dtype=torch.int32, device=x.device)
     if cfg.family == "ssm":
         x, cache = _xlstm_prefill(cfg, params["blocks"], x)
-        logits = lm_logits(params, cfg, x[:, -1:])
+        logits = _whole_logits(params, cfg, x[:, -1:])
         return logits[:, 0], dict(cache, pos=full)
     per_layer = layers(cfg, params["blocks"])
     if cfg.family == "hybrid":
-        cos, sin = rope_angles(torch.arange(S, device=tokens.device),
-                               cfg.head_dim, cfg.rope_theta)
         cache_layers = []
         for i, p in enumerate(per_layer):
             x, cl = _hybrid_block_prefill(cfg, p, x, layer_window(cfg, i),
-                                          max_seq, cos, sin)
+                                          max_seq)
             cache_layers.append(cl)
-        logits = lm_logits(params, cfg, x[:, -1:])
+        logits = _whole_logits(params, cfg, x[:, -1:])
         return logits[:, 0], {"layers": cache_layers, "pos": full}
-    # the cache positions this rank holds: all of them, or under the
-    # serving split its block; the prompt reaches ``n`` of them
-    held = max_seq if sp is None else sp.cache_block(max_seq)
-    start = 0 if sp is None else min(sp.rank * held, S)
-    n = max(0, min(S, start + held) - start)
+    held, start, n = cache_block(S, max_seq)
     shape = (len(per_layer), B, held, cfg.num_kv_heads, cfg.head_dim)
     kcache = torch.zeros(shape, dtype=x.dtype, device=x.device)
     vcache = torch.zeros(shape, dtype=x.dtype, device=x.device)
@@ -654,6 +646,17 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return logits[:, 0], {"k": kcache, "v": vcache, "pos": pos}
 
 
+def cache_block(S: int, max_seq: int) -> Tuple[int, int, int]:
+    """``(held, start, n)``: the positions of a decode cache of
+    ``max_seq`` that this rank holds (all of them, or under the serving
+    split its block, ``Split.cache_block``), the first of them, and how
+    many of them a prompt of ``S`` positions reaches."""
+    sp = tensor.active()
+    held = max_seq if sp is None else sp.cache_block(max_seq)
+    start = 0 if sp is None else min(sp.rank * held, S)
+    return held, start, max(0, min(S, start + held) - start)
+
+
 def _whole_logits(params: Params, cfg: ModelConfig,
                   x: torch.Tensor) -> torch.Tensor:
     """:func:`lm_logits` over the whole vocab: under a vocab-parallel
@@ -666,36 +669,52 @@ def _whole_logits(params: Params, cfg: ModelConfig,
 
 
 def _hybrid_block_prefill(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                          x: torch.Tensor, window: int, max_seq: int, cos,
-                          sin) -> Tuple[torch.Tensor, Params]:
+                          x: torch.Tensor, window: int, max_seq: int
+                          ) -> Tuple[torch.Tensor, Params]:
     """One hybrid block over the prompt: attention through K1 (causal,
     ``window`` 0 = global) beside the SSM heads through K5 with its final
     state, then the block's cache entry (the reference's
     ``_hybrid_block_prefill``).  A layer's K/V takes ``size`` slots
     (:func:`init_cache`); when the prompt is longer, the ring holds its
-    last ``size`` positions, position ``t`` at slot ``t % size``."""
+    last ``size`` positions, position ``t`` at slot ``t % size``.
+
+    Under the serving split over ``model`` (``serve/sharded.py``) the
+    attention and the SSM heads are split as the train forward splits
+    them; a global layer's K/V and ``slot_pos`` are this rank's block of
+    the sequence (``slot_pos`` -1 past the prompt), and a window layer's
+    ring and every SSM state are whole, the same on every ``model`` rank
+    (the ring's K/V of every KV head from the rows held alike, the SSM's
+    channel blocks gathered: ``models/recurrent.py``).  ``p`` may be a
+    layer's slices under the gathering, gathered here first."""
+    p = fsdp.layer(p)
     B, S, _ = x.shape
+    dev = x.device
     h = apply_norm(p, "norm1", x, cfg.norm)
-    q, k, v = qkv(p, h, cfg)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    attn = out_proj(p, ops.flash_attention(q, k, v, causal=True,
-                                           window=window))
+    size = min(window, max_seq) if window else max_seq
+    split = window == 0 and tensor.active() is not None
+    if split:
+        if S > max_seq:
+            raise ValueError(f"a prompt of {S} positions does not fit a "
+                             f"split cache of {max_seq}")
+        held, start, n = cache_block(S, max_seq)
+    else:  # the last ``size`` positions
+        held, start = size, max(0, S - size)
+        n = S - start
+    attn, k, v = attend_prefill(p, h, cfg, (start, n), window=window)
     ssm_out, ssm_state = rec.prefill_ssm(p, h, cfg)
     x, _ = _ffn_residual(p, x + _hybrid_mix(p, attn, ssm_out), cfg)
-    size = min(window, max_seq) if window else max_seq
-    dev = x.device
-    if size >= S:
-        kc = k.new_zeros((B, size) + k.shape[2:])
-        vc = v.new_zeros((B, size) + v.shape[2:])
-        kc[:, :S], vc[:, :S] = k, v
-        sp = torch.full((B, size), -1, dtype=torch.int32, device=dev)
-        sp[:, :S] = torch.arange(S, dtype=torch.int32, device=dev)
+    if split or S <= size:  # the first n slots hold positions start..
+        kc = k.new_zeros((B, held) + k.shape[2:])
+        vc = v.new_zeros((B, held) + v.shape[2:])
+        kc[:, :n], vc[:, :n] = k, v
+        sp = torch.full((B, held), -1, dtype=torch.int32, device=dev)
+        sp[:, :n] = torch.arange(start, start + n, dtype=torch.int32,
+                                 device=dev)
     else:  # the ring: slot j holds the t in [S - size, S) with t = j mod size
         j = torch.arange(size, device=dev)
-        at = S - size + (j - (S - size)) % size
+        at = (j - start) % size  # into the last ``size`` positions
         kc, vc = k[:, at], v[:, at]
-        sp = at.to(torch.int32).expand(B, size).contiguous()
+        sp = (start + at).to(torch.int32).expand(B, size).contiguous()
     return x, {"k": kc, "v": vc, "slot_pos": sp, "ssm": ssm_state}
 
 
@@ -703,16 +722,19 @@ def _xlstm_prefill(cfg: ModelConfig, blocks: Params, x: torch.Tensor):
     """The xLSTM over the prompt, each mLSTM block through K6 with its
     final state and each sLSTM block's loop keeping its own: ``(x, the
     cache's state leaves)`` in :func:`init_cache`'s layout (the
-    reference's ``_xlstm_prefill_cache``)."""
+    reference's ``_xlstm_prefill_cache``).  Each layer is gathered first
+    under the serving gathering (``serve/sharded.py``: every ``model``
+    rank runs its rows' prefill whole, as the train step's
+    ``GATHER_AND_REPEAT``)."""
     mstates, sstates = [], []
     for mp, sp in _xlstm_groups(cfg, blocks):
         group = []
         for p in mp:
-            x, st = rec.prefill_mlstm(p, x, cfg)
+            x, st = rec.prefill_mlstm(fsdp.layer(p), x, cfg)
             group.append(st)
         mstates.append(_stack(group))
         if sp is not None:
-            x, st = rec.prefill_slstm(sp, x, cfg)
+            x, st = rec.prefill_slstm(fsdp.layer(sp), x, cfg)
             sstates.append(st)
     if not cfg.slstm_every:  # (L, B, ...): one mLSTM layer a "group"
         return x, {"mlstm": {k: v[:, 0] for k, v in _stack(mstates).items()}}
@@ -723,18 +745,19 @@ def _xlstm_decode(cfg: ModelConfig, blocks: Params, cache: Params,
                   x: torch.Tensor) -> torch.Tensor:
     """One token through the xLSTM, each layer's state read from the
     cache and written back in place (the reference's ``_xlstm_decode``
-    returns new stacks)."""
+    returns new stacks), each layer gathered first as in
+    :func:`_xlstm_prefill`."""
     every = cfg.slstm_every
     for g, (mp, sp) in enumerate(_xlstm_groups(cfg, blocks)):
         for j, p in enumerate(mp):
             at = (g, j) if every else (g,)
             state = {k: v[at] for k, v in cache["mlstm"].items()}
-            x, new = rec.decode_mlstm(p, state, x, cfg)
+            x, new = rec.decode_mlstm(fsdp.layer(p), state, x, cfg)
             for k, v in new.items():
                 state[k].copy_(v)
         if sp is not None:
             state = {k: v[g] for k, v in cache["slstm"].items()}
-            x, new = rec.decode_slstm(sp, state, x, cfg)
+            x, new = rec.decode_slstm(fsdp.layer(sp), state, x, cfg)
             for k, v in new.items():
                 state[k].copy_(v)
     return x
@@ -742,14 +765,19 @@ def _xlstm_decode(cfg: ModelConfig, blocks: Params, cache: Params,
 
 def _hybrid_block_decode(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                          cl: Params, x: torch.Tensor, pos: torch.Tensor,
-                         window: int) -> torch.Tensor:
-    """One token through a hybrid block: a global layer's dense read, a
-    window layer's ring (:func:`repro_torch.models.attention.attend_decode`
-    with ``window``), and the SSM heads' step, the state written back in
-    place."""
+                         window: int, kv_blocks: int = 1) -> torch.Tensor:
+    """One token through a hybrid block: a global layer's dense read (in
+    ``kv_blocks`` sequence blocks, or under the serving split this rank's
+    block), a window layer's ring read whole
+    (:func:`repro_torch.models.attention.attend_decode` with ``window``),
+    and the SSM heads' step on the whole state, written back in place.
+    ``p`` may be a layer's slices under the gathering, gathered here
+    first."""
+    p = fsdp.layer(p)
     h = apply_norm(p, "norm1", x, cfg.norm)
     attn = attend_decode(p, h, cl["k"], cl["v"], pos, cfg, window=window,
-                         slot_pos=cl["slot_pos"] if window else None)
+                         slot_pos=cl["slot_pos"] if window else None,
+                         kv_blocks=1 if window else kv_blocks)
     ssm_out, new = rec.decode_ssm(p, cl["ssm"], h, cfg)
     for k, v in new.items():
         cl["ssm"][k].copy_(v)
@@ -767,11 +795,14 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     returns new arrays); the returned dict holds the same tensors and the
     advanced ``pos``.
 
-    Under the serving split over ``model`` (the dense decoders,
-    ``serve/sharded.py``) the dense cache's K/V are this rank's block of
-    the sequence (``models/attention.py``'s ``_attend_decode_blocks``)
-    and the logits come back whole over the vocab.  ``kv_blocks > 1``
-    reads a whole dense cache on one device in that many sequence
+    Under the serving split over ``model`` (``serve/sharded.py``) the
+    dense cache's K/V, and the hybrid's global layers' K/V, are this
+    rank's block of the sequence (``models/attention.py``'s
+    ``_attend_decode_blocks``), the hybrid's rings and SSM states are
+    whole, the SSM stepped whole on every ``model`` rank, and the logits
+    come back whole over the vocab; the xLSTM gathers each layer and
+    steps its state whole.  ``kv_blocks > 1`` reads a whole dense cache
+    (the hybrid's global layers') on one device in that many sequence
     blocks, merged as the split merges its ranks' blocks."""
     require_ported(cfg)
     sp = tensor.active()
@@ -783,7 +814,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     elif cfg.family == "hybrid":
         for i, (p, cl) in enumerate(zip(layers(cfg, blocks),
                                         cache["layers"])):
-            x = _hybrid_block_decode(cfg, p, cl, x, pos, layer_window(cfg, i))
+            x = _hybrid_block_decode(cfg, p, cl, x, pos, layer_window(cfg, i),
+                                     kv_blocks)
     else:
         paged = "k_pool" in cache
         if paged and (sp is not None or kv_blocks > 1):

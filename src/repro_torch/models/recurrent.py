@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import activation, layer_norm, rms_norm
-from repro_torch.parallel import tensor
+from repro_torch.parallel import collectives, tensor
 
 NEG_INF = -1e30
 
@@ -341,7 +341,8 @@ def _ssm_branch(p: Dict[str, Any], xn: torch.Tensor, cfg: ModelConfig,
     ``parallel/tensor.py``) the rank runs its ``d_in/m`` channels: the
     input's gradient summed over ``model``, the scan (K5, K5-bwd) on its
     channels alone, and the output projection's terms summed over
-    ``model``."""
+    ``model``; the state's channel blocks are then gathered whole
+    (:func:`_gather_state`), as the serving layout holds it."""
     S, dt_ = xn.shape[1], xn.dtype
     K = cfg.ssm_conv
     sp = tensor.active()
@@ -361,10 +362,24 @@ def _ssm_branch(p: Dict[str, Any], xn: torch.Tensor, cfg: ModelConfig,
     if with_state:
         y, h = ops.ssm_scan_with_state(*args)
         state = {"h": h, "conv": xpad[:, S:].float()}
+        if sp is not None:
+            state = _gather_state(state, sp)
     else:
         y = ops.ssm_scan(*args)
     out = (y * F.silu(z)) @ p["ssm_w_out"].to(dt_)
     return (out if sp is None else sp.reduce_sum(out)), state
+
+
+def _gather_state(state: Dict[str, torch.Tensor], sp) -> Dict[str, Any]:
+    """The ranks' channel blocks of the prefill's final state ``{h (B,
+    d_in/m, N), conv (B, K-1, d_in/m)}`` gathered over ``model`` in one
+    all-gather: the whole state, the same bits on every rank."""
+    h, conv = state["h"], state["conv"]
+    both = torch.cat([h, conv.transpose(1, 2)], -1)  # float32 both
+    both = collectives.all_gather_dim(both, 1, sp.mesh, tensor.AXIS)
+    N = h.shape[-1]
+    return {"h": both[..., :N].contiguous(),
+            "conv": both[..., N:].transpose(1, 2).contiguous()}
 
 
 def apply_ssm(p: Dict[str, Any], xn: torch.Tensor,
@@ -394,7 +409,10 @@ def decode_ssm(p: Dict[str, Any], state: Dict[str, torch.Tensor],
     """One token, xn ``(B, 1, D)`` normed: ``(out (B, 1, D), new
     state)``, the convolution over the carried inputs and one step of the
     sequential scan (``ops.ssm_step``), as the reference's
-    ``decode_ssm``."""
+    ``decode_ssm``.  Never split: the serving split over ``model`` holds
+    the state whole and gathers this layer's SSM leaves whole for the
+    decode (``serve/sharded.py``), so every ``model`` rank steps the
+    whole state of its rows, with no collective."""
     dt_ = xn.dtype
     xin, z = xn @ p["ssm_w_in"].to(dt_), xn @ p["ssm_w_z"].to(dt_)
     hist = torch.cat([state["conv"].to(dt_), xin], dim=1)  # (B, K, d_in)

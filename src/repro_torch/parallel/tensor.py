@@ -50,11 +50,14 @@ over ``model`` the gradient of every other leaf a split region reads
 table to update.  The model's split functions ask :meth:`Split.splits`.
 
 Serving installs the same split for a forward with no backward
-(``serve/sharded.py``: the dense and MoE decoders and the VLM), with
-:attr:`Split.cache_seq` the decode cache's positions, whose sequence the
-serving layout splits over ``model``: the prefill emits each rank's
+(``serve/sharded.py``: every family but the xLSTM), with
+:attr:`Split.cache_seq` the decode cache's positions, whose K/V sequence
+the serving layout splits over ``model``: the prefill emits each rank's
 block of it and the decode's attention reads the rank's block, the
-blocks' partial softmaxes merged over ``model`` (``models/attention.py``).
+blocks' partial softmaxes merged over ``model`` (``models/attention.py``);
+the cache's other leaves are held whole.  The decode leaves the ``ssm``
+region out of its split: the hybrid's SSM leaves are gathered whole and
+every rank steps the whole state.
 The serving layout also holds the routed experts split (the
 ``experts`` region): every rank routes all its tokens with the whole
 router, runs its ``E/m`` experts' slots and the ranks' partial outputs

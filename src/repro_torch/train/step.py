@@ -173,12 +173,16 @@ class _Layout:
                    ) -> List[fsdp.Leaf]:
         """How each leaf is gathered and its gradient reduced in a forward
         of ``split``: over the axes its layout names, except the dims the
-        compute keeps split; its gradient summed over the data axes, and
-        over ``model`` where ``split`` leaves it partial (an encoder
-        attention leaf at the encoder's frames)."""
+        compute keeps split (none for a leaf of a region ``split`` does
+        not split: the serving decode's SSM heads, gathered whole); its
+        gradient summed over the data axes, and over ``model`` where
+        ``split`` leaves it partial (an encoder attention leaf at the
+        encoder's frames)."""
         out = []
         for path, name, sh, keep, kept in zip(
                 self.paths, self.names, self.flat, self.keep, self.kept):
+            if kept and not split.splits(tensor.region_of(name)):
+                keep, kept = (), False
             seq = self.cfg.encoder_frames \
                 if path.startswith("enc_blocks/") else None
             partial = split is not None and split.partial(name, kept, seq)

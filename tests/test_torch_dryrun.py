@@ -43,15 +43,16 @@ ENV = {**os.environ, "PYTHONPATH": f"{REPO}/src"}
 SEQ, BATCH = 32, 8
 ARCHS = ("qwen2-1.5b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b", "xlstm-125m",
          "whisper-large-v3", "phi-3-vision-4.2b")
-# the families served split over model: the dense and MoE decoders and
-# the VLM
-SPLIT = ("qwen2-1.5b", "phi3.5-moe-42b-a6.6b", "phi-3-vision-4.2b")
+# the fake world's serving cells are the registry's shapes, but for the
+# xLSTM's prefill, whose sLSTM loop runs a step a position on fake
+# tensors (219 s at 32768): its sequence cut to this
+XLSTM_PREFILL_SEQ = 1024
 
 WORLD_CODE = r'''
 import json, os, sys, tempfile
 import torch
 import torch.distributed as dist
-from repro_torch.configs import all_cells, get_config, reduced
+from repro_torch.configs import all_cells, get_config, get_shape, reduced
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun, reanalyze
 from repro_torch.launch.cells import (analyze_cell, build_cell, count_cell,
@@ -63,7 +64,7 @@ from repro_torch.train.step import GATHER_AND_REPEAT, _Layout, state_layouts
 from repro_torch.models.api import Model
 from repro_torch.tree import leaves as tree_leaves
 
-SEQ, BATCH, ARCHS = json.loads(sys.argv[1])
+SEQ, BATCH, ARCHS, XLSTM_PREFILL_SEQ = json.loads(sys.argv[1])
 out = {"all_cells": list(all_cells())}  # a fresh process: no derived shape
 
 # a real world refuses a fake one
@@ -114,14 +115,14 @@ for arch in ARCHS:
                    "dp": list(lay.dp)}
     serving = {}
     for name in ("prefill_32k", "decode_32k"):
-        try:
-            scell = build_cell(arch, name, mesh, cfg=cfg)
-        except NotImplementedError as e:
-            serving[name] = str(e)
-            continue
-        sst = analyze_cell(scell)
+        sshape = get_shape(name)
+        if cfg.family == "ssm" and sshape.kind == "prefill":
+            sshape = ShapeConfig(name, XLSTM_PREFILL_SEQ,
+                                 sshape.global_batch, "prefill")
+        sst = analyze_cell(build_cell(arch, name, mesh, cfg=cfg,
+                                      shape=sshape))
         serving[name] = {"args": sst["argument_size_in_bytes"],
-                         "flops": sst["flops"],
+                         "flops": sst["flops"], "seq": sshape.seq_len,
                          "kernels": sst["hlo_stats"]["kernels"],
                          "collectives": sst["collectives"]["total_ops"]}
     cells[arch]["serving"] = serving
@@ -146,7 +147,6 @@ for tag, kw in (("split", {}), ("whole", {"logical": whole})):
 out["moe_decode_1x4"] = moe_cells
 
 # every serving cell of the production meshes: built, or refused
-from repro_torch.configs import get_shape
 serving_cells = {}
 for multi in (False, True):
     fake_world(512 if multi else 256)
@@ -181,7 +181,8 @@ with tempfile.TemporaryDirectory() as d:
     for arch, shp in (("qwen2-1.5b", "train_4k"),
                       ("qwen2-1.5b", "prefill_32k"),
                       ("qwen2-1.5b", "decode_32k"),
-                      ("hymba-1.5b", "decode_32k")):
+                      ("hymba-1.5b", "decode_32k"),
+                      ("hymba-1.5b", "long_500k")):
         dryrun.main(["--arch", arch, "--shape", shp, "--mesh", "single",
                      "--out", res, "--hlo-dir", hlo])
     before = json.load(open(res))
@@ -198,7 +199,7 @@ def _world_proc():
     """The fake-world subprocess, started at the module's first test."""
     proc = subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(WORLD_CODE),
-         json.dumps([SEQ, BATCH, ARCHS])],
+         json.dumps([SEQ, BATCH, ARCHS, XLSTM_PREFILL_SEQ])],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=ENV,
         cwd=REPO)
     yield proc
@@ -627,18 +628,21 @@ def test_fake_world_cells_come_out_ok_with_their_layouts_traffic(world):
         else:
             # the split compute adds its activations' all-reduces
             assert got["all-reduce"] > want["all-reduce"] + scalars, arch
-        # a model axis of 4: the dense and MoE decoders' and the VLM's
-        # serving cells build and count on the reference's layouts; the
-        # others are refused, the ROADMAP entry named
+        # a model axis of 4: every family's serving cells build and count
+        # on the reference's layouts; K1 a layer of the prefill (whisper's
+        # encoder, decoder and cross attention), none in the decode (its
+        # reads are plain); K5 a hymba layer and K6 an mLSTM layer of the
+        # prefill, with their final states
+        want = {"whisper-large-v3": {"K1": 6},
+                "hymba-1.5b": {"K1": 2, "K5": 2},
+                "xlstm-125m": {"K6": 1}}.get(arch, {"K1": 2})
         for name, got in cell["serving"].items():
-            if arch in SPLIT:
-                assert got["flops"] > 0 and got["collectives"] > 0
-                assert got["args"] == _reference_serving_args(arch, name), \
-                    (arch, name)
-                calls = got["kernels"].get("K1", {}).get("calls", 0)
-                assert calls == (2 if name == "prefill_32k" else 0), calls
-            else:
-                assert "sharded serving cells" in got, (arch, name, got)
+            assert got["flops"] > 0 and got["collectives"] > 0
+            assert got["args"] == _reference_serving_args(
+                arch, name, seq=got["seq"]), (arch, name)
+            calls = {k: v["calls"] for k, v in got["kernels"].items()
+                     if k in ("K1", "K5", "K6")}
+            assert calls == (want if name == "prefill_32k" else {}), calls
 
 
 def _local_bytes(shape, spec, dtype, sizes):
@@ -654,12 +658,12 @@ def _local_bytes(shape, spec, dtype, sizes):
     return -(-n // _ALLOC_ROUND) * _ALLOC_ROUND
 
 
-def _reference_serving_args(arch, shape_name, sizes=None):
+def _reference_serving_args(arch, shape_name, sizes=None, seq=None):
     """A rank's argument bytes of a reduced serving cell on the fake (4,
-    4) mesh (or one of ``sizes``), by the reference's own layouts on an
-    abstract mesh: its bf16 parameters by ``make_param_shardings``, the
-    prompts by ``batch_specs``, the decode cache by
-    ``cache_specs_sharding``."""
+    4) mesh (or one of ``sizes``; the shape's sequence cut to ``seq``), by
+    the reference's own layouts on an abstract mesh: its bf16 parameters
+    by ``make_param_shardings``, the prompts by ``batch_specs``, the
+    decode cache by ``cache_specs_sharding``."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import AbstractMesh
@@ -673,6 +677,8 @@ def _reference_serving_args(arch, shape_name, sizes=None):
     sizes = sizes or {"data": 4, "model": 4}
     mesh = AbstractMesh(tuple(sizes.values()), tuple(sizes))
     cfg, shape = jreduced(jget_config(arch)), jget_shape(shape_name)
+    if seq is not None:
+        shape = dataclasses.replace(shape, seq_len=seq)
     plan = jsh.Plan(dp_axes=("data",), fsdp_axes=("data",), remat="full")
     model = jbuild_model(cfg)
     specs, axes = model.param_specs()
@@ -716,20 +722,23 @@ def test_moe_decode_cell_holds_its_experts_split(world):
 
 
 def test_production_serving_cells_split_or_refused(world):
-    """On 16×16 and 2×16×16: the 28 prefill and decode cells of the
-    dense and MoE decoders and the VLM build; the 16 of hymba, the xLSTM
-    and whisper are refused, naming the ROADMAP entry."""
+    """On 16×16 and 2×16×16: the 40 prefill and decode cells of every
+    family at ``prefill_32k`` and ``decode_32k`` build; the 4
+    ``long_500k`` cells of hymba and the xLSTM are refused, naming the
+    ROADMAP entry."""
     cells = world["serving_cells"]
     assert len(cells) == 44
     ok = {k for k, v in cells.items() if v == "ok"}
     refused = {k: v for k, v in cells.items() if v != "ok"}
-    assert len(ok) == 28 and len(refused) == 16, sorted(refused)
+    assert len(ok) == 40 and len(refused) == 4, sorted(refused)
     for key, why in refused.items():
-        assert key.split("|")[0] in ("hymba-1.5b", "xlstm-125m",
-                                     "whisper-large-v3"), key
+        arch, shape, _ = key.split("|")
+        assert arch in ("hymba-1.5b", "xlstm-125m"), key
+        assert shape == "long_500k", key
         assert "sharded serving cells" in why, (key, why)
     for arch in ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
-                 "phi-3-vision-4.2b"):
+                 "phi-3-vision-4.2b", "whisper-large-v3", "hymba-1.5b",
+                 "xlstm-125m"):
         assert sum(k.startswith(arch + "|") for k in ok) == 4, arch
 
 
@@ -836,11 +845,15 @@ def test_dryrun_cli_and_reanalyze(world):
         served = before[f"baseline|qwen2-1.5b|{shp}|16x16"]
         assert served["ok"] and served["kind"] == shp.split("_")[0]
         assert served["flops"] > 0 and served["collectives"]["total_ops"] > 0
-    bad = before["baseline|hymba-1.5b|decode_32k|16x16"]
+    served = before["baseline|hymba-1.5b|decode_32k|16x16"]
+    assert served["ok"] and served["kind"] == "decode"
+    assert served["flops"] > 0 and served["collectives"]["total_ops"] > 0
+    bad = before["baseline|hymba-1.5b|long_500k|16x16"]
     assert not bad["ok"] and "sharded serving cells" in bad["error"]
     assert before["_skips"] and all(s["shape"] == "long_500k"
                                     for s in before["_skips"])
     assert world["cli"]["records"] == [
+        "baseline__hymba-1.5b__decode_32k__16x16.ops.json.gz"] + [
         f"baseline__qwen2-1.5b__{shp}__16x16.ops.json.gz"
         for shp in ("decode_32k", "prefill_32k", "train_4k")]
     assert after[key]["hlo_stats"] == rec["hlo_stats"]

@@ -267,18 +267,27 @@ def test_split_decode_refuses_a_cache_laid_out_otherwise():
 
 
 def test_other_families_keep_their_refusal():
-    for arch in ("hymba-1.5b", "xlstm-125m", "whisper-large-v3"):
+    """What stays refused: hymba's and the xLSTM's ``long_500k`` layout
+    (a batch of 1 the data axes do not split, so the K/V sequence goes
+    over the data axes and ``model`` together and the states over
+    ``model``), naming the ROADMAP entry.  At a batch the data axes
+    split, whisper's, hymba's and the xLSTM's layouts are served."""
+    mesh = _FakeMesh(4, data=2)
+    for arch in ("hymba-1.5b", "xlstm-125m"):
         model = build_model(reduced(get_config(arch)), "cpu")
         with pytest.raises(NotImplementedError,
                            match="sharded serving cells"):
-            make_serve_artifacts(model, _FakeMesh(4), Plan(), 4, 1024)
+            make_serve_artifacts(model, mesh, Plan(), 1, 2048)
+    for arch in ("hymba-1.5b", "xlstm-125m", "whisper-large-v3"):
+        model = build_model(reduced(get_config(arch)), "cpu")
+        make_serve_artifacts(model, mesh, Plan(), 4, 2048)
 
 
 class _FakeMesh:
-    """Sizes and this rank's place of a (1, m) mesh, with no group."""
+    """Sizes and this rank's place of a (data, m) mesh, with no group."""
 
-    def __init__(self, m):
-        self.shape = {"data": 1, "model": m}
+    def __init__(self, m, data=1):
+        self.shape = {"data": data, "model": m}
 
     def size(self, axes):
         axes = (axes,) if isinstance(axes, str) else tuple(axes)

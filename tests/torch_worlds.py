@@ -333,7 +333,8 @@ def serve_world(rank, mesh_shape, cases, max_seq, steps):
     """Each case ``{"arch", "over", "params", "tokens", "lens"}`` (the
     whole parameters, the global right-padded prompts and their lengths,
     or None: whole rows), and optionally ``"extra"`` (the global extra
-    inputs, each with the batch first: the VLM's image embeddings):
+    inputs, each with the batch first: the VLM's image embeddings, the
+    encoder-decoder's frames):
     ``serve/sharded.py``'s split prefill of this rank's rows into a cache
     of ``max_seq`` positions, then ``steps`` greedy decode steps.
     Returns per case this rank's logits of every step (whole over the
@@ -345,6 +346,7 @@ def serve_world(rank, mesh_shape, cases, max_seq, steps):
     from repro_torch.parallel import shard_tree
     from repro_torch.parallel.sharding import Plan, Sharding
     from repro_torch.serve.sharded import make_serve_artifacts
+    from repro_torch.tree import tree_map
 
     mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="cpu")
     out = {}
@@ -369,7 +371,7 @@ def serve_world(rank, mesh_shape, cases, max_seq, steps):
                 int(sum(int(s[i]) for s in moe.drop_stats)) for i in (0, 1))
         finally:
             moe.drop_stats = None
-        first = {k: v.clone() for k, v in cache.items()}
+        first = tree_map(lambda x: x.clone(), cache)
         seen, chosen = [logits], []
         for _ in range(steps):
             nxt = logits.argmax(-1).to(torch.int32)[:, None]
